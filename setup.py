@@ -13,7 +13,11 @@ setup(
         'plot': ['matplotlib'],
         'mne': ['mne'],
         'test': ['pytest', 'scipy'],
+        'torch': ['torch'],
     },
-    packages=find_packages(include=['ninwavelets_tpu', 'ninwavelets_tpu.*']),
+    packages=find_packages(include=['ninwavelets_tpu', 'ninwavelets_tpu.*',
+                                    'ninwavelets_tpu_torch',
+                                    'ninwavelets_tpu_torch.*']),
+    package_data={'ninwavelets_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
 )
