@@ -6,15 +6,20 @@
 What it does, failing (non-zero exit, no result line) if any check fails:
 
 1. Requires CUDA and prints the card's name and power limit (nvidia-smi).
-2. Builds the fused CWT kernel (``csrc/fused_cwt.cu``) with nvcc for sm_90a.
+2. Builds the kernels (``csrc/fused_cwt.cu``, the forward, and
+   ``csrc/fused_cwt_bwd.cu``, the power backward) with one nvcc call for
+   sm_90a into one library, and prints each kernel's registers and spills.
+
+Slice 1, serving:
+
 3. Drives the main path through the public entry points at the headline
    workload, 64 channels x 200 epochs x 2048 samples at 1 kHz, 100 Morse
    frequencies (1-100 Hz): ``EpochsWavelet.power_all`` with a (0, 0.2) s
    z-score baseline, ``itc_all`` and ``power_itc_all`` on
    ``Morse(interpolate=True)``; ``power_all`` on the default Morse
    (``interpolate=False``); ``itc_all`` on a ragged 19 epochs.  The launch
-   counters are zeroed just before and read just after; every epilogue must
-   have launched.
+   counters are zeroed just before and read just after; every forward
+   epilogue must have launched.
 4. Holds every kernel result against the plain ``torch.fft`` path on the
    same tensors: power max|d| / max|ref| <= 1e-5; the baselined (z-scored)
    power within that power tolerance carried through (p - mean) / std, cell
@@ -31,11 +36,39 @@ What it does, failing (non-zero exit, no result line) if any check fails:
    of 5 repetitions after warm-up, fresh input values each repetition,
    ``torch.cuda.synchronize()`` before each stop of the clock.
 
-The line before the last is the kernels' JSON record; the last line is
+Slice 2, training (at the JAX package's grad workload, ``bench.py:306-309``:
+64 epochs x 64 channels x 2048 samples, 100 Morse rows, interpolate=True):
+
+7. Drives ``learn_bank(..., use_fused=True)`` for 3 steps from 1.2 x the
+   Morse bank against the plain power of the Morse bank, the counters
+   zeroed just before: the loss must fall, and the forward "power" and the
+   "power_bwd" kernels must each have launched once a step.
+8. Holds the fused backward (the autograd Function's ds and dbank under a
+   seeded random cotangent) against ``mean_power_bwd`` on the same tensors,
+   max|d| / max|ref| <= 1e-4 each: at the full shape, at
+   ``interpolate=False`` with E = 8, and with F = 13 (a ragged row group);
+   then at every N the kernel takes (256 ... 16384, both ``interpolate``
+   settings) on a small batch.
+9. Known answers: the bank gradient of -mean(power) of phase-locked 60 Hz
+   epochs, summed over rows, peaks within a bin of 60 x 2048 / 1000; the
+   ITC Function's gradients equal plain autograd of ``itc_from_bank``
+   (rtol 1e-4, atol 1e-5 max); 5 steps of ``learn_bank`` at E = 8 follow
+   the plain path's losses (rtol 1e-3); ``fit_frequencies`` finds a 60 Hz
+   tone from [40, 75] Hz to within 1 Hz.
+10. Times the fused backward (rFFT + kernel + sums + iFFT) against
+   ``mean_power_bwd``, and one loss-and-gradient step on both paths; then
+   breaks both down by CUDA events.
+
+The line before the last is the kernels' JSON record, with each kernel's
+bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
+(5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
+H100 SXM's published fp32 peaks.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +84,11 @@ POWER_RTOL = 1e-5
 ITC_ATOL, ITC_ATOL_STRONG, STRONG_POWER = 2e-3, 1e-4, 1e-6
 KERNEL_SOURCE = "ninwavelets_tpu_torch/csrc/fused_cwt.cu"
 REPLACES = "ninwavelets_tpu/ops/fused.py:205"
+BWD_SOURCE = "ninwavelets_tpu_torch/csrc/fused_cwt_bwd.cu"
+BWD_REPLACES = "ninwavelets_tpu/ops/fused.py:880"
+E_GRAD, E_SMALL, F_RAGGED, STEPS = 64, 8, 13, 3
+GRAD_RTOL = 1e-4
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 
 
 class SmokeFailure(Exception):
@@ -67,15 +105,15 @@ def check(cond, msg):
         FAILURES.append(msg)
 
 
-def power_err(name, got, ref):
-    """max|d|, failing when max|d| / max|ref| > POWER_RTOL."""
+def rel_err(name, got, ref, gate=POWER_RTOL):
+    """max|d|, failing when max|d| / max|ref| > ``gate``."""
     check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
           f"{tuple(ref.shape)}")
     check(bool(got.isfinite().all()), f"{name}: non-finite values")
     err = (got - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    print(f"check {name}: max|d| {err} rel {rel} (gate {POWER_RTOL})")
-    check(rel <= POWER_RTOL, f"{name}: rel err {rel} > {POWER_RTOL}")
+    print(f"check {name}: max|d| {err} rel {rel} (gate {gate})")
+    check(rel <= gate, f"{name}: rel err {rel} > {gate}")
     return err
 
 
@@ -123,6 +161,50 @@ def itc_err(name, got, ref, ref_power):
     return err
 
 
+def fft_flops(n):
+    """5 N log2 N flops for a complex FFT of N points."""
+    return 5 * n * math.log2(n)
+
+
+def bound(flops, nbytes):
+    """(ms, "operations" | "bytes"): the least time for the work on the
+    card, the larger of flops / PEAK_FLOPS and bytes / PEAK_BYTES."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def print_ptxas(lib):
+    """Registers, shared memory and spills per kernel from ``ptxas -v``."""
+    name = "?"
+    with open(lib[:-3] + ".log") as fh:
+        for line in fh:
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                k = re.search(r"(fused_cwt(?:_bwd)?_kernel)I(.*?)EEv",
+                              m.group(1))
+                name = (f"{k.group(1)}<"
+                        + ",".join(re.findall(r"Li(\d+)E", k.group(2) + "E"))
+                        + ">") if k else m.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+
+def event_ms(fn):
+    """Mean device ms of ``fn`` over REPS back-to-back calls, by CUDA
+    events, after one warm-up call."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(REPS):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / REPS
+
+
 def median_ms(x, fns):
     """Median ms of each fn over REPS repetitions, fresh values in ``x``
     before every run, the fns taking turns (their order flips each rep)."""
@@ -141,6 +223,196 @@ def median_ms(x, fns):
             torch.cuda.synchronize()
             times[i].append((time.perf_counter() - t0) * 1e3)
     return [sorted(t)[REPS // 2] for t in times]
+
+
+def morse_bank(freqs, n, interpolate):
+    import ninwavelets_tpu_torch as nt
+    return nt.Morse(SFREQ, interpolate=interpolate,
+                    device="cuda").make_fft_wavelets(freqs, n / SFREQ)
+
+
+def tone_epochs(e, c, n, phase_locked=True, seed=1):
+    """60 Hz epochs plus 0.1 (phase-locked) or 0.2 (random phase) noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SFREQ
+    phase = (np.zeros((e, c, 1)) if phase_locked
+             else rng.uniform(0, 2 * np.pi, (e, c, 1)))
+    noise = 0.1 if phase_locked else 0.2
+    return (np.sin(2 * np.pi * 60.0 * t + phase)
+            + noise * rng.standard_normal((e, c, n))).astype(np.float32)
+
+
+def fused_grads(fn, x, bank, w, interpolate):
+    """(d/dx, d/dbank) of sum(w * fn(x, bank)) through autograd."""
+    import torch
+    xs = x.detach().requires_grad_(True)
+    bs = bank.detach().requires_grad_(True)
+    loss = (w * fn(xs, bs, interpolate)).sum()
+    return torch.autograd.grad(loss, (xs, bs))
+
+
+def training_phase():
+    """Slice 2: the training path at full width, its checks and times;
+    returns the fused backward's kernel record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt, fused
+
+    freqs = np.arange(1.0, F + 1.0)
+    gen = np.random.default_rng(2)
+    x = torch.from_numpy(gen.standard_normal((E_GRAD, C, N),
+                                             dtype=np.float32)).cuda()
+    bank = morse_bank(freqs, N, True)
+    target = cwt.mean_power_from_bank(x, bank, True)
+    torch.cuda.synchronize()
+
+    # -- the main path: learn_bank through both kernels ---------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    learned, losses = nt.learn_bank(x, 1.2 * bank, target, loss="mse",
+                                    steps=STEPS, lr=1e-3, use_fused=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    losses = losses.tolist()
+    print(f"training main path {time.perf_counter() - t0} s (E={E_GRAD} "
+          f"C={C} N={N} F={F}, {STEPS} steps, first calls included); "
+          f"losses {losses}; launches {counts}")
+    check(losses[-1] < losses[0], f"learn_bank loss did not fall: {losses}")
+    check(bool(learned.isfinite().all()), "learned bank not finite")
+    for key in ("power", "power_bwd"):
+        check(counts[key] == STEPS, f"{key!r} launched {counts[key]} times "
+              f"in {STEPS} training steps")
+
+    # -- the fused backward against mean_power_bwd, same tensors ------------
+    w = torch.from_numpy(gen.standard_normal((C, F, N),
+                                             dtype=np.float32)).cuda()
+    err_bwd = 0.0
+    runs = [("full shape", x, bank, w, True),
+            (f"interpolate=False E={E_SMALL}", x[:E_SMALL],
+             morse_bank(freqs, N, False), w, False),
+            (f"F={F_RAGGED}", x, bank[:F_RAGGED].contiguous(),
+             w[:, :F_RAGGED].contiguous(), True)]
+    for name, xs, bs, ws, interp in runs:
+        ds, dbank = fused_grads(fused.fused_mean_power_from_bank, xs, bs, ws,
+                                interp)
+        ds_ref, dbank_ref = fused.mean_power_bwd(xs, bs, interp, ws)
+        err = max(rel_err(f"fused backward ds, {name}", ds, ds_ref,
+                          GRAD_RTOL),
+                  rel_err(f"fused backward dbank, {name}", dbank, dbank_ref,
+                          GRAD_RTOL))
+        if name == "full shape":
+            err_bwd = err
+        del ds, dbank, ds_ref, dbank_ref
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        for interp in (True, False):
+            xs = torch.from_numpy(gen.standard_normal(
+                (3, 2, n), dtype=np.float32)).cuda()
+            ws = torch.from_numpy(gen.standard_normal(
+                (2, F_RAGGED, n), dtype=np.float32)).cuda()
+            bs = morse_bank(freqs[:F_RAGGED], n, interp)
+            got = fused._fused_power_bwd(xs, bs, ws, interp)
+            ref = fused.mean_power_bwd(xs, bs, interp, ws)
+            for part, g_, r_ in zip(("ds", "dbank"), got, ref):
+                rel_err(f"fused backward {part}, N={n} interpolate={interp}"
+                        f" E=3 C=2 F={F_RAGGED}", g_, r_, GRAD_RTOL)
+
+    # -- known answers --------------------------------------------------------
+    tone = torch.from_numpy(tone_epochs(8, 2, N)).cuda()
+    bank_g = bank.detach().requires_grad_(True)
+    (dbank,) = torch.autograd.grad(
+        -fused.fused_mean_power_from_bank(tone, bank_g, True).mean(), bank_g)
+    peak = int(dbank.sum(0).abs().argmax())
+    want = 60.0 * N / SFREQ
+    print(f"check 60 Hz bank gradient: peak at bin {peak} (want {want} +- 1)")
+    check(abs(peak - want) <= 1.0, f"bank gradient peaks at bin {peak}")
+
+    xi, bi = x[:4, :2], bank[:16]
+    wi = torch.from_numpy(gen.standard_normal((2, 16, N),
+                                              dtype=np.float32)).cuda()
+    got = fused_grads(fused.fused_itc_from_bank, xi, bi, wi, True)
+    ref = fused_grads(cwt.itc_from_bank, xi, bi, wi, True)
+    for part, g_, r_ in zip(("ds", "dbank"), got, ref):
+        d = (g_ - r_).abs()
+        tol = 1e-4 * r_.abs() + 1e-5 * r_.abs().max()
+        print(f"check ITC gradient {part}: max|d| {d.max().item()} "
+              f"(gate rtol 1e-4, atol 1e-5 max)")
+        check(bool((d <= tol).all()), f"ITC gradient {part} outside gate")
+
+    _, l_fused = nt.learn_bank(x[:E_SMALL], 1.2 * bank, target, steps=5,
+                               lr=1e-3, use_fused=True)
+    _, l_plain = nt.learn_bank(x[:E_SMALL], 1.2 * bank, target, steps=5,
+                               lr=1e-3, use_fused=False)
+    d = ((l_fused - l_plain).abs() / l_plain.abs()).max().item()
+    print(f"check learn_bank trajectory E={E_SMALL}: fused {l_fused.tolist()}"
+          f" plain {l_plain.tolist()} max rel {d} (gate 1e-3)")
+    check(d <= 1e-3, f"learn_bank trajectory rel {d} > 1e-3")
+
+    fitted, _ = nt.fit_frequencies(
+        torch.from_numpy(tone_epochs(6, 1, 1024, phase_locked=False)).cuda(),
+        nt.Morse(SFREQ, device="cuda")._wdef(), [40.0, 75.0], SFREQ,
+        steps=150, lr=0.02)
+    fitted = fitted.tolist()
+    print(f"check fit_frequencies: {fitted} Hz (want 60 +- 1)")
+    check(all(abs(f - 60.0) <= 1.0 for f in fitted),
+          f"fit_frequencies gave {fitted}")
+
+    # -- timing -------------------------------------------------------------
+    g = torch.empty_like(w)
+    ms, plain_ms = median_ms(x, [
+        lambda: fused._fused_power_bwd(x, bank, g.normal_(), True),
+        lambda: fused.mean_power_bwd(x, bank, True, g.normal_())])
+    print(f"time power backward (E={E_GRAD} C={C} N={N} F={F}, "
+          f"interpolate=True): kernel path {ms} ms, plain mean_power_bwd "
+          f"{plain_ms} ms")
+    param = bank.detach().clone().requires_grad_(True)
+
+    def step(power):
+        p = power(x, param, True)
+        return torch.autograd.grad(torch.mean(torch.square(p - target)),
+                                   param)
+
+    step_ms, step_plain_ms = median_ms(x, [
+        lambda: step(fused.fused_mean_power_from_bank),
+        lambda: step(cwt.mean_power_from_bank)])
+    print(f"time training step (loss and bank gradient, E={E_GRAD} C={C} "
+          f"N={N} F={F}): fused {step_ms} ms, plain {step_plain_ms} ms")
+
+    # -- breakdown by CUDA events ---------------------------------------------
+    spec = torch.fft.rfft(x)
+    k_bins = N // 2
+    dbank_part, t_part = kernels.fused_cwt_bwd(spec, bank, g, k_bins)
+    parts = {
+        "forward, fused_mean_power_from_bank": lambda:
+            fused.fused_mean_power_from_bank(x, bank, True),
+        "backward: rfft of the signals": lambda: torch.fft.rfft(x),
+        "backward: kernel alone": lambda:
+            kernels.fused_cwt_bwd(spec, bank, g, k_bins),
+        "backward: dbank sum over channels, pad": lambda:
+            torch.nn.functional.pad(dbank_part.sum(0) / N, (0, N - k_bins)),
+        "backward: t sum over row groups": lambda: t_part.sum(0),
+        "backward: ifft of t": lambda:
+            torch.fft.ifft(t_part[0], n=N).real,
+        "backward, whole fused path": lambda:
+            fused._fused_power_bwd(x, bank, g, True),
+    }
+    for name, fn in parts.items():
+        print(f"breakdown {name}: {event_ms(fn)} ms (CUDA events, mean of "
+              f"{REPS})")
+    print(f"t partials: {tuple(t_part.shape)} complex64, "
+          f"{t_part.numel() * 8 / 1e6} MB")
+    del spec, dbank_part, t_part
+
+    fft = fft_flops(N)
+    bound_ms, bound_by = bound(
+        E_GRAD * C * (fft / 2 + 2 * F * fft + fft),
+        4 * (2 * E_GRAD * C * N + 2 * F * N + C * F * N))
+    return {"name": "fused_cwt_bwd[power]", "route": "cuda",
+            "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+            "launches": counts["power_bwd"], "max_abs_err": err_bwd,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main() -> int:
@@ -163,10 +435,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernels.build()
     print(f"kernel build {time.perf_counter() - t0} s: {lib}")
-    with open(lib[:-3] + ".log") as fh:
-        for line in fh:
-            if "registers" in line or "spill" in line:
-                print("ptxas", line.strip())
+    print_ptxas(lib)
 
     data = np.random.default_rng(0).standard_normal((E, C, N),
                                                     dtype=np.float32)
@@ -191,25 +460,25 @@ def main() -> int:
     counts = dict(kernels.launches)
     print(f"main path {time.perf_counter() - t0} s (first calls: bank "
           f"builds and host-to-device copies included); launches {counts}")
-    for epilogue, count in counts.items():
-        check(count > 0, f"epilogue {epilogue!r} never launched on the "
-              "main path")
+    for epilogue in kernels.EPILOGUES:
+        check(counts[epilogue] > 0, f"epilogue {epilogue!r} never launched "
+              "on the main path")
 
     # -- kernel vs plain path, same tensors ---------------------------------
     x, bank = ew._all_data(), morse.fft_wavelets
     ref_power = cwt.mean_power_from_bank(x, bank, True)
     ref_itc = cwt.itc_from_bank(x, bank, True)
-    err = {"power": power_err(
+    err = {"power": rel_err(
         "power kernel alone", fused.fused_mean_power_from_bank(x, bank, True),
         ref_power)}
     baselined_err("power_all baselined", power_bl, ref_power)
     err["itc"] = itc_err("itc_all", itc, ref_itc, ref_power)
     err["power_itc"] = max(
-        power_err("power_itc_all power", pi_power, ref_power),
+        rel_err("power_itc_all power", pi_power, ref_power),
         itc_err("power_itc_all itc", pi_itc, ref_itc, ref_power))
     del ref_itc
     xf, bank_f = ew_full._all_data(), morse_full.fft_wavelets
-    err["power"] = max(err["power"], power_err(
+    err["power"] = max(err["power"], rel_err(
         "power_all interpolate=False", power_full,
         cwt.mean_power_from_bank(xf, bank_f, False)))
     xr, bank_r = ew_ragged._all_data(), ew_ragged.wavelet.fft_wavelets
@@ -249,11 +518,21 @@ def main() -> int:
         ms, plain_ms = median_ms(x, [kern, plain])
         print(f"time {epilogue} (E={E} C={C} N={N} F={F}, interpolate=True): "
               f"kernel {ms} ms, plain torch.fft {plain_ms} ms")
+        n_out = 2 if epilogue == "power_itc" else 1
+        bound_ms, bound_by = bound(
+            E * C * (fft_flops(N) / 2 + F * fft_flops(N)),
+            4 * (E * C * N + F * N + n_out * C * F * N))
         records.append({"name": f"fused_cwt[{epilogue}]", "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES,
                         "launches": counts[epilogue],
                         "max_abs_err": err[epilogue], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+    del x, pairs, power_bl, itc, pi_power, pi_itc, ref_power
+    torch.cuda.empty_cache()
+
+    # -- slice 2: training ----------------------------------------------------
+    records.append(training_phase())
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

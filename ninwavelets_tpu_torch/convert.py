@@ -4,12 +4,17 @@ A wavelet's "weights" are its hyper-parameters and its (F, N) bank.  Both are
 read here as plain Python and numpy values, so this module imports neither
 ``jax`` nor ``ninwavelets_tpu``: hand it the JAX object or arrays, or anything
 with the same attributes.
+
+Placement follows the port's rule (``device.resolve_device``): ``device=``
+wins; with no device the result goes to the CUDA card, and the call raises
+when CUDA is absent.  Pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models import zoo
 from .ops.bank import WaveletMode
 
@@ -21,7 +26,8 @@ _PARAMS = ("b", "r", "sigma", "gabor")
 def wavelet_from_jax(w, device=None):
     """The port's wavelet of the same class as ``w`` (a JAX-package wavelet),
     with the same ``sfreq``, ``b``, ``r``, ``sigma``, ``gabor``,
-    ``real_wave_length``, ``interpolate`` and ``mode``."""
+    ``real_wave_length``, ``interpolate`` and ``mode``, on ``device`` (the
+    card when None)."""
     name = type(w).__name__
     if name not in _CLASSES:
         raise TypeError(f"no port of wavelet class {name!r}; one of "
@@ -29,7 +35,8 @@ def wavelet_from_jax(w, device=None):
     kwargs = {k: getattr(w, k) for k in _PARAMS if hasattr(w, k)}
     out = _CLASSES[name](sfreq=float(w.sfreq),
                          real_wave_length=float(w.real_wave_length),
-                         interpolate=bool(w.interpolate), device=device,
+                         interpolate=bool(w.interpolate),
+                         device=resolve_device(device),
                          **kwargs)
     out.mode = WaveletMode[w.mode.name]
     return out
@@ -37,7 +44,9 @@ def wavelet_from_jax(w, device=None):
 
 def bank_from_jax(bank_r, bank_i=None, device=None) -> torch.Tensor:
     """The JAX float-pair bank (real part, imaginary part or None) as the
-    port's (F, N) bank: float32 when real, complex64 otherwise."""
+    port's (F, N) bank: float32 when real, complex64 otherwise, on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     real = np.asarray(bank_r, dtype=np.float32)
     if bank_i is None:
         return torch.from_numpy(real.copy()).to(device)

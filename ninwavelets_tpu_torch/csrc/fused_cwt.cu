@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "radix2.cuh"
+
 namespace {
 
 enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2 };
@@ -98,19 +100,7 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
 
     // Radix-2 decimation-in-time inverse FFT, natural-order output.
     for (int s = 1; s <= log2n; ++s) {
-      const int half = 1 << (s - 1);
-      const int tw_shift = log2n - s;
-      for (int j = tid; j < half_n; j += threads) {
-        const int pos = j & (half - 1);
-        const int i0 = ((j >> (s - 1)) << s) + pos;
-        const int i1 = i0 + half;
-        const float2 w = tw[pos << tw_shift];
-        const float2 a = buf[i0];
-        const float2 b = buf[i1];
-        const float2 t = make_float2(b.x * w.x - b.y * w.y, b.x * w.y + b.y * w.x);
-        buf[i0] = make_float2(a.x + t.x, a.y + t.y);
-        buf[i1] = make_float2(a.x - t.x, a.y - t.y);
-      }
+      radix2_dit_pass(buf, tw, s, log2n, tid, threads);
       __syncthreads();
     }
 

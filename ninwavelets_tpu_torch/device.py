@@ -1,0 +1,26 @@
+"""Where the port places its data when the caller does not say.
+
+The rule, for every entry point that takes ``device`` (and, on the wavelet
+classes, the reference's ``cuda`` flag): ``device=`` wins; else
+``cuda=False`` given explicitly means the CPU; else the CUDA card, and a
+``RuntimeError`` naming ``device="cpu"`` when CUDA is absent.  There is no
+quiet fallback to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def resolve_device(device=None, cuda: Optional[bool] = None) -> torch.device:
+    """The device an entry point places its data on (see the module
+    docstring)."""
+    if device is not None:
+        return torch.device(device)
+    if cuda is False:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError('CUDA is not available: the port runs on the card '
+                           'by default; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")

@@ -1,11 +1,13 @@
 """Loader and launchers for the hand-written CUDA kernels in ``../csrc``.
 
-The kernels are compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``.  Nothing is compiled or loaded when this
-module is imported: the first launch builds the library (or ``build()`` does it
-up front), keyed by a hash of the source, the compiler flags and the ``nvcc``
-version, and published with an atomic rename so concurrent builders race
-safely.  A failed build raises; there is no fallback.
+Every ``.cu`` source there is compiled by one ``nvcc`` call into one shared
+library with a plain C interface, loaded with ``ctypes``: the fused forward
+(``fused_cwt.cu``) and the fused power backward (``fused_cwt_bwd.cu``).
+Nothing is compiled or loaded when this module is imported: the first launch
+builds the library (or ``build()`` does it up front), keyed by a hash of every
+source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
+published with an atomic rename so concurrent builds race safely.  A failed
+build raises; there is no fallback.
 
 Each launcher validates its tensors (device, dtype, shape, contiguity),
 allocates its outputs with ``torch.empty``, launches on the current CUDA
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_cwt.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,8 +40,9 @@ EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2}
 #: block's shared memory holds N samples and N/2 twiddles, 12*N bytes).
 MIN_N, MAX_N = 256, 16384
 
-#: Kernel launches per epilogue since the last ``reset_launches()``.
-launches = dict.fromkeys(EPILOGUES, 0)
+#: Kernel launches since the last ``reset_launches()``: one key per epilogue
+#: of the forward kernel, and "power_bwd" for the power backward.
+launches = dict.fromkeys((*EPILOGUES, "power_bwd"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -54,33 +58,39 @@ def _nvcc() -> str:
     path = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
             else shutil.which("nvcc"))
     if not path or not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fused CWT kernel is built at "
-                           "first use and needs the CUDA toolkit (CUDA_HOME)")
+        raise RuntimeError("nvcc not found: the fused CWT kernels are built "
+                           "at first use and need the CUDA toolkit "
+                           "(CUDA_HOME)")
     return path
 
 
 def build() -> str:
-    """Compile ``csrc/fused_cwt.cu`` for sm_90a unless a library built from
-    the same source, flags and compiler exists; return its path.  The
-    compiler's report (registers, shared memory, spills) is kept beside the
-    library as ``<name>.log``."""
+    """Compile every ``csrc/*.cu`` for sm_90a into one library, unless a
+    library built from the same sources (headers included), flags and
+    compiler exists; return its path.  The compiler's report (registers,
+    shared memory, spills per kernel) is kept beside the library as
+    ``<name>.log``."""
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], check=True,
                              capture_output=True).stdout
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    key = b"\0".join([src, " ".join(NVCC_FLAGS).encode(), version])
-    lib = os.path.join(BUILD_DIR, "libninw_fused_cwt-%s.so"
-                       % hashlib.sha256(key).hexdigest()[:16])
+    key = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        with open(path, "rb") as fh:
+            key.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    key.update(b"\0".join([" ".join(NVCC_FLAGS).encode(), version]))
+    lib = os.path.join(BUILD_DIR, "libninw_kernels-%s.so"
+                       % key.hexdigest()[:16])
     if os.path.exists(lib):
         return lib
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp%d" % (lib, os.getpid())
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed (exit %d) on %s:\n%s"
-                           % (proc.returncode, SOURCE, proc.stderr))
+                           % (proc.returncode, " ".join(sources),
+                              proc.stderr))
     with open(lib[:-3] + ".log", "w") as fh:
         fh.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
@@ -96,6 +106,13 @@ def _load():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            fn = lib.ninw_fused_cwt_bwd
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p])
+            fn = lib.ninw_fused_cwt_bwd_rows
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int]
             _lib = lib
         return _lib
 
@@ -106,6 +123,42 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     m = np.arange(n // 2, dtype=np.float64)
     tw = np.exp(2j * np.pi * m / n).astype(np.complex64)
     return torch.from_numpy(tw).to(device)
+
+
+def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
+           g: torch.Tensor = None):
+    """Validate what a kernel takes: dtypes, ranks, contiguity and shapes
+    first, the device last.  Returns (E, C, L, F, N)."""
+    named = [("spec", spec, torch.complex64, 3),
+             ("bank", bank, torch.float32, 2)]
+    if g is not None:
+        named.append(("g", g, torch.float32, 3))
+    for name, t, dtype, ndim in named:
+        if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
+                             f"tensor, got {tuple(t.shape)} {t.dtype}")
+    e, c, row_len = spec.shape
+    f, n = bank.shape
+    if n < MIN_N or n > MAX_N or n & (n - 1):
+        raise ValueError(f"N={n} is not a power of two in [{MIN_N}, {MAX_N}]")
+    if k_bins not in (n // 2, n) or row_len < k_bins:
+        raise ValueError(f"k_bins={k_bins} needs N/2 or N bins of the "
+                         f"spectrum rows (length {row_len}, N={n})")
+    if e < 1 or c < 1 or c > 65535 or f < 1:
+        raise ValueError(f"empty or oversized batch: E={e}, C={c}, F={f}")
+    if g is not None and tuple(g.shape) != (c, f, n):
+        raise ValueError(f"g must be (C, F, N) = {(c, f, n)}, got "
+                         f"{tuple(g.shape)}")
+    for name, t, _, _ in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if len({t.device for _, t, _, _ in named}) != 1:
+        raise ValueError("the kernel's tensors must be on one device")
+    return e, c, row_len, f, n
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
@@ -126,36 +179,56 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     del precision
-    for name, t, dtype, ndim in (("spec", spec, torch.complex64, 3),
-                                 ("bank", bank, torch.float32, 2)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
-                             f"tensor, got {tuple(t.shape)} {t.dtype}")
-    if spec.device != bank.device:
-        raise ValueError("spec and bank must be on the same device")
-    e, c, row_len = spec.shape
-    f, n = bank.shape
-    if n < MIN_N or n > MAX_N or n & (n - 1):
-        raise ValueError(f"N={n} is not a power of two in [{MIN_N}, {MAX_N}]")
-    if k_bins not in (n // 2, n) or row_len < k_bins:
-        raise ValueError(f"k_bins={k_bins} needs N/2 or N bins of the "
-                         f"spectrum rows (length {row_len}, N={n})")
-    if e < 1 or c < 1 or c > 65535 or f < 1:
-        raise ValueError(f"empty or oversized batch: E={e}, C={c}, F={f}")
+    e, c, row_len, f, n = _check(spec, bank, k_bins)
     lib = _load()
     outs = [torch.empty((c, f, n), dtype=torch.float32, device=spec.device)
             for _ in range(2 if epilogue == "power_itc" else 1)]
     with torch.cuda.device(spec.device):
-        stream = torch.cuda.current_stream(spec.device).cuda_stream
         err = lib.ninw_fused_cwt(
             EPILOGUES[epilogue], spec.data_ptr(), bank.data_ptr(),
             _twiddles(n, spec.device).data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr() if len(outs) > 1 else None,
-            e, c, f, n, k_bins, row_len, stream)
+            e, c, f, n, k_bins, row_len, _stream(spec.device))
     if err != 0:
         raise RuntimeError(f"fused_cwt[{epilogue}] launch failed: CUDA error "
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
     launches[epilogue] += 1
     return outs
+
+
+def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
+                  k_bins: int):
+    """Launch the fused power backward (``csrc/fused_cwt_bwd.cu``).
+
+    Args:
+      spec: (E, C, L) complex64 CUDA tensor, contiguous, as for
+        ``fused_cwt``: the first ``k_bins`` bins of each row are used.
+      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      g: (C, F, N) float32 CUDA tensor, contiguous: the cotangent of the
+        epoch-mean power plane.
+      k_bins: N/2 on the analytic path, N otherwise.
+
+    Returns ``(dbank_part, t_part)``: (C, F, K) float32, the per-channel
+    sum over epochs of Re(u conj S), and (groups, E, C, K) complex64, the
+    per-row-group sum of bank x u, with u = fft((2/E) g ifft(bank S)) on
+    the first K = ``k_bins`` bins.  ``ops.fused`` completes them to the
+    gradients.
+    """
+    e, c, row_len, f, n = _check(spec, bank, k_bins, g)
+    lib = _load()
+    rows = lib.ninw_fused_cwt_bwd_rows(n)
+    dbank_part = torch.empty((c, f, k_bins), dtype=torch.float32,
+                             device=spec.device)
+    t_part = torch.empty((-(-f // rows), e, c, k_bins), dtype=torch.complex64,
+                         device=spec.device)
+    with torch.cuda.device(spec.device):
+        err = lib.ninw_fused_cwt_bwd(
+            spec.data_ptr(), bank.data_ptr(), g.data_ptr(),
+            _twiddles(n, spec.device).data_ptr(), dbank_part.data_ptr(),
+            t_part.data_ptr(), e, c, f, n, k_bins, row_len,
+            _stream(spec.device))
+    if err != 0:
+        raise RuntimeError(f"fused_cwt_bwd launch failed: CUDA error {err} "
+                           f"(E={e}, C={c}, F={f}, N={n})")
+    launches["power_bwd"] += 1
+    return dbank_part, t_part

@@ -6,9 +6,10 @@ A subclass supplies only formulas (``formula``, ``trans_formula``,
 and the CWT.  The formulas take tensors and broadcast: the bank is built by
 one call on a (1, N) grid against an (F, 1) column of frequencies.
 
-The placement is explicit: ``device=`` wins; otherwise ``cuda=True`` (the
-reference's flag) means ``"cuda"`` and raises when CUDA is absent; the
-default is the CPU.  Every bank is built from the current parameters, so
+The placement follows ``device.resolve_device``: ``device=`` wins; an
+explicit ``cuda=False`` (the reference's flag) means the CPU; otherwise the
+data go to ``"cuda"``, and the constructor raises when CUDA is absent, so
+``device="cpu"`` is how a caller asks for the CPU.  Every bank is built from the current parameters, so
 mutating ``morse.b`` takes effect at the next build.  With ``reuse=True``
 (the default) a cached bank is NOT rebuilt, even for a new signal length or
 new parameters: it is center-padded / truncated to the signal, the
@@ -21,24 +22,13 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import bank as _bank
 from ..ops.bank import WaveletDef, WaveletMode
 from ..ops.cwt import abs_from_bank, cwt_from_bank, power_from_bank
 from ..ops.signal_utils import pad_to
 
 Numbers = Union[Sequence[float], np.ndarray, range, torch.Tensor]
-
-
-def _resolve_device(cuda: bool = False, device=None) -> torch.device:
-    """``device`` if given; else CUDA when ``cuda`` (raising if CUDA is
-    absent); else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if cuda:
-        if not torch.cuda.is_available():
-            raise RuntimeError("cuda=True but CUDA is not available")
-        return torch.device("cuda")
-    return torch.device("cpu")
 
 
 class WaveletBase:
@@ -48,7 +38,7 @@ class WaveletBase:
     """
 
     def __init__(self, sfreq: float = 1000, real_wave_length: float = 1.,
-                 interpolate: bool = True, cuda: bool = False,
+                 interpolate: bool = True, cuda: Optional[bool] = None,
                  device=None) -> None:
         self.mode: WaveletMode = WaveletMode.Normal
         self.sfreq: float = sfreq
@@ -57,7 +47,7 @@ class WaveletBase:
         self.freq_dist: float = 0.0  # distance between analysis freqs (cwt)
         self.interpolate = interpolate
         self.cuda = cuda
-        self.device = _resolve_device(cuda, device)
+        self.device = resolve_device(device, cuda)
 
     # -- subclass hooks ------------------------------------------------------
 

@@ -4,6 +4,8 @@ defaults plus ``device``.  Every formula delegates to ``ops.spectra``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops import spectra
@@ -22,7 +24,7 @@ class Morse(WaveletBase):
 
     def __init__(self, sfreq: float = 1000, b: float = 17.5, r: float = 3,
                  real_wave_length: float = 1.,
-                 interpolate: bool = False, cuda: bool = False,
+                 interpolate: bool = False, cuda: Optional[bool] = None,
                  device=None) -> None:
         super().__init__(sfreq, real_wave_length, interpolate, cuda, device)
         self.r = float(r)
@@ -44,7 +46,7 @@ class Morlet(WaveletBase):
     def __init__(self, sfreq: float = 1000, sigma: float = 7.,
                  real_wave_length: float = 1.,
                  gabor: bool = False, interpolate: bool = False,
-                 cuda: bool = False, device=None) -> None:
+                 cuda: Optional[bool] = None, device=None) -> None:
         super().__init__(sfreq, real_wave_length, interpolate, cuda, device)
         self.mode = WaveletMode.Both
         self.sigma = float(sigma)
@@ -67,7 +69,7 @@ class MexicanHat(WaveletBase):
 
     def __init__(self, sfreq: float = 1000, sigma: float = 7,
                  real_wave_length: float = 1.,
-                 interpolate: bool = False, cuda: bool = False,
+                 interpolate: bool = False, cuda: Optional[bool] = None,
                  device=None) -> None:
         super().__init__(sfreq, real_wave_length, interpolate, cuda, device)
         self.sigma = float(sigma)
@@ -87,7 +89,7 @@ class Shannon(WaveletBase):
 
     def __init__(self, sfreq: float = 1000, sigma: float = 7,
                  real_wave_length: float = 1.,
-                 interpolate: bool = False, cuda: bool = False,
+                 interpolate: bool = False, cuda: Optional[bool] = None,
                  device=None) -> None:
         super().__init__(sfreq, real_wave_length, interpolate, cuda, device)
         self.sigma = float(sigma)

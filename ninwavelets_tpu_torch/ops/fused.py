@@ -1,6 +1,7 @@
 """Fused epoch reductions: bank x spectrum x inverse DFT x |.|^2 / unit phase
-x epoch sum in one hand-written CUDA kernel (port of the forward path of
-``ninwavelets_tpu.ops.fused``; kernel source ``csrc/fused_cwt.cu``).
+x epoch sum in one hand-written CUDA kernel, and the power's backward in a
+second one (port of ``ninwavelets_tpu.ops.fused``; kernel sources
+``csrc/fused_cwt.cu`` and ``csrc/fused_cwt_bwd.cu``).
 
 Dispatch, with no fallback that hides the device or the kernel:
 
@@ -17,13 +18,27 @@ Dispatch, with no fallback that hides the device or the kernel:
 The signal FFT runs outside the kernel, as ``torch.fft.rfft`` on the analytic
 path (``interpolate=True``) and ``torch.fft.fft`` otherwise.  Everything from
 bank x spectrum to the epoch reduction is inside the kernel, in float32.
+
+Gradients, as in the JAX package's custom VJPs:
+
+* ``fused_mean_power_from_bank`` is an autograd Function on every device.
+  Its backward is the analytic adjoint: the fused backward kernel on the
+  card, ``mean_power_bwd`` (its plain version) on the CPU.  It saves only
+  its inputs, and recomputes the coefficients.
+* ``fused_itc_from_bank`` is an autograd Function whose backward
+  differentiates the plain ``itc_from_bank`` (the JAX package does the same
+  with ``jax.vjp``).
+* ``fused_power_itc_from_bank`` has no derivative: on the card it raises
+  when an input requires grad.  On the CPU it is the two plain reductions,
+  which torch differentiates.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
-from .cwt import itc_from_bank, mean_power_from_bank
+from .cwt import analytic_spectrum, itc_from_bank, mean_power_from_bank
+from .grids import analytic_mask
 
 #: Precision names the wrappers take.  The CUDA kernel computes in float32
 #: for every name (float32 meets the tightest, "exact", tolerance).
@@ -79,42 +94,159 @@ def _launch(epilogue, signals, bank, interpolate, precision):
                              precision)
 
 
+def mean_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
+                   interpolate: bool, g: torch.Tensor):
+    """Analytic adjoint of ``mean_power_from_bank``: the cotangent g of the
+    (C, F, N) power plane -> ``(ds, dbank)``, shaped like ``signals`` and
+    ``bank`` (port of ``_mean_power_bwd`` and ``_mean_power_bwd_complex``,
+    ``ninwavelets_tpu/ops/fused.py:753-831``).  The plain version of the
+    fused backward kernel, and what the CPU runs.
+
+    Per epoch, with S = the (masked) spectrum and x = ifft(bank S):
+    u = fft((2/E) g x); t = sum_f conj(bank) u; ds = ifft(mask t) (its real
+    part for real signals); dbank = sum_{e,c} u conj(S) / N (its real part
+    for a real bank).  One epoch at a time, so memory stays O(C F N).
+
+    A complex bank gets PyTorch's gradient convention, sum u conj(S) / N:
+    the conjugate of the JAX package's sum conj(u) S / N.  Both describe
+    the same derivative; gradient descent steps against PyTorch's.
+    """
+    e, n = signals.shape[0], signals.shape[-1]
+    scale = 2.0 / e
+    mask = (analytic_mask(n, torch.float32, signals.device) if interpolate
+            else None)
+    cbank = bank.conj() if bank.is_complex() else bank
+    ds = torch.empty_like(signals)
+    dbank = torch.zeros_like(bank)
+    for i, sig in enumerate(signals):
+        spec = analytic_spectrum(sig, interpolate)[..., None, :]    # (C,1,N)
+        u = torch.fft.fft(scale * g * torch.fft.ifft(spec * bank))
+        t = (cbank * u).sum(-2)
+        if mask is not None:
+            t = t * mask
+        ds_e = torch.fft.ifft(t)
+        ds[i] = ds_e if signals.is_complex() else ds_e.real
+        prod = (u * spec.conj()).sum(0) / n
+        dbank += prod if bank.is_complex() else prod.real
+    return ds, dbank
+
+
+def _fused_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
+                     g: torch.Tensor, interpolate: bool):
+    """``mean_power_bwd`` through the fused backward kernel (real signals
+    and bank on the card): the spectra, one launch, then the sums and the
+    one inverse FFT that complete it, as the JAX package's
+    ``_fused_power_bwd`` does in XLA."""
+    n = signals.shape[-1]
+    signals32 = signals.to(torch.float32)
+    if interpolate:
+        spec, k_bins = torch.fft.rfft(signals32), n // 2
+    else:
+        spec, k_bins = torch.fft.fft(signals32), n
+    dbank_part, t_part = kernels.fused_cwt_bwd(
+        spec.contiguous(), bank.to(torch.float32).contiguous(),
+        g.to(torch.float32).contiguous(), k_bins)
+    dbank = torch.nn.functional.pad(dbank_part.sum(0) / n, (0, n - k_bins))
+    ds = torch.fft.ifft(t_part.sum(0), n=n).real
+    return ds.to(signals.dtype), dbank.to(bank.dtype)
+
+
+class _FusedMeanPower(torch.autograd.Function):
+    """Epoch-mean power with the analytic adjoint as its backward (port of
+    ``_fused_power_mean_vjp``): the kernels on the card, the plain versions
+    on the CPU.  Saves the inputs only."""
+
+    @staticmethod
+    def forward(ctx, signals, bank, interpolate, precision):
+        ctx.interpolate = interpolate
+        ctx.save_for_backward(signals, bank)
+        if signals.device.type == "cpu":
+            return mean_power_from_bank(signals, bank, interpolate)
+        return _launch("power", signals, bank, interpolate, precision)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        signals, bank = ctx.saved_tensors
+        need_s, need_b = ctx.needs_input_grad[:2]
+        if not (need_s or need_b):
+            return None, None, None, None
+        if signals.device.type == "cpu":
+            ds, dbank = mean_power_bwd(signals, bank, ctx.interpolate, g)
+        else:
+            ds, dbank = _fused_power_bwd(signals, bank, g, ctx.interpolate)
+        return (ds if need_s else None), (dbank if need_b else None), \
+            None, None
+
+
+class _FusedItc(torch.autograd.Function):
+    """ITC whose backward differentiates the plain ``itc_from_bank`` (port
+    of ``_fused_itc_vjp``): the forward is the kernel on the card, the plain
+    path on the CPU."""
+
+    @staticmethod
+    def forward(ctx, signals, bank, interpolate, precision):
+        ctx.interpolate = interpolate
+        ctx.save_for_backward(signals, bank)
+        if signals.device.type == "cpu":
+            return itc_from_bank(signals, bank, interpolate)
+        return _launch("itc", signals, bank, interpolate, precision)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        signals, bank = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        inputs = [x.detach().requires_grad_(n) for x, n in
+                  zip((signals, bank), need)]
+        wanted = [x for x, n in zip(inputs, need) if n]
+        if not wanted:
+            return None, None, None, None
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(
+                itc_from_bank(*inputs, ctx.interpolate), wanted, g))
+        return tuple(next(grads) if n else None for n in need) + (None, None)
+
+
 def fused_mean_power_from_bank(signals: torch.Tensor, bank: torch.Tensor,
                                interpolate: bool = True,
                                precision: str = DEFAULT_PRECISION
                                ) -> torch.Tensor:
     """Epoch-mean power TFR: (E, C, N) x (F, N) -> (C, F, N) float32, equal
-    to ``ops.cwt.mean_power_from_bank`` at float32 tolerance."""
+    to ``ops.cwt.mean_power_from_bank`` at float32 tolerance, and
+    differentiable in both arguments (see the module docstring)."""
     _check_precision(precision)
-    if signals.device.type == "cpu":
-        return mean_power_from_bank(signals, bank, interpolate)
-    return _launch("power", signals, bank, interpolate, precision)[0]
+    return _FusedMeanPower.apply(signals, bank, interpolate, precision)
 
 
 def fused_itc_from_bank(signals: torch.Tensor, bank: torch.Tensor,
                         interpolate: bool = True,
                         precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Inter-trial coherence ``| mean_E cwt/|cwt| |``: (E, C, N) x (F, N) ->
-    (C, F, N) float32.  A zero coefficient gives NaN, as in the reference.
+    (C, F, N) float32, differentiable in both arguments.  A zero coefficient
+    gives NaN, as in the reference.
 
     The unit-phase division amplifies coefficient round-off where |c| is
     near zero, so ITC differs from the plain path most in cells of
     negligible power."""
     _check_precision(precision)
-    if signals.device.type == "cpu":
-        return itc_from_bank(signals, bank, interpolate)
-    return _launch("itc", signals, bank, interpolate, precision)[0]
+    return _FusedItc.apply(signals, bank, interpolate, precision)
 
 
 def fused_power_itc_from_bank(signals: torch.Tensor, bank: torch.Tensor,
                               interpolate: bool = True,
                               precision: str = DEFAULT_PRECISION):
     """Epoch-mean power AND inter-trial coherence off one pass:
-    (E, C, N) x (F, N) -> ((C, F, N), (C, F, N))."""
+    (E, C, N) x (F, N) -> ((C, F, N), (C, F, N)).  Not differentiable on the
+    card: it raises there when an input requires grad."""
     _check_precision(precision)
     if signals.device.type == "cpu":
         return (mean_power_from_bank(signals, bank, interpolate),
                 itc_from_bank(signals, bank, interpolate))
+    if torch.is_grad_enabled() and (signals.requires_grad
+                                    or bank.requires_grad):
+        raise RuntimeError(
+            "fused_power_itc_from_bank has no derivative on the card; for "
+            "gradients call fused_mean_power_from_bank and "
+            "fused_itc_from_bank, which are differentiable")
     power, itc = _launch("power_itc", signals, bank, interpolate, precision)
     return power, itc
 

@@ -23,11 +23,11 @@ from ninwavelets_tpu_torch.ops import spectra as tspec
 SFREQ = 1000.0
 RTOL = 1e-5
 FAMILIES = {
-    "morse": lambda m: m.Morse(SFREQ),
-    "morlet": lambda m: m.Morlet(SFREQ),
-    "shannon": lambda m: m.Shannon(SFREQ),
-    "mexican_hat": lambda m: m.MexicanHat(SFREQ),
-    "haar": lambda m: m.Haar(SFREQ),
+    "morse": lambda m, **kw: m.Morse(SFREQ, **kw),
+    "morlet": lambda m, **kw: m.Morlet(SFREQ, **kw),
+    "shannon": lambda m, **kw: m.Shannon(SFREQ, **kw),
+    "mexican_hat": lambda m, **kw: m.MexicanHat(SFREQ, **kw),
+    "haar": lambda m, **kw: m.Haar(SFREQ, **kw),
 }
 
 
@@ -121,7 +121,7 @@ def test_morlet_norm_quirk():
 def _banks(family, interpolate, n):
     jw = FAMILIES[family](nw)
     jw.interpolate = interpolate
-    tw = convert.wavelet_from_jax(jw)
+    tw = convert.wavelet_from_jax(jw, device="cpu")
     freqs = np.arange(1.0, 100.0, 7.0, dtype=np.float32)    # F = 15
     want = np.asarray(jbank.make_fft_bank(
         jw._wdef(), jnp.asarray(freqs), n, SFREQ, interpolate,
@@ -156,7 +156,7 @@ def test_twice_quirks():
     """Normal/Twice rows are abs-of-parts (both parts >= 0) and their FFT is
     sized by the constructor's real_wave_length, then pad_to the signal."""
     jw, tw = nw.MexicanHat(SFREQ, real_wave_length=0.5), nt.MexicanHat(
-        SFREQ, real_wave_length=0.5)
+        SFREQ, real_wave_length=0.5, device="cpu")
     freqs = np.array([5.0, 20.0], np.float32)
     got = tbank.make_fft_bank(tw._wdef(), freqs, 1024, SFREQ, False, 0.5)
     want = np.asarray(jbank.make_fft_bank(jw._wdef(), jnp.asarray(freqs),
@@ -170,7 +170,7 @@ def test_twice_quirks():
 def test_twice_mode_reverse_family():
     """A Reverse formula run in Twice mode goes through the time-domain
     iFFT path (the reverse timeline) before the abs-of-parts FFT."""
-    jw, tw = nw.Morse(SFREQ), nt.Morse(SFREQ)
+    jw, tw = nw.Morse(SFREQ), nt.Morse(SFREQ, device="cpu")
     jw.mode = jbank.WaveletMode.Twice
     tw.mode = tbank.WaveletMode.Twice
     freqs = np.array([10.0, 30.0], np.float32)
@@ -183,7 +183,7 @@ def test_twice_mode_reverse_family():
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_single_wavelets_match_jax(family):
-    jw, tw = FAMILIES[family](nw), FAMILIES[family](nt)
+    jw, tw = FAMILIES[family](nw), FAMILIES[family](nt, device="cpu")
     assert _rel(tw.make_fft_wavelet(10.0).numpy(),
                 np.asarray(jw.make_fft_wavelet(10.0))) <= RTOL
     got = tw.make_wavelet(15.0).numpy()

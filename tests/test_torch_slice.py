@@ -40,7 +40,7 @@ def _adapters(interpolate, family="Morse", **kw):
     je, te = _epochs(**kw)
     jw = getattr(nw, family)(SFREQ, interpolate=interpolate)
     return (nw.EpochsWavelet(je, jw),
-            nt.EpochsWavelet(te, convert.wavelet_from_jax(jw)))
+            nt.EpochsWavelet(te, convert.wavelet_from_jax(jw, device="cpu")))
 
 
 @pytest.mark.parametrize("interpolate", [True, False])
@@ -87,7 +87,7 @@ def test_per_channel_calls_match_jax(family):
 
 def test_epochs_cache_follows_the_data():
     _, te = _epochs()
-    tew = nt.EpochsWavelet(te, nt.Morse(SFREQ))
+    tew = nt.EpochsWavelet(te, nt.Morse(SFREQ, device="cpu"))
     a = tew.power_all(FREQS)
     te._data = te._data[:, :2]
     te.ch_names = te.ch_names[:2]
@@ -152,7 +152,7 @@ def test_baseline_class_and_correct_match_jax(method):
 
 def test_morse_power_of_60hz_sine_peaks_at_row_60():
     sin = np.sin(np.arange(0, 3, 0.001) * 60 * 2 * np.pi)
-    p = nt.Morse(SFREQ, 17.5, 3).power(sin, range(1, 100))
+    p = nt.Morse(SFREQ, 17.5, 3, device="cpu").power(sin, range(1, 100))
     assert p.shape == (99, 3000)
     assert int(torch.argmax(p.mean(-1))) + 1 == 60
 
@@ -162,7 +162,7 @@ def test_morse_power_of_60hz_sine_peaks_at_row_60():
 def test_class_layer_matches_jax(family):
     sig = make_example(1.0)
     jw = getattr(nw, family)(SFREQ, interpolate=True)
-    tw = convert.wavelet_from_jax(jw)
+    tw = convert.wavelet_from_jax(jw, device="cpu")
     freqs = np.arange(1.0, 100.0, 7.0)
     assert _rel(tw.cwt(sig, freqs).numpy(), jw.cwt(sig, freqs)) <= RTOL
     assert _rel(tw.power(sig).numpy(), jw.power(sig)) <= RTOL
@@ -178,7 +178,7 @@ def test_stale_bank_contract_matches_jax():
     """reuse=True keeps the cached bank (center-padded / truncated to the
     signal) even after a parameter change; reuse=False rebuilds it from the
     current parameters.  The JAX package behaves the same way."""
-    jm, tm = nw.Morse(SFREQ), nt.Morse(SFREQ)
+    jm, tm = nw.Morse(SFREQ), nt.Morse(SFREQ, device="cpu")
     freqs = np.arange(1.0, 50.0, 5.0)
     sin1, sin2 = make_example(1.0), make_example(2.0)
     tm.cwt(sin1, freqs)
@@ -201,7 +201,7 @@ def test_stale_bank_contract_matches_jax():
 
 
 def test_freq_errors():
-    m = nt.Morse(SFREQ)
+    m = nt.Morse(SFREQ, device="cpu")
     with pytest.raises(ZeroDivisionError):
         m.cwt(make_example(1.0), [0.0, 10.0])
     with pytest.raises(ZeroDivisionError):
@@ -211,9 +211,9 @@ def test_freq_errors():
     with pytest.raises(ValueError):
         m.cwt(make_example(1.0), [])
     with pytest.raises(ValueError):
-        nt.Morse(SFREQ).cwt(make_example(1.0))       # no freqs, no bank
+        nt.Morse(SFREQ, device="cpu").cwt(make_example(1.0))   # no bank
     with pytest.raises(AttributeError):
-        nt.Morse(SFREQ).fft_wavelets
+        nt.Morse(SFREQ, device="cpu").fft_wavelets
     m.make_fft_wavelets([10.0])
     assert m.freq_dist == 0.0 and m.fft_wavelets.shape == (1, 1000)
     m.make_fft_wavelets(torch.tensor([10.0, 12.5]))
@@ -221,14 +221,26 @@ def test_freq_errors():
 
 
 def test_device_selection():
-    assert nt.Morse(SFREQ).device == torch.device("cpu")
-    assert nt.Morse(SFREQ, cuda=True, device="cpu").device == torch.device(
-        "cpu")                                         # device= wins
-    if torch.cuda.is_available():
-        assert nt.Morse(SFREQ, cuda=True).device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="CUDA"):
-            nt.Morse(SFREQ, cuda=True)
+    """The card unless the caller asks for the CPU: ``device=`` wins, an
+    explicit ``cuda=False`` means the CPU, and with neither the wavelet goes
+    to CUDA, raising (with the way out named) when CUDA is absent."""
+    cpu = torch.device("cpu")
+    assert nt.Morse(SFREQ, device="cpu").device == cpu
+    assert nt.Morse(SFREQ, cuda=True, device="cpu").device == cpu  # wins
+    assert nt.Morse(SFREQ, cuda=False).device == cpu
+    assert nt.Haar(SFREQ, device="cpu").device == cpu
+    assert convert.bank_from_jax(np.ones((2, 8)), device="cpu").device == cpu
+    defaults = [lambda: nt.Morse(SFREQ), lambda: nt.Morse(SFREQ, cuda=True),
+                lambda: nt.Haar(SFREQ),
+                lambda: convert.wavelet_from_jax(nw.Morse(SFREQ)),
+                lambda: convert.bank_from_jax(np.ones((2, 8)))]
+    for make in defaults:
+        if torch.cuda.is_available():
+            out = make()
+            assert getattr(out, "device").type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                make()
 
 
 @pytest.mark.parametrize("family", ["Morse", "Morlet", "Shannon",
@@ -238,7 +250,7 @@ def test_convert_round_trip(family):
     if family == "Morse":
         jw.b, jw.r = 9.0, 2.5
     jw.mode = nw.WaveletMode.Both if family == "Morlet" else jw.mode
-    tw = convert.wavelet_from_jax(jw)
+    tw = convert.wavelet_from_jax(jw, device="cpu")
     assert type(tw).__name__ == family and tw.mode.name == jw.mode.name
     for key in ("sfreq", "real_wave_length", "interpolate", "b", "r",
                 "sigma", "gabor"):
@@ -246,7 +258,7 @@ def test_convert_round_trip(family):
     freqs = jnp.arange(5.0, 45.0, 10.0)
     br, bi = jbank.make_fft_bank_ri(jw._wdef(), freqs, 1024, SFREQ, True)
     bank = convert.bank_from_jax(np.asarray(br), None if bi is None
-                                 else np.asarray(bi))
+                                 else np.asarray(bi), device="cpu")
     assert bank.dtype == (torch.float32 if bi is None else torch.complex64)
     tw.make_fft_wavelets(np.asarray(freqs), 1.024)
     assert _rel(bank.numpy(), tw.fft_wavelets.numpy()) <= 1e-5
