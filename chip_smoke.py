@@ -59,6 +59,36 @@ Slice 2, training (at the JAX package's grad workload, ``bench.py:306-309``:
    ``mean_power_bwd``, and one loss-and-gradient step on both paths; then
    breaks both down by CUDA events.
 
+Slice 3, long recordings (the JAX package's streaming bench geometry,
+``bench.py:58-77``: 10 min at 1 kHz, 100 Morse rows over 2-100 Hz,
+``interpolate=True``, window 11524 -> halo 2430 -> extended window 16384,
+window batch 8; here with 64 channels riding the batch):
+
+11. Drives ``RawWavelet(raw, Morse(interpolate=True), window=11524,
+   batch=8).power`` on a duck-typed 64 x 600,000 raw (seeded noise, a
+   60 Hz tone on channel 0), the counters zeroed just before: "power_each"
+   (K4) must launch once per window batch (7), and the (64, 100, 600000)
+   plane must be finite.
+12. Holds K4 against its plain version (``ops.cwt.power_from_bank``) on
+   the same tensors, max|d| / max|ref| <= 1e-5: the first and the ragged
+   last window batch at all 64 channels; the whole plane of 4 channels
+   against ``StreamingCWT(use_fused=False)``; a small batch at every N
+   from 256 to 16384 at both ``interpolate`` settings.  Known answers:
+   channel 0's interior matches one whole-signal 600,000-point transform
+   to 1e-3 of the max (the JAX package's gate); its strongest row is the
+   one nearest 60 Hz.
+13. ``OnlineCWT`` fed channel 0 in seeded random chunks must be
+   bit-identical to ``StreamingCWT(batch=1).power``.
+14. ``Morse(interpolate=True).scattering`` on 16 x 4096 samples (freqs1 =
+   geomspace(8, 400, 24), freqs2 = geomspace(1, 64, 12), stride 32;
+   ``benchmarks/extensions_bench.py:88-103``) runs both modulus layers
+   through K4 and matches ``use_fused=False``, S1 and S2 rel <= 1e-5.
+15. Times (median of 5 after warm-up, fresh values each run): one
+   64-channel window batch through K4 and through the plain path; the
+   single-channel ``StreamingCWT.power_device`` at the bench geometry,
+   fused and plain, in signal-seconds/s; the 64-channel ``RawWavelet.power``;
+   and a CUDA-event breakdown of one 64-channel batch.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -88,6 +118,9 @@ BWD_SOURCE = "ninwavelets_tpu_torch/csrc/fused_cwt_bwd.cu"
 BWD_REPLACES = "ninwavelets_tpu/ops/fused.py:880"
 E_GRAD, E_SMALL, F_RAGGED, STEPS = 64, 8, 13, 3
 GRAD_RTOL = 1e-4
+REC_C, REC_N, REC_F = 64, 600_000, 100     # 64 channels x 10 min at 1 kHz
+REC_WINDOW, REC_BATCH, REC_HALO, REC_EXT = 11524, 8, 2430, 16384
+EACH_REPLACES = "ninwavelets_tpu/ops/fused.py:299"
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 
 
@@ -180,7 +213,7 @@ def print_ptxas(lib):
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(fused_cwt(?:_bwd)?_kernel)I(.*?)EEv",
+                k = re.search(r"(fused_cwt(?:_bwd|_each)?_kernel)I(.*?)EEv",
                               m.group(1))
                 name = (f"{k.group(1)}<"
                         + ",".join(re.findall(r"Li(\d+)E", k.group(2) + "E"))
@@ -415,6 +448,240 @@ def training_phase():
             "bound_by": bound_by, "library_ms": None}
 
 
+class ArrayRaw:
+    """The duck-typed ``mne.io.Raw`` surface ``RawWavelet`` needs."""
+
+    def __init__(self, data):
+        self._data = data
+        self.info = {"sfreq": SFREQ}
+        self.ch_names = [f"EEG{i:03d}" for i in range(data.shape[0])]
+
+    def get_data(self):
+        return self._data
+
+
+def recording(seed):
+    """64 x 600,000 seeded noise with a 60 Hz tone on channel 0."""
+    data = np.random.default_rng(seed).standard_normal((REC_C, REC_N),
+                                                       dtype=np.float32)
+    data[0] += np.sin(2 * np.pi * 60.0 * np.arange(REC_N) / SFREQ).astype(
+        np.float32)
+    return data
+
+
+def long_recording_phase():
+    """Slice 3: the long-recording path at full width, its checks and
+    times; returns K4's kernel record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import io, kernels
+    from ninwavelets_tpu_torch.ops import cwt, fused
+    from ninwavelets_tpu_torch.ops.scattering import scattering
+    from ninwavelets_tpu_torch.parallel import OnlineCWT, StreamingCWT
+
+    freqs = np.linspace(2.0, 100.0, REC_F)
+    data = recording(3)
+    print(f"native gather: {io.native_available()} (False: the numpy "
+          "gathers ran)")
+
+    # -- the main path: RawWavelet.power through K4 --------------------------
+    morse = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    rw = nt.RawWavelet(ArrayRaw(data), morse, window=REC_WINDOW,
+                       batch=REC_BATCH)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    plane = rw.power(freqs)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    stream = rw._stream_for(freqs)
+    n_batches = -(-REC_N // (REC_WINDOW * REC_BATCH))
+    print(f"long-recording main path {time.perf_counter() - t0} s (C={REC_C}"
+          f" N={REC_N} F={REC_F}, window {stream.window}, halo "
+          f"{stream.halo}, {n_batches} window batches of {REC_BATCH}; "
+          f"first call: bank, halo and host snapshot included); launches "
+          f"{counts}")
+    check((stream.halo, stream.window + 2 * stream.halo)
+          == (REC_HALO, REC_EXT), f"geometry {stream.halo}, {stream.window}")
+    check(counts["power_each"] == n_batches, f"'power_each' launched "
+          f"{counts['power_each']} times for {n_batches} window batches")
+    check(tuple(plane.shape) == (REC_C, REC_F, REC_N),
+          f"plane shape {tuple(plane.shape)}")
+    check(bool(plane.isfinite().all()), "plane not finite")
+
+    # -- known answers on channel 0 ---------------------------------------------
+    x0 = torch.from_numpy(data[0]).cuda()
+    whole = cwt.power_from_bank(x0, nt.Morse(
+        SFREQ, interpolate=True, device="cuda").make_fft_wavelets(
+            freqs, REC_N / SFREQ), True)
+    h = stream.halo
+    err = (plane[0, :, h:-h] - whole[:, h:-h]).abs().max().item()
+    rel = err / whole.abs().max().item()
+    print(f"check channel 0 interior vs one {REC_N}-point transform: max|d|"
+          f" {err} rel {rel} (gate 1e-3)")
+    check(rel <= 1e-3, f"streamed interior rel {rel} > 1e-3")
+    peak = float(freqs[int(plane[0].mean(-1).argmax())])
+    print(f"check channel 0 strongest row: {peak} Hz (want the row nearest "
+          "60 Hz)")
+    check(abs(peak - 60.0) <= 0.5 * (freqs[1] - freqs[0]),
+          f"channel 0 peaks at {peak} Hz")
+    plane4 = plane[:4].clone()
+    del plane, whole, x0
+    torch.cuda.empty_cache()
+
+    # -- K4 against its plain version, same tensors ---------------------------
+    bank = stream._bank
+    groups = list(stream._ext_batches(data))
+    err_each = 0.0
+    for name, ext in (("first", groups[0][1]), ("ragged last", groups[-1][1])):
+        xs = torch.from_numpy(ext).cuda()
+        err_each = max(err_each, rel_err(
+            f"K4 {name} window batch {tuple(xs.shape)}",
+            fused.fused_power_from_bank(xs, bank, True),
+            cwt.power_from_bank(xs, bank, True)))
+        del xs
+        torch.cuda.empty_cache()
+    plain_stream = StreamingCWT(morse._wdef(), freqs, SFREQ,
+                                window=REC_WINDOW, interpolate=True,
+                                use_fused=False, batch=REC_BATCH,
+                                device="cuda")
+    rel_err("RawWavelet plane, 4 channels, vs StreamingCWT(use_fused=False)",
+            plane4, plain_stream.power_device(data[:4]))
+    del plane4
+    gen = np.random.default_rng(4)
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        for interp in (True, False):
+            xs = torch.from_numpy(gen.standard_normal(
+                (3, 2, n), dtype=np.float32)).cuda()
+            bs = morse_bank(freqs[:F_RAGGED], n, interp)
+            rel_err(f"K4 N={n} interpolate={interp} (3, 2) x {F_RAGGED}",
+                    fused.fused_power_from_bank(xs, bs, interp),
+                    cwt.power_from_bank(xs, bs, interp))
+
+    # -- OnlineCWT, bit-identical to StreamingCWT(batch=1) ----------------------
+    kw = dict(window=REC_WINDOW, interpolate=True, device="cuda")
+    want = StreamingCWT(morse._wdef(), freqs, SFREQ, batch=1,
+                        **kw).power(data[0])
+    oc = OnlineCWT(morse._wdef(), freqs, SFREQ, **kw)
+    got = np.zeros_like(want)
+    pos, pushes = 0, 0
+    chunk_rng = np.random.default_rng(5)
+    blocks = []
+    while pos < REC_N:
+        size = int(chunk_rng.integers(1, 40_000))
+        blocks += oc.push(data[0, pos:pos + size])
+        pos += size
+        pushes += 1
+    blocks += oc.flush()
+    for start, blk in blocks:
+        got[:, start:start + blk.shape[-1]] = blk
+    same = np.array_equal(got, want)
+    print(f"check OnlineCWT ({pushes} pushes, {len(blocks)} blocks) "
+          f"bit-identical to StreamingCWT(batch=1).power: {same}, max|d| "
+          f"{np.abs(got - want).max()}")
+    check(same, "OnlineCWT differs from StreamingCWT(batch=1)")
+    del got, want
+
+    # -- scattering: both modulus layers through K4 -----------------------------
+    sc = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (16, 4096), dtype=np.float32)).cuda()
+    f1, f2 = np.geomspace(8.0, 400.0, 24), np.geomspace(1.0, 64.0, 12)
+    kernels.reset_launches()
+    s1, s2 = morse.scattering(sc, f1, f2, stride=32)
+    torch.cuda.synchronize()
+    print(f"scattering launches {dict(kernels.launches)}")
+    check(kernels.launches["power_each"] == 2, "scattering did not run both "
+          "layers through K4")
+    b1 = nt.Morse(SFREQ, interpolate=True, device="cuda").make_fft_wavelets(
+        f1, 4096 / SFREQ)
+    b2 = nt.Morse(SFREQ, device="cuda").make_fft_wavelets(f2, 4096 / SFREQ)
+    p1, p2 = scattering(sc, b1, b2, SFREQ, stride=32, use_fused=False)
+    rel_err("scattering S1 vs use_fused=False", s1, p1)
+    rel_err("scattering S2 vs use_fused=False", s2, p2)
+
+    # -- times --------------------------------------------------------------------
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    x = torch.from_numpy(groups[0][1]).cuda()
+    ms, plain_ms = median_ms(x, [
+        lambda: fused.fused_power_from_bank(x, bank, True),
+        lambda: cwt.power_from_bank(x, bank, True)])
+    print(f"time one window batch {tuple(x.shape)} x {REC_F} rows: K4 path "
+          f"(rFFT + kernel) {ms} ms, plain torch.fft {plain_ms} ms")
+    torch.cuda.empty_cache()
+
+    def host_ms(fn, fresh):
+        """Median ms of fn(fresh()) over REPS runs after one warm-up; the
+        fresh input is made before the clock starts."""
+        fn(fresh())
+        times = []
+        for _ in range(REPS):
+            arg = fresh()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(arg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[REPS // 2]
+
+    def one_channel():
+        return gen.standard_normal(REC_N, dtype=np.float32)
+
+    for name, use in (("K4", True), ("plain", False)):
+        s = StreamingCWT(morse._wdef(), freqs, SFREQ, window=REC_WINDOW,
+                         interpolate=True, use_fused=use, batch=REC_BATCH,
+                         device="cuda")
+        t = host_ms(s.power_device, one_channel)
+        print(f"time StreamingCWT.power_device, 1 channel x {REC_N} "
+              f"samples, {name}: {t} ms, {REC_N / SFREQ / (t / 1e3)} "
+              "signal-s/s")
+    rw_ms = host_ms(lambda d: nt.RawWavelet(
+        ArrayRaw(d), morse, window=REC_WINDOW,
+        batch=REC_BATCH).power(freqs), lambda: recording(
+            int(gen.integers(1 << 30))))
+    print(f"time RawWavelet.power, {REC_C} channels x {REC_N} samples "
+          f"(bank, halo and host snapshot included): {rw_ms} ms, "
+          f"{REC_C * REC_N / SFREQ / (rw_ms / 1e3)} channel-signal-s/s")
+    torch.cuda.empty_cache()
+
+    # -- breakdown of one 64-channel batch by CUDA events ----------------------
+    host = groups[0][1]
+    spec = torch.fft.rfft(x.reshape(-1, 1, REC_EXT)).contiguous()
+    each = kernels.fused_cwt("power_each", spec, bank, REC_EXT // 2,
+                             "fast3")[0].reshape(REC_BATCH, REC_C, REC_F,
+                                                 REC_EXT)
+    span = REC_BATCH * REC_WINDOW
+    buf = torch.empty((REC_C, REC_F, span), device="cuda")
+    parts = {
+        "host-to-device copy of the batch (pageable)": lambda:
+            torch.from_numpy(host).cuda(),
+        "rFFT of the batch": lambda: torch.fft.rfft(
+            x.reshape(-1, 1, REC_EXT)),
+        "K4 alone": lambda: kernels.fused_cwt(
+            "power_each", spec, bank, REC_EXT // 2, "fast3"),
+        "crop + paste into the plane": lambda: buf.unflatten(
+            -1, (REC_BATCH, REC_WINDOW)).copy_(
+                each[..., h:REC_EXT - h].movedim(0, -2)),
+    }
+    for name, fn in parts.items():
+        print(f"breakdown {name}: {event_ms(fn)} ms (CUDA events, mean of "
+              f"{REPS})")
+    del spec, each, buf, x
+    torch.cuda.empty_cache()
+
+    b = REC_BATCH * REC_C
+    bound_ms, bound_by = bound(
+        b * (fft_flops(REC_EXT) / 2 + REC_F * fft_flops(REC_EXT)),
+        4 * (b * REC_EXT + REC_F * REC_EXT + b * REC_F * REC_EXT))
+    return {"name": "fused_cwt[power_each]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": EACH_REPLACES,
+            "launches": counts["power_each"], "max_abs_err": err_each,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -460,7 +727,7 @@ def main() -> int:
     counts = dict(kernels.launches)
     print(f"main path {time.perf_counter() - t0} s (first calls: bank "
           f"builds and host-to-device copies included); launches {counts}")
-    for epilogue in kernels.EPILOGUES:
+    for epilogue in ("power", "itc", "power_itc"):
         check(counts[epilogue] > 0, f"epilogue {epilogue!r} never launched "
               "on the main path")
 
@@ -533,6 +800,10 @@ def main() -> int:
 
     # -- slice 2: training ----------------------------------------------------
     records.append(training_phase())
+    torch.cuda.empty_cache()
+
+    # -- slice 3: long recordings ----------------------------------------------
+    records.append(long_recording_phase())
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

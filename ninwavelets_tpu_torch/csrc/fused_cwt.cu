@@ -1,23 +1,26 @@
-// Fused forward CWT reduction for Hopper (sm_90a):
-//     bank x spectrum -> inverse DFT -> |.|^2 / unit phase -> epoch reduction.
+// Fused forward CWT for Hopper (sm_90a):
+//     bank x spectrum -> inverse DFT -> |.|^2 / unit phase -> epoch reduction,
+// or, per signal with no reduction, -> |.|^2.
 //
 // Replaces the Pallas TPU kernel ninwavelets_tpu/ops/fused.py:_kernel with
-// its "power", "itc" and "power_itc" epilogues, for a real (F, N) bank.
+// its "power", "itc" and "power_itc" epilogues (fused_cwt_kernel) and its
+// "power_each" epilogue (fused_cwt_each_kernel), for a real (F, N) bank.
 //
-// What it computes, for every channel c, bank row f and sample n:
+// What it computes, for every signal (e, c), bank row f and sample n:
 //     x_e[n]  = sum_{k < K} bank[f, k] * spec[e, c, k] * exp(+2 pi i k n / N)
 //     power   = (1 / (N^2 E)) * sum_e |x_e[n]|^2          (mean |cwt|^2)
 //     itc     = (1 / E) * | sum_e x_e[n] / |x_e[n]| |      (mean unit phase)
+//     each    = (1 / N^2) * |x_e[n]|^2, for every (e, c)  (|cwt|^2 per signal)
 // K = N/2 on the analytic (interpolate=True) path: the upper bins are zero.
 // K = N otherwise.  The signal FFT runs outside the kernel (as it does for
 // the TPU kernel); this kernel starts at the bank x spectrum product.
 //
-// What bounds it on this card: each (c, f) block runs E in-place radix-2
-// inverse FFTs in shared memory, log2(N) passes of N/2 butterflies each,
-// with a barrier between passes, so the shared-memory FFT passes bound it.
-// The spectra are read F times (once per bank row), which is the second
-// bound: at 64 channels x 200 epochs x 2048 samples they are 105 MB, more
-// than the 50 MB L2.
+// What bounds the reductions on this card: each (c, f) block runs E
+// in-place radix-2 inverse FFTs in shared memory, log2(N) passes of N/2
+// butterflies each, with a barrier between passes, so the shared-memory FFT
+// passes bound it.  The spectra are read F times (once per bank row), which
+// is the second bound: at 64 channels x 200 epochs x 2048 samples they are
+// 105 MB, more than the 50 MB L2.
 //
 // What the design does about that:
 //  * blockIdx.x walks the bank rows f and blockIdx.y the channels c, so the
@@ -34,6 +37,17 @@
 //    chunking and no epoch is ever padded in.
 // Everything runs in float32.  The unit phase is x * rsqrtf(|x|^2) with no
 // guard: |x| = 0 yields NaN, as the reference's 0/0 does.
+//
+// "power_each" (the long-recording paths: one signal is one window of one
+// channel) has no reduction, so every (signal, row) pair is independent and
+// gets a block of its own: blockIdx.x walks f, as above, so the blocks in
+// flight share one signal's spectrum in L2, and the flattened signal index
+// e * C + c rides blockIdx.y and blockIdx.z, so no grid axis passes its
+// 65535 limit.  Its output, E*C*F*N floats written once, is its compulsory
+// traffic (3.4 GB at 512 windows x channels of 16384 samples, 100 rows);
+// its radix-2 passes through shared memory are what bound it in practice,
+// as for the reductions.  Offsets into the spectra and the output are
+// size_t: E*C*F*N passes 2^31 at large batches.
 
 #include <cuda_runtime.h>
 
@@ -41,10 +55,38 @@
 
 namespace {
 
-enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2 };
+enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kPowerEach = 3 };
 
 constexpr int kMinLog2N = 8;    // N = 256
 constexpr int kMaxLog2N = 14;   // N = 16384: 12 N bytes = 192 KB of shared memory
+
+// Stage 0 and the inverse FFT of one (signal, bank row) pair: bank x
+// spectrum, stored bit-reversed, then the radix-2 decimation-in-time passes.
+// On return buf holds x[n] in natural order.  The caller stages `tw` first;
+// the barrier after stage 0 publishes it too.
+template <int PER>
+__device__ __forceinline__ void inverse_row(float2* buf, const float2* tw,
+                                            const float2* sp,
+                                            const float (&bank_reg)[PER],
+                                            int k_bins, int log2n, int tid,
+                                            int threads) {
+  const int rev_shift = 32 - log2n;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = tid + i * threads;
+    float2 v = make_float2(0.f, 0.f);
+    if (k < k_bins) {
+      const float2 s = sp[k];
+      v = make_float2(s.x * bank_reg[i], s.y * bank_reg[i]);
+    }
+    buf[__brev(k) >> rev_shift] = v;
+  }
+  __syncthreads();
+  for (int s = 1; s <= log2n; ++s) {
+    radix2_dit_pass(buf, tw, s, log2n, tid, threads);
+    __syncthreads();
+  }
+}
 
 template <int EPI, int PER>
 __global__ void __launch_bounds__(1024)
@@ -82,27 +124,9 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
 
   const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
   const float2* sp = spec + static_cast<size_t>(c) * row_len;
-  const int rev_shift = 32 - log2n;
 
   for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
-    // Stage 0: bank x spectrum, stored bit-reversed for the in-place DIT FFT.
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int k = tid + i * threads;
-      float2 v = make_float2(0.f, 0.f);
-      if (k < k_bins) {
-        const float2 s = sp[k];
-        v = make_float2(s.x * bank_reg[i], s.y * bank_reg[i]);
-      }
-      buf[__brev(k) >> rev_shift] = v;
-    }
-    __syncthreads();
-
-    // Radix-2 decimation-in-time inverse FFT, natural-order output.
-    for (int s = 1; s <= log2n; ++s) {
-      radix2_dit_pass(buf, tw, s, log2n, tid, threads);
-      __syncthreads();
-    }
+    inverse_row<PER>(buf, tw, sp, bank_reg, k_bins, log2n, tid, threads);
 
     // Epilogue: fold this epoch into the register accumulators.
 #pragma unroll
@@ -134,6 +158,48 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   }
 }
 
+// "power_each": |x|^2 / N^2 of every (signal, bank row) pair, one block
+// each.  Signal b = e * C + c (the row of the contiguous (E, C, L) spectra)
+// is blockIdx.z * gridDim.y + blockIdx.y; the last z-slice may be ragged.
+template <int PER>
+__global__ void __launch_bounds__(1024)
+fused_cwt_each_kernel(const float2* __restrict__ spec,     // (E*C, L), L >= K
+                      const float* __restrict__ bank,      // (F, N)
+                      const float2* __restrict__ twiddle,  // (N/2,)
+                      float* __restrict__ out,             // (E*C, F, N)
+                      int n_signals, int n_freqs, int log2n, int k_bins,
+                      int row_len, float power_scale) {
+  const int b = blockIdx.z * gridDim.y + blockIdx.y;
+  if (b >= n_signals) return;   // uniform over the block: no barrier skipped
+  extern __shared__ float2 smem[];
+  const int n = 1 << log2n;
+  float2* buf = smem;        // n complex samples
+  float2* tw = smem + n;     // n/2 twiddles
+  const int f = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;   // threads * PER == n
+
+  for (int m = tid; m < (n >> 1); m += threads) tw[m] = twiddle[m];
+  float bank_reg[PER];
+  const float* bank_row = bank + static_cast<size_t>(f) * n;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = tid + i * threads;
+    bank_reg[i] = k < k_bins ? bank_row[k] : 0.f;
+  }
+
+  inverse_row<PER>(buf, tw, spec + static_cast<size_t>(b) * row_len, bank_reg,
+                   k_bins, log2n, tid, threads);
+
+  float* dst = out + ((static_cast<size_t>(b) * n_freqs + f) << log2n);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = tid + i * threads;
+    const float2 x = buf[idx];
+    dst[idx] = (x.x * x.x + x.y * x.y) * power_scale;
+  }
+}
+
 struct Args {
   const float2* spec;
   const float* bank;
@@ -144,21 +210,38 @@ struct Args {
   float power_scale, itc_scale;
 };
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int EPI, int PER>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int n = 1 << a.log2n;
   const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2;
-  auto kernel = fused_cwt_kernel<EPI, PER>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if constexpr (EPI == kPowerEach) {
+    auto kernel = fused_cwt_each_kernel<PER>;
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
+    const int n_signals = a.n_epochs * a.n_channels;   // checked by the caller
+    const int rows_y = n_signals < 65535 ? n_signals : 65535;
+    const dim3 grid(a.n_freqs, rows_y, (n_signals + rows_y - 1) / rows_y);
+    kernel<<<grid, n / PER, smem, stream>>>(
+        a.spec, a.bank, a.twiddle, a.out0, n_signals, a.n_freqs, a.log2n,
+        a.k_bins, a.row_len, a.power_scale);
+    return cudaGetLastError();
+  } else {
+    auto kernel = fused_cwt_kernel<EPI, PER>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.n_freqs, a.n_channels);
+    kernel<<<grid, n / PER, smem, stream>>>(
+        a.spec, a.bank, a.twiddle, a.out0, a.out1, a.n_epochs, a.n_channels,
+        a.n_freqs, a.log2n, a.k_bins, a.row_len, a.power_scale, a.itc_scale);
+    return cudaGetLastError();
   }
-  const dim3 grid(a.n_freqs, a.n_channels);
-  kernel<<<grid, n / PER, smem, stream>>>(
-      a.spec, a.bank, a.twiddle, a.out0, a.out1, a.n_epochs, a.n_channels,
-      a.n_freqs, a.log2n, a.k_bins, a.row_len, a.power_scale, a.itc_scale);
-  return cudaGetLastError();
 }
 
 template <int EPI>
@@ -169,9 +252,11 @@ cudaError_t launch_per(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// Launch one fused reduction on `stream`.  Returns the cudaError_t of the
-// launch (0 on success); arguments the kernel does not take return
-// cudaErrorInvalidValue without launching.
+// Launch one fused reduction (or, for "power_each", the per-signal power)
+// on `stream`.  Returns the cudaError_t of the launch (0 on success);
+// arguments the kernel does not take return cudaErrorInvalidValue without
+// launching.  The reductions put C on a grid axis (C <= 65535);
+// "power_each" flattens E * C onto two (E * C < 2^31).
 extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
                               const void* twiddle, void* out0, void* out1,
                               int n_epochs, int n_channels, int n_freqs, int n,
@@ -180,8 +265,11 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   while ((1 << log2n) < n) ++log2n;
   if ((1 << log2n) != n || log2n < kMinLog2N || log2n > kMaxLog2N ||
       k_bins < 1 || k_bins > n || row_len < k_bins || n_epochs < 1 ||
-      n_channels < 1 || n_channels > 65535 || n_freqs < 1 ||
-      epilogue < kPower || epilogue > kPowerItc ||
+      n_channels < 1 || n_freqs < 1 ||
+      (epilogue != kPowerEach && n_channels > 65535) ||
+      (epilogue == kPowerEach &&
+       static_cast<long long>(n_epochs) * n_channels > 2147483647LL) ||
+      epilogue < kPower || epilogue > kPowerEach ||
       (epilogue == kPowerItc && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -197,12 +285,14 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   a.log2n = log2n;
   a.k_bins = k_bins;
   a.row_len = row_len;
-  a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n * n_epochs));
+  const double power_epochs = epilogue == kPowerEach ? 1.0 : n_epochs;
+  a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n * power_epochs));
   a.itc_scale = static_cast<float>(1.0 / n_epochs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
     case kPower: return static_cast<int>(launch_per<kPower>(a, s));
     case kItc: return static_cast<int>(launch_per<kItc>(a, s));
-    default: return static_cast<int>(launch_per<kPowerItc>(a, s));
+    case kPowerItc: return static_cast<int>(launch_per<kPowerItc>(a, s));
+    default: return static_cast<int>(launch_per<kPowerEach>(a, s));
   }
 }

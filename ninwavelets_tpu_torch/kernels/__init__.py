@@ -2,7 +2,8 @@
 
 Every ``.cu`` source there is compiled by one ``nvcc`` call into one shared
 library with a plain C interface, loaded with ``ctypes``: the fused forward
-(``fused_cwt.cu``) and the fused power backward (``fused_cwt_bwd.cu``).
+(``fused_cwt.cu``: the epoch reductions and the per-signal power) and the
+fused power backward (``fused_cwt_bwd.cu``).
 Nothing is compiled or loaded when this module is imported: the first launch
 builds the library (or ``build()`` does it up front), keyed by a hash of every
 source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
@@ -35,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Epilogues of the fused forward kernel, by the code the C launcher takes.
-EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2}
+#: The first three reduce over epochs; "power_each" keeps every signal.
+EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3}
 #: Signal lengths the fused kernel takes: powers of two in this range (the
 #: block's shared memory holds N samples and N/2 twiddles, 12*N bytes).
 MIN_N, MAX_N = 256, 16384
@@ -128,7 +130,9 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
            g: torch.Tensor = None):
     """Validate what a kernel takes: dtypes, ranks, contiguity and shapes
-    first, the device last.  Returns (E, C, L, F, N)."""
+    first, the device last.  Returns (E, C, L, F, N).  The kernels take the
+    signal count E*C as a C int and index every buffer with size_t, so
+    E*C*F*N may pass 2^31."""
     named = [("spec", spec, torch.complex64, 3),
              ("bank", bank, torch.float32, 2)]
     if g is not None:
@@ -144,7 +148,7 @@ def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
     if k_bins not in (n // 2, n) or row_len < k_bins:
         raise ValueError(f"k_bins={k_bins} needs N/2 or N bins of the "
                          f"spectrum rows (length {row_len}, N={n})")
-    if e < 1 or c < 1 or c > 65535 or f < 1:
+    if e < 1 or c < 1 or c > 65535 or f < 1 or e * c >= 2 ** 31:
         raise ValueError(f"empty or oversized batch: E={e}, C={c}, F={f}")
     if g is not None and tuple(g.shape) != (c, f, n):
         raise ValueError(f"g must be (C, F, N) = {(c, f, n)}, got "
@@ -167,7 +171,9 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
 
     Args:
       epilogue: "power" -> [mean power]; "itc" -> [itc];
-        "power_itc" -> [mean power, itc].  Each output is (C, F, N) float32.
+        "power_itc" -> [mean power, itc], each (C, F, N) float32;
+        "power_each" -> [|cwt|^2 of every signal], (E, C, F, N) float32,
+        scaled 1/N^2 with no 1/E.
       spec: (E, C, L) complex64 CUDA tensor, contiguous: the signal spectra,
         of which the first ``k_bins`` bins of each row are used (L may exceed
         ``k_bins``, e.g. a whole rFFT row of N/2 + 1 bins).
@@ -181,7 +187,8 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     del precision
     e, c, row_len, f, n = _check(spec, bank, k_bins)
     lib = _load()
-    outs = [torch.empty((c, f, n), dtype=torch.float32, device=spec.device)
+    shape = (e, c, f, n) if epilogue == "power_each" else (c, f, n)
+    outs = [torch.empty(shape, dtype=torch.float32, device=spec.device)
             for _ in range(2 if epilogue == "power_itc" else 1)]
     with torch.cuda.device(spec.device):
         err = lib.ninw_fused_cwt(

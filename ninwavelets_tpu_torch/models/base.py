@@ -26,6 +26,7 @@ from ..device import resolve_device
 from ..ops import bank as _bank
 from ..ops.bank import WaveletDef, WaveletMode
 from ..ops.cwt import abs_from_bank, cwt_from_bank, power_from_bank
+from ..ops.scattering import scattering as _scattering
 from ..ops.signal_utils import pad_to
 
 Numbers = Union[Sequence[float], np.ndarray, range, torch.Tensor]
@@ -174,3 +175,30 @@ class WaveletBase:
               reuse: bool = True) -> torch.Tensor:
         """Instantaneous phase ``angle(cwt)`` in radians."""
         return torch.angle(self.cwt(wave, freqs, reuse))
+
+    def scattering(self, wave, freqs1: Numbers, freqs2: Numbers,
+                   stride: int = 32, lowpass: str = "auto"):
+        """Order-2 time scattering (see ``ops.scattering``): CWT -> modulus
+        -> CWT -> lowpass, returning (S1, S2) translation-stable features.
+        ``freqs1`` are analysis frequencies, ``freqs2`` MODULATION rates
+        (typically 1-64 Hz).  Both banks are built at the signal length
+        (the cwt/power cache is not touched); a real-bank (analytic)
+        family is required."""
+        wave = torch.as_tensor(wave, dtype=torch.float32, device=self.device)
+        n = wave.shape[-1]
+
+        def build(freqs, analytic):
+            bank = _bank.make_fft_bank(
+                self._wdef(), self._check_freqs(freqs), n, self.sfreq,
+                analytic, self.real_wave_length, device=self.device)
+            if bank.is_complex():
+                raise ValueError(
+                    "scattering needs an analytic (real-bank) family; "
+                    "Normal/Twice-mode banks are not meaningful here")
+            return bank
+
+        # Layer 2 sees the (real, nonnegative) modulus: its spectrum is
+        # two-sided, so no analytic trick there.
+        return _scattering(wave, build(freqs1, self.interpolate),
+                           build(freqs2, False), self.sfreq, stride=stride,
+                           interpolate=self.interpolate, lowpass=lowpass)

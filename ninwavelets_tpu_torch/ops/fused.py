@@ -1,7 +1,8 @@
 """Fused epoch reductions: bank x spectrum x inverse DFT x |.|^2 / unit phase
-x epoch sum in one hand-written CUDA kernel, and the power's backward in a
-second one (port of ``ninwavelets_tpu.ops.fused``; kernel sources
-``csrc/fused_cwt.cu`` and ``csrc/fused_cwt_bwd.cu``).
+x epoch sum in one hand-written CUDA kernel, the per-signal power (no
+reduction) through the same kernel's "power_each" epilogue, and the power's
+backward in a second kernel (port of ``ninwavelets_tpu.ops.fused``; kernel
+sources ``csrc/fused_cwt.cu`` and ``csrc/fused_cwt_bwd.cu``).
 
 Dispatch, with no fallback that hides the device or the kernel:
 
@@ -28,16 +29,18 @@ Gradients, as in the JAX package's custom VJPs:
 * ``fused_itc_from_bank`` is an autograd Function whose backward
   differentiates the plain ``itc_from_bank`` (the JAX package does the same
   with ``jax.vjp``).
-* ``fused_power_itc_from_bank`` has no derivative: on the card it raises
-  when an input requires grad.  On the CPU it is the two plain reductions,
-  which torch differentiates.
+* ``fused_power_itc_from_bank`` and ``fused_power_from_bank`` have no
+  derivative (the JAX package gives them none): on the card they raise when
+  an input requires grad.  On the CPU they are the plain versions, which
+  torch differentiates.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
-from .cwt import analytic_spectrum, itc_from_bank, mean_power_from_bank
+from .cwt import (analytic_spectrum, itc_from_bank, mean_power_from_bank,
+                  power_from_bank)
 from .grids import analytic_mask
 
 #: Precision names the wrappers take.  The CUDA kernel computes in float32
@@ -206,6 +209,14 @@ class _FusedItc(torch.autograd.Function):
         return tuple(next(grads) if n else None for n in need) + (None, None)
 
 
+def _no_grad_on_card(name, instead, *tensors) -> None:
+    """Raise when an input of a function with no derivative requires grad
+    (its kernel output would silently carry none)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no derivative on the card; for "
+                           f"gradients call {instead}")
+
+
 def fused_mean_power_from_bank(signals: torch.Tensor, bank: torch.Tensor,
                                interpolate: bool = True,
                                precision: str = DEFAULT_PRECISION
@@ -241,14 +252,46 @@ def fused_power_itc_from_bank(signals: torch.Tensor, bank: torch.Tensor,
     if signals.device.type == "cpu":
         return (mean_power_from_bank(signals, bank, interpolate),
                 itc_from_bank(signals, bank, interpolate))
-    if torch.is_grad_enabled() and (signals.requires_grad
-                                    or bank.requires_grad):
-        raise RuntimeError(
-            "fused_power_itc_from_bank has no derivative on the card; for "
-            "gradients call fused_mean_power_from_bank and "
-            "fused_itc_from_bank, which are differentiable")
+    _no_grad_on_card("fused_power_itc_from_bank",
+                     "fused_mean_power_from_bank and fused_itc_from_bank, "
+                     "which are differentiable", signals, bank)
     power, itc = _launch("power_itc", signals, bank, interpolate, precision)
     return power, itc
+
+
+def fused_power_from_bank(signals: torch.Tensor, bank: torch.Tensor,
+                          interpolate: bool = True,
+                          precision: str = DEFAULT_PRECISION
+                          ) -> torch.Tensor:
+    """Per-signal ``|cwt|**2``: (..., N) x (F, N) -> (..., F, N) float32
+    (port of ``ninwavelets_tpu/ops/fused.py:fused_power_from_bank``).
+
+    The lead dims flatten onto the kernel's epoch axis as (B, 1, N) and the
+    "power_each" epilogue writes every signal's plane, scaled 1/N^2 (no
+    1/E).  The kernel takes any B in one launch.  On the CPU this is the
+    plain ``ops.cwt.power_from_bank``; on the card it launches the kernel
+    or raises (also when an input requires grad: there is no derivative).
+    """
+    _check_precision(precision)
+    if signals.device.type == "cpu":
+        return power_from_bank(signals, bank, interpolate)
+    _no_grad_on_card("fused_power_from_bank", "ops.cwt.power_from_bank",
+                     signals, bank)
+    lead, n = signals.shape[:-1], signals.shape[-1]
+    out = _launch("power_each", signals.reshape(-1, 1, n), bank, interpolate,
+                  precision)[0]
+    return out.reshape(*lead, bank.shape[0], n)
+
+
+def power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
+               interpolate: bool = False,
+               precision: str = DEFAULT_PRECISION) -> torch.Tensor:
+    """Per-signal power with automatic kernel dispatch: the kernel where
+    ``supports()`` accepts the flattened (B, 1, N) batch and the signals are
+    real, the plain ``power_from_bank`` otherwise."""
+    if _kernel_takes(signals.reshape(-1, 1, signals.shape[-1]), bank):
+        return fused_power_from_bank(signals, bank, interpolate, precision)
+    return power_from_bank(signals, bank, interpolate)
 
 
 def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,

@@ -1,3 +1,3 @@
-from .mne_adapter import ArrayEpochs, EpochsWavelet
+from .mne_adapter import ArrayEpochs, EpochsWavelet, RawWavelet
 
-__all__ = ["ArrayEpochs", "EpochsWavelet"]
+__all__ = ["ArrayEpochs", "EpochsWavelet", "RawWavelet"]

@@ -1,22 +1,27 @@
-"""MNE epochs ingestion (port of the core of
-``ninwavelets_tpu.utils.mne_adapter``): ``EpochsWavelet`` and
-``ArrayEpochs``.
+"""MNE ingestion (port of the core of ``ninwavelets_tpu.utils.mne_adapter``):
+``EpochsWavelet`` and ``ArrayEpochs`` for epoched data, ``RawWavelet`` for
+continuous recordings.
 
-The whole (epochs, channels, time) block moves to the wavelet's device once;
-the epoch reductions run through ``ops.fused`` (the CUDA kernel on the card,
-the plain path on the CPU).  ``epochs`` needs only the duck-typed MNE surface
-``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
+For epochs the whole (epochs, channels, time) block moves to the wavelet's
+device once; the epoch reductions run through ``ops.fused`` (the CUDA kernel
+on the card, the plain path on the CPU).  A continuous recording streams
+through ``parallel.StreamingCWT`` in overlap-discard windows.  Both need
+only the duck-typed MNE surface ``.info['sfreq']``, ``.ch_names`` and
+``.get_data()``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..io.edf import EDFRaw
+from ..io.stream import EDFSource
 from ..models.base import Numbers, WaveletBase
 from ..ops.baseline import baseline_tf
 from ..ops.cwt import cwt_from_bank
 from ..ops.fused import itc_auto, mean_power_auto, power_itc_auto
 from ..ops.signal_utils import pad_to
+from ..parallel.streaming import StreamingCWT
 
 
 class EpochsWavelet:
@@ -183,3 +188,113 @@ class ArrayEpochs:
 
     def get_data(self) -> np.ndarray:
         return self._data
+
+
+class RawWavelet:
+    """Wavelet power over a CONTINUOUS MNE-style raw recording.
+
+    Wraps ``parallel.StreamingCWT``: the recording is processed in
+    fixed-size overlap-discard windows, with every channel riding the
+    device batch beside the windows, into a (C, F, N) plane on the
+    wavelet's device.
+
+    Parameters
+    ----------
+    raw: an ``mne.io.Raw``-like object (``.info['sfreq']``, ``.ch_names``,
+        ``.get_data() -> (C, N)``), or ``io.EDFRaw``.
+    wavelet: a ``WaveletBase``; its ``sfreq`` is overwritten from
+        ``raw.info`` and its ``device`` places the planes.
+    window / halo / batch: see ``StreamingCWT`` (the halo defaults from the
+        wavelet's envelope decay at the lowest analysis frequency; the
+        extended window is rounded up to a power of two).  The fused kernel
+        takes extended windows up to 16384 samples: the default window of
+        16384 extends past that and runs the plain path on the card.
+    """
+
+    def __init__(self, raw, wavelet: WaveletBase, window: int = 16384,
+                 halo=None, batch: int = 8,
+                 precision: str = "fast3") -> None:
+        self.raw = raw
+        self.wavelet = wavelet
+        wavelet.sfreq = float(raw.info['sfreq'])
+        self._window = int(window)
+        self._halo = halo
+        self._batch = int(batch)
+        self._precision = precision
+
+    @classmethod
+    def from_edf(cls, path, wavelet: WaveletBase, picks=None,
+                 **kw) -> "RawWavelet":
+        """Open an EDF recording directly (``io.EDFRaw``): ``power`` and
+        ``power_channel`` then stream window batches straight off the file
+        mmap through the native gathers; the recording is never
+        materialized in host memory."""
+        return cls(EDFRaw(path, picks=picks), wavelet, **kw)
+
+    def invalidate(self) -> None:
+        """Drop the cached ``get_data()`` snapshot and streams: call after
+        mutating the raw object (crop, filter)."""
+        for attr in ('_host', '_streams'):
+            if hasattr(self, attr):
+                delattr(self, attr)
+
+    def _host_data(self) -> np.ndarray:
+        """Host copy of ``raw.get_data()``, fetched once."""
+        if not hasattr(self, '_host'):
+            self._host = np.asarray(self.raw.get_data(), np.float32)
+        return self._host
+
+    def _file_source(self, picks=None):
+        """An ``io.stream`` source gathering straight off the file mmap
+        when the raw object is EDF-backed (``io.EDFRaw``), else None."""
+        reader = getattr(self.raw, "reader", None)
+        if reader is None or not hasattr(reader, "gather"):
+            return None
+        if picks is not None:
+            # Picks resolve against THIS adapter's channel list (which
+            # honours any construction-time subset), never the full file.
+            for ch in picks:
+                if ch not in self.raw.ch_names:
+                    raise ValueError(f"channel {ch!r} not in raw.ch_names")
+            names = list(picks)
+        else:
+            names = getattr(self.raw, "_picks", None)
+        return EDFSource(reader, picks=names)
+
+    def _stream_for(self, freqs: Numbers):
+        """One ``StreamingCWT`` (bank and halo) per frequency grid,
+        cached."""
+        w = self.wavelet
+        arr = w._check_freqs(freqs).numpy()
+        key = (tuple(arr.tolist()), w.sfreq, w.interpolate)
+        streams = getattr(self, '_streams', None)
+        if streams is None:
+            streams = self._streams = {}
+        if key not in streams:
+            streams[key] = StreamingCWT(
+                w._wdef(), arr, w.sfreq, window=self._window,
+                halo=self._halo, interpolate=w.interpolate,
+                batch=self._batch, precision=self._precision,
+                device=w.device)
+        return streams[key]
+
+    def power(self, freqs: Numbers, picks=None) -> torch.Tensor:
+        """(C, F, N) power TFR of the whole recording, assembled on the
+        wavelet's device.  ``picks``: optional list of channel names."""
+        source = self._file_source(picks)
+        if source is not None:
+            return self._stream_for(freqs).power_device_source(source)
+        data = self._host_data()
+        if picks is not None:
+            idx = [self.raw.ch_names.index(ch) for ch in picks]
+            data = data[idx]
+        return self._stream_for(freqs).power_device(data)
+
+    def power_channel(self, ch_name: str, freqs: Numbers) -> torch.Tensor:
+        """(F, N) power TFR of one channel (sliced on the host: only that
+        channel's samples ride the stream)."""
+        source = self._file_source([ch_name])
+        if source is not None:
+            return self._stream_for(freqs).power_device_source(source)[0]
+        data = self._host_data()[self.raw.ch_names.index(ch_name)]
+        return self._stream_for(freqs).power_device(data)

@@ -18,6 +18,7 @@ setup(
     packages=find_packages(include=['ninwavelets_tpu', 'ninwavelets_tpu.*',
                                     'ninwavelets_tpu_torch',
                                     'ninwavelets_tpu_torch.*']),
-    package_data={'ninwavelets_tpu_torch': ['csrc/*.cu']},
+    package_data={'ninwavelets_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                            'io/_native/io.cpp']},
     python_requires='>=3.10',
 )

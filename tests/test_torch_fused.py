@@ -179,11 +179,13 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 def test_import_attempts_no_build():
-    """Importing the package (kernels included) compiles and loads nothing:
-    the build happens at the first launch."""
+    """Importing the package (kernels and native gathers included)
+    compiles and loads nothing: the builds happen at first use."""
     code = ("import os, ninwavelets_tpu_torch as nt\n"
             "from ninwavelets_tpu_torch import kernels\n"
+            "from ninwavelets_tpu_torch.io import native\n"
             "assert kernels._lib is None\n"
+            "assert native._lib is None and not native._tried\n"
             "assert all(v == 0 for v in kernels.launches.values())\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
