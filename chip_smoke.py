@@ -6,9 +6,11 @@
 What it does, failing (non-zero exit, no result line) if any check fails:
 
 1. Requires CUDA and prints the card's name and power limit (nvidia-smi).
-2. Builds the kernels (``csrc/fused_cwt.cu``, the forward, and
-   ``csrc/fused_cwt_bwd.cu``, the power backward) with one nvcc call for
-   sm_90a into one library, and prints each kernel's registers and spills.
+2. Builds the kernels (``csrc/fused_cwt.cu``, the forward,
+   ``csrc/fused_cwt_bwd.cu``, the power backward, and ``csrc/fused_ssq.cu``,
+   synchrosqueezing) for sm_90a, one nvcc process a source, all started
+   together, into one library, and prints each kernel's registers and
+   spills.
 
 Slice 1, serving:
 
@@ -89,6 +91,34 @@ window batch 8; here with 64 channels riding the batch):
    fused and plain, in signal-seconds/s; the 64-channel ``RawWavelet.power``;
    and a CUDA-event breakdown of one 64-channel batch.
 
+Slice 4, synchrosqueezing (the serving data; the JAX package's
+``BENCH_MODE=ssq``, ``bench.py:107-160``, at 200 epochs):
+
+16. Drives ``EpochsWavelet.ssq_power_all`` at 200 x 64 x 2048 with
+   ``Morse(interpolate=True)`` on ``arange(1, 101)`` Hz (a "lin" row map),
+   then on 48 log-spaced rows (``4 * 2^(k/8)``) at a ragged 19 epochs, the
+   counters zeroed just before each: "amax" (K5a) and "ssq" (K5b) must
+   each launch exactly once per call.
+17. Holds K5a's (C, E) peaks against the plain max of ``power_from_bank``
+   (max|d| / max|ref| <= 1e-5) and the kernel path against the plain
+   ``ssq_mean_power_from_bank`` on the same tensors: each time column's
+   energy rel <= 1e-5, SNR >= 40 dB (the JAX package's on-chip gate: cells
+   whose instantaneous frequency sits on a row edge may land in the
+   neighbouring row), no NaN, printing the SNR and the count of cells that
+   differ by more than 1e-3 of the max; at full width on both grids, then
+   at every N from 256 to 16384 on both grids with an all-zero channel,
+   whose plane must be zero.  Known answer: a 60 Hz tone plus 0.1 noise
+   (8 x 2 x 2048) puts >= 0.95 of its interior energy in rows 59-61 Hz.
+18. Drives ``RawWavelet.ssq_power`` over the slice-3 recording on
+   ``arange(2, 102)`` Hz (a "lin" map; slice 3's float32 ``linspace`` grid
+   is piecewise and runs the plain path): both kernels launch once per
+   window batch (7), and 4 channels match ``StreamingCWT(use_fused=False)``
+   at the gates of 17.
+19. Times (median of 5 after warm-up, fresh values each run) the kernel
+   path of the 200-epoch call against the plain path, K5a and K5b alone by
+   CUDA events, and the 64-channel ``RawWavelet.ssq_power``; then breaks
+   one 64-channel recording batch down by CUDA events.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -121,6 +151,10 @@ GRAD_RTOL = 1e-4
 REC_C, REC_N, REC_F = 64, 600_000, 100     # 64 channels x 10 min at 1 kHz
 REC_WINDOW, REC_BATCH, REC_HALO, REC_EXT = 11524, 8, 2430, 16384
 EACH_REPLACES = "ninwavelets_tpu/ops/fused.py:299"
+AMAX_REPLACES = "ninwavelets_tpu/ops/fused.py:358"
+SSQ_SOURCE = "ninwavelets_tpu_torch/csrc/fused_ssq.cu"
+SSQ_REPLACES = "ninwavelets_tpu/ops/fused.py:530"
+SSQ_SNR_DB, SSQ_COLSUM_RTOL = 40.0, 1e-5
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 
 
@@ -213,10 +247,11 @@ def print_ptxas(lib):
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(fused_cwt(?:_bwd|_each)?_kernel)I(.*?)EEv",
-                              m.group(1))
+                k = re.search(r"(fused_(?:cwt|cwt_bwd|cwt_each|ssq)_kernel)I"
+                              r"(.*?)EEv", m.group(1))
                 name = (f"{k.group(1)}<"
-                        + ",".join(re.findall(r"Li(\d+)E", k.group(2) + "E"))
+                        + ",".join(re.findall(r"L[ib](\d+)E",
+                                              k.group(2) + "E"))
                         + ">") if k else m.group(1)
             elif "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
@@ -256,6 +291,22 @@ def median_ms(x, fns):
             torch.cuda.synchronize()
             times[i].append((time.perf_counter() - t0) * 1e3)
     return [sorted(t)[REPS // 2] for t in times]
+
+
+def host_ms(fn, fresh):
+    """Median ms of fn(fresh()) over REPS runs after one warm-up; the fresh
+    input is made before the clock starts."""
+    import torch
+    fn(fresh())
+    times = []
+    for _ in range(REPS):
+        arg = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[REPS // 2]
 
 
 def morse_bank(freqs, n, interpolate):
@@ -509,7 +560,7 @@ def long_recording_phase():
           f"plane shape {tuple(plane.shape)}")
     check(bool(plane.isfinite().all()), "plane not finite")
 
-    # -- known answers on channel 0 ---------------------------------------------
+    # -- known answers on channel 0 -------------------------------------------
     x0 = torch.from_numpy(data[0]).cuda()
     whole = cwt.power_from_bank(x0, nt.Morse(
         SFREQ, interpolate=True, device="cuda").make_fft_wavelets(
@@ -559,7 +610,7 @@ def long_recording_phase():
                     fused.fused_power_from_bank(xs, bs, interp),
                     cwt.power_from_bank(xs, bs, interp))
 
-    # -- OnlineCWT, bit-identical to StreamingCWT(batch=1) ----------------------
+    # -- OnlineCWT, bit-identical to StreamingCWT(batch=1) --------------------
     kw = dict(window=REC_WINDOW, interpolate=True, device="cuda")
     want = StreamingCWT(morse._wdef(), freqs, SFREQ, batch=1,
                         **kw).power(data[0])
@@ -583,7 +634,7 @@ def long_recording_phase():
     check(same, "OnlineCWT differs from StreamingCWT(batch=1)")
     del got, want
 
-    # -- scattering: both modulus layers through K4 -----------------------------
+    # -- scattering: both modulus layers through K4 ---------------------------
     sc = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (16, 4096), dtype=np.float32)).cuda()
     f1, f2 = np.geomspace(8.0, 400.0, 24), np.geomspace(1.0, 64.0, 12)
@@ -600,7 +651,7 @@ def long_recording_phase():
     rel_err("scattering S1 vs use_fused=False", s1, p1)
     rel_err("scattering S2 vs use_fused=False", s2, p2)
 
-    # -- times --------------------------------------------------------------------
+    # -- times ----------------------------------------------------------------
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
@@ -611,20 +662,6 @@ def long_recording_phase():
     print(f"time one window batch {tuple(x.shape)} x {REC_F} rows: K4 path "
           f"(rFFT + kernel) {ms} ms, plain torch.fft {plain_ms} ms")
     torch.cuda.empty_cache()
-
-    def host_ms(fn, fresh):
-        """Median ms of fn(fresh()) over REPS runs after one warm-up; the
-        fresh input is made before the clock starts."""
-        fn(fresh())
-        times = []
-        for _ in range(REPS):
-            arg = fresh()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(arg)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[REPS // 2]
 
     def one_channel():
         return gen.standard_normal(REC_N, dtype=np.float32)
@@ -646,7 +683,7 @@ def long_recording_phase():
           f"{REC_C * REC_N / SFREQ / (rw_ms / 1e3)} channel-signal-s/s")
     torch.cuda.empty_cache()
 
-    # -- breakdown of one 64-channel batch by CUDA events ----------------------
+    # -- breakdown of one 64-channel batch by CUDA events ---------------------
     host = groups[0][1]
     spec = torch.fft.rfft(x.reshape(-1, 1, REC_EXT)).contiguous()
     each = kernels.fused_cwt("power_each", spec, bank, REC_EXT // 2,
@@ -680,6 +717,240 @@ def long_recording_phase():
             "launches": counts["power_each"], "max_abs_err": err_each,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def ssq_err(name, got, ref):
+    """The synchrosqueezing gates: each time column's energy rel <=
+    SSQ_COLSUM_RTOL, SNR >= SSQ_SNR_DB, no NaN; prints the SNR and the
+    cells that differ by more than 1e-3 of the max.  Returns max|d|."""
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
+          f"{tuple(ref.shape)}")
+    check(not bool(got.isnan().any()), f"{name}: NaN")
+    g, r = got.double(), ref.double()
+    colsum = ((g.sum(-2) - r.sum(-2)).abs().max()
+              / r.sum(-2).abs().max()).item()
+    d = (g - r).abs()
+    err2 = (d * d).sum().item()
+    snr = 10 * math.log10((r * r).sum().item() / err2) if err2 else math.inf
+    moved = int((d > 1e-3 * r.abs().max()).sum())
+    print(f"check {name}: column energy rel {colsum} (gate "
+          f"{SSQ_COLSUM_RTOL}), SNR {snr} dB (gate {SSQ_SNR_DB}), cells "
+          f"differing by > 1e-3 of the max {moved} of {r.numel()}, max|d| "
+          f"{d.max().item()}")
+    check(colsum <= SSQ_COLSUM_RTOL, f"{name}: column energy rel {colsum}")
+    check(snr >= SSQ_SNR_DB, f"{name}: SNR {snr} dB < {SSQ_SNR_DB}")
+    return d.max().item()
+
+
+def plain_peaks(x, bank, chunk=20):
+    """(C, E) peak power of each (epoch, channel), the plain way, a few
+    epochs at a time."""
+    import torch
+    from ninwavelets_tpu_torch.ops import cwt
+    return torch.cat([cwt.power_from_bank(x[i:i + chunk], bank, True)
+                      .amax(dim=(-2, -1)) for i in range(0, len(x), chunk)]).T
+
+
+def ssq_phase(data):
+    """Slice 4: the synchrosqueezing path at full width, its checks and
+    times; returns the K5a and K5b kernel records."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import fused, sst
+    from ninwavelets_tpu_torch.parallel import StreamingCWT
+
+    freqs = np.arange(1.0, F + 1.0)
+    freqs_log = 4.0 * 2.0 ** (np.arange(48) / 8.0)
+    hint = sst.uniform_grid_hint(np.float32(freqs))
+    hint_log = sst.uniform_grid_hint(np.float32(freqs_log))
+    check((hint[0], hint_log[0]) == ("lin", "log"), f"hints {hint} {hint_log}")
+
+    # -- the main path: EpochsWavelet.ssq_power_all through K5a and K5b -------
+    morse = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ), morse)
+    ew_log = nt.EpochsWavelet(nt.ArrayEpochs(data[:E_RAGGED], SFREQ),
+                              nt.Morse(SFREQ, interpolate=True,
+                                       device="cuda"))
+    runs = {}
+    for name, adapter, grid in (("lin", ew, freqs), ("log", ew_log,
+                                                     freqs_log)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        plane = adapter.ssq_power_all(grid)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        print(f"ssq main path, {name} grid: {time.perf_counter() - t0} s "
+              f"(E={len(adapter._all_data())} C={C} N={N} F={len(grid)}; "
+              f"first call: bank build and host-to-device copy included); "
+              f"launches {counts}")
+        for key in ("amax", "ssq"):
+            check(counts[key] == 1, f"{key!r} launched {counts[key]} times "
+                  f"in one ssq_power_all call ({name} grid)")
+        runs[name] = plane
+        if name == "lin":
+            main_counts = counts
+
+    # -- K5a and K5b against their plain versions, same tensors ---------------
+    x, bank = ew._all_data(), morse.fft_wavelets
+    peaks = fused.ssq_peaks(x, bank)
+    err_amax = rel_err("K5a peaks (C, E), full width", peaks,
+                       plain_peaks(x, bank))
+    err_ssq = ssq_err("ssq_power_all, lin grid, vs plain",
+                      runs["lin"], sst.ssq_mean_power_from_bank(
+                          x, bank, None, SFREQ, True, 1e-6, hint))
+    xl, bank_l = ew_log._all_data(), ew_log.wavelet.fft_wavelets
+    rel_err(f"K5a peaks (C, E), E={E_RAGGED} log rows", fused.ssq_peaks(
+        xl, bank_l), plain_peaks(xl, bank_l))
+    ssq_err(f"ssq_power_all, log grid, E={E_RAGGED}, vs plain",
+            runs["log"], sst.ssq_mean_power_from_bank(
+                xl, bank_l, None, SFREQ, True, 1e-6, hint_log))
+    del runs, xl
+    gen = np.random.default_rng(7)
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        xs = torch.from_numpy(tone_epochs(3, 2, n, seed=log2n)).cuda()
+        xs[:, 1] = 0.0
+        for name, grid in (("lin", freqs[:50]), ("log", freqs_log)):
+            h = sst.uniform_grid_hint(np.float32(grid))
+            bs = morse_bank(grid, n, True)
+            rel_err(f"K5a N={n} {name} (3, 2) x {len(grid)}",
+                    fused.ssq_peaks(xs, bs), plain_peaks(xs, bs))
+            got = fused.fused_ssq_mean_power(xs, bs, uniform_grid=h,
+                                             sfreq=SFREQ)
+            ssq_err(f"K5b N={n} {name} (3, 2) x {len(grid)}", got,
+                    sst.ssq_mean_power_from_bank(xs, bs, None, SFREQ, True,
+                                                 1e-6, h))
+            check(bool((got[1] == 0).all()), f"K5b N={n} {name}: the "
+                  "all-zero channel's plane is not zero")
+
+    # -- known answer: a 60 Hz tone lands in rows 59-61 Hz --------------------
+    tone = nt.EpochsWavelet(nt.ArrayEpochs(tone_epochs(8, 2, N), SFREQ),
+                            nt.Morse(SFREQ, interpolate=True, device="cuda"))
+    p_tone = tone.ssq_power_all(freqs)[..., N // 4:3 * N // 4]
+    share = (p_tone[:, 58:61].sum() / p_tone.sum()).item()
+    print(f"check 60 Hz tone: {share} of the interior energy in rows 59-61 "
+          "Hz (gate 0.95)")
+    check(share >= 0.95, f"60 Hz tone share {share} < 0.95")
+
+    # -- long recordings: RawWavelet.ssq_power through both kernels -----------
+    rec_freqs = np.arange(2.0, 2.0 + REC_F)
+    rec = recording(3)
+    rw = nt.RawWavelet(ArrayRaw(rec), morse, window=REC_WINDOW,
+                       batch=REC_BATCH)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rec_plane = rw.ssq_power(rec_freqs)
+    torch.cuda.synchronize()
+    rec_counts = dict(kernels.launches)
+    stream = rw._stream_for(rec_freqs)
+    n_batches = -(-REC_N // (REC_WINDOW * REC_BATCH))
+    print(f"ssq long-recording path {time.perf_counter() - t0} s (C={REC_C} "
+          f"N={REC_N} F={REC_F}, window {stream.window}, halo {stream.halo};"
+          f" first call: bank, halo and host snapshot included); launches "
+          f"{rec_counts}")
+    check((stream.halo, stream.window + 2 * stream.halo)
+          == (REC_HALO, REC_EXT), f"geometry {stream.halo}, {stream.window}")
+    for key in ("amax", "ssq"):
+        check(rec_counts[key] == n_batches, f"{key!r} launched "
+              f"{rec_counts[key]} times for {n_batches} window batches")
+    check(tuple(rec_plane.shape) == (REC_C, REC_F, REC_N),
+          f"plane shape {tuple(rec_plane.shape)}")
+    check(bool(rec_plane.isfinite().all()), "ssq recording plane not finite")
+    plane4 = rec_plane[:4].clone()
+    del rec_plane
+    torch.cuda.empty_cache()
+    plain_stream = StreamingCWT(morse._wdef(), rec_freqs, SFREQ,
+                                window=REC_WINDOW, interpolate=True,
+                                use_fused=False, batch=REC_BATCH,
+                                device="cuda")
+    ssq_err("RawWavelet.ssq_power, 4 channels, vs StreamingCWT("
+            "use_fused=False)", plane4, plain_stream.ssq_power_device(rec[:4]))
+    del plane4
+    torch.cuda.empty_cache()
+
+    # -- times ----------------------------------------------------------------
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    x = x.clone()
+    path_ms, plain_ms = median_ms(x, [
+        lambda: fused.fused_ssq_mean_power(x, bank, uniform_grid=hint,
+                                           sfreq=SFREQ),
+        lambda: sst.ssq_mean_power_from_bank(x, bank, None, SFREQ, True,
+                                             1e-6, hint)])
+    print(f"time ssq_mean_power (E={E} C={C} N={N} F={F}, lin): kernel path "
+          f"(rFFT + K5a + K5b) {path_ms} ms, plain torch.fft {plain_ms} ms")
+    amax_ms, amax_plain_ms = median_ms(x, [lambda: fused.ssq_peaks(x, bank),
+                                           lambda: plain_peaks(x, bank)])
+    print(f"time peaks (C, E): K5a path (rFFT + kernel + max over rows) "
+          f"{amax_ms} ms, plain {amax_plain_ms} ms")
+    spec = torch.fft.rfft(x).contiguous()
+    floors = (1e-6 * peaks).contiguous()
+    ssq_ms = median_ms(x, [lambda: kernels.fused_ssq(
+        torch.fft.rfft(x).contiguous(), bank, floors, hint, SFREQ)])[0]
+    print(f"time K5b path (rFFT + zero-fill + kernel) {ssq_ms} ms")
+    for name, fn in (("K5a alone", lambda: kernels.fused_cwt(
+                          "amax", spec, bank, N // 2, "fast3")),
+                     ("K5b alone (zero-fill included)", lambda:
+                      kernels.fused_ssq(spec, bank, floors, hint, SFREQ)),
+                     ("K1 'power' alone, for scale", lambda:
+                      kernels.fused_cwt("power", spec, bank, N // 2,
+                                        "fast3"))):
+        print(f"breakdown {name}: {event_ms(fn)} ms (CUDA events, mean of "
+              f"{REPS})")
+    del spec, x
+    torch.cuda.empty_cache()
+    rw_ms = host_ms(lambda d: nt.RawWavelet(
+        ArrayRaw(d), morse, window=REC_WINDOW,
+        batch=REC_BATCH).ssq_power(rec_freqs), lambda: recording(
+            int(gen.integers(1 << 30))))
+    print(f"time RawWavelet.ssq_power, {REC_C} channels x {REC_N} samples "
+          f"(bank, halo and host snapshot included): {rw_ms} ms, "
+          f"{REC_C * REC_N / SFREQ / (rw_ms / 1e3)} channel-signal-s/s")
+    torch.cuda.empty_cache()
+
+    # -- breakdown of one 64-channel recording batch by CUDA events ------------
+    xb = torch.from_numpy(next(iter(stream._ext_batches(rec)))[1]).cuda()
+    spec_b = torch.fft.rfft(xb.reshape(1, -1, REC_EXT)).contiguous()
+    floors_b = (1e-6 * kernels.fused_cwt("amax", spec_b, stream._bank,
+                                         REC_EXT // 2, "fast3")[0].amax(1)
+                ).contiguous()
+    rec_hint = sst.uniform_grid_hint(np.float32(rec_freqs))
+    parts = {
+        "rFFT of the batch": lambda: torch.fft.rfft(
+            xb.reshape(1, -1, REC_EXT)),
+        "K5a alone": lambda: kernels.fused_cwt(
+            "amax", spec_b, stream._bank, REC_EXT // 2, "fast3"),
+        "K5b alone (zero-fill included)": lambda: kernels.fused_ssq(
+            spec_b, stream._bank, floors_b, rec_hint, SFREQ),
+        "zero-fill of the (512, 100, 16384) plane": lambda: torch.zeros(
+            (REC_BATCH * REC_C, REC_F, REC_EXT), device="cuda"),
+    }
+    for name, fn in parts.items():
+        print(f"breakdown ssq batch {tuple(xb.shape)}, {name}: {event_ms(fn)}"
+              f" ms (CUDA events, mean of {REPS})")
+    del xb, spec_b, floors_b
+    torch.cuda.empty_cache()
+
+    fft = fft_flops(N)
+    amax_bound = bound(E * C * (fft / 2 + F * fft),
+                       4 * (E * C * N + F * N + C * F * E))
+    ssq_bound = bound(E * C * (fft / 2 + 2 * F * fft),
+                      4 * (E * C * N + F * N + C * E + C * F * N))
+    return [{"name": "fused_cwt[amax]", "route": "cuda",
+             "source": KERNEL_SOURCE, "replaces": AMAX_REPLACES,
+             "launches": main_counts["amax"], "max_abs_err": err_amax,
+             "ms": amax_ms, "plain_ms": amax_plain_ms,
+             "bound_ms": amax_bound[0], "bound_by": amax_bound[1],
+             "library_ms": None},
+            {"name": "fused_ssq", "route": "cuda", "source": SSQ_SOURCE,
+             "replaces": SSQ_REPLACES, "launches": main_counts["ssq"],
+             "max_abs_err": err_ssq, "ms": ssq_ms, "plain_ms": plain_ms,
+             "bound_ms": ssq_bound[0], "bound_by": ssq_bound[1],
+             "library_ms": None}]
 
 
 def main() -> int:
@@ -802,8 +1073,12 @@ def main() -> int:
     records.append(training_phase())
     torch.cuda.empty_cache()
 
-    # -- slice 3: long recordings ----------------------------------------------
+    # -- slice 3: long recordings ---------------------------------------------
     records.append(long_recording_phase())
+    torch.cuda.empty_cache()
+
+    # -- slice 4: synchrosqueezing --------------------------------------------
+    records += ssq_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

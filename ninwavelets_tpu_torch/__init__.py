@@ -8,10 +8,15 @@ CWT and its epoch reductions (epoch-mean power, inter-trial coherence, both
 off one pass), baseline correction, the ``EpochsWavelet`` adapter, the
 training path (``learn_bank``, ``fit_frequencies``), and the long-recording
 path (``RawWavelet``, ``parallel.StreamingCWT`` / ``OnlineCWT``, the EDF
-reader in ``io``, and ``scattering``).  On a CUDA tensor the epoch
-reductions and the per-signal power run the fused kernels of
-``csrc/fused_cwt.cu`` and the power's gradient the fused backward of
-``csrc/fused_cwt_bwd.cu``; on the CPU they run the plain ``torch.fft`` path.
+reader in ``io``, and ``scattering``), and the synchrosqueezing path
+(``ssq_power`` on the wavelet classes, ``EpochsWavelet.ssq_power_all``,
+``RawWavelet.ssq_power``, ``StreamingCWT.ssq_power_device``) with the
+reassignment, inverse-CWT, denoising, ridge and Torrence & Compo extensions
+in ``ops``.  On a CUDA tensor the epoch reductions and the per-signal power
+run the fused kernels of ``csrc/fused_cwt.cu``, the power's gradient the
+fused backward of ``csrc/fused_cwt_bwd.cu``, and synchrosqueezing on a
+single "lin" or "log" grid the "amax" epilogue and ``csrc/fused_ssq.cu``;
+on the CPU they run the plain ``torch.fft`` path.
 Entry points place their data on the card unless the caller passes
 ``device="cpu"``.
 """

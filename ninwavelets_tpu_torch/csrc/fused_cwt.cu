@@ -3,14 +3,22 @@
 // or, per signal with no reduction, -> |.|^2.
 //
 // Replaces the Pallas TPU kernel ninwavelets_tpu/ops/fused.py:_kernel with
-// its "power", "itc" and "power_itc" epilogues (fused_cwt_kernel) and its
-// "power_each" epilogue (fused_cwt_each_kernel), for a real (F, N) bank.
+// its "power", "itc", "power_itc" and "amax" epilogues (fused_cwt_kernel)
+// and its "power_each" epilogue (fused_cwt_each_kernel), for a real (F, N)
+// bank.
 //
 // What it computes, for every signal (e, c), bank row f and sample n:
 //     x_e[n]  = sum_{k < K} bank[f, k] * spec[e, c, k] * exp(+2 pi i k n / N)
 //     power   = (1 / (N^2 E)) * sum_e |x_e[n]|^2          (mean |cwt|^2)
 //     itc     = (1 / E) * | sum_e x_e[n] / |x_e[n]| |      (mean unit phase)
 //     each    = (1 / N^2) * |x_e[n]|^2, for every (e, c)  (|cwt|^2 per signal)
+//     amax    = max_n (1 / N^2) |x_e[n]|^2, out[c, f, e]   (per-row peak)
+// "amax" gives the synchrosqueezing noise gate (fused_ssq.cu) each epoch's
+// peak power: torch finishes the max over f.  It folds the 1/N into the
+// bank before the transform, as fused_ssq.cu does, so both kernels compute
+// the same |x|^2 through the same code (inverse_row.cuh); a block's
+// per-epoch max is a warp-shuffle reduction, then one over the warps in
+// shared memory, written by one thread: deterministic, no atomics.
 // K = N/2 on the analytic (interpolate=True) path: the upper bins are zero.
 // K = N otherwise.  The signal FFT runs outside the kernel (as it does for
 // the TPU kernel); this kernel starts at the bank x spectrum product.
@@ -51,41 +59,28 @@
 
 #include <cuda_runtime.h>
 
-#include "radix2.cuh"
+#include "inverse_row.cuh"
 
 namespace {
 
-enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kPowerEach = 3 };
+enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kPowerEach = 3, kAmax = 4 };
 
 constexpr int kMinLog2N = 8;    // N = 256
 constexpr int kMaxLog2N = 14;   // N = 16384: 12 N bytes = 192 KB of shared memory
+constexpr int kMaxWarps = 32;   // 1024 threads
 
-// Stage 0 and the inverse FFT of one (signal, bank row) pair: bank x
-// spectrum, stored bit-reversed, then the radix-2 decimation-in-time passes.
-// On return buf holds x[n] in natural order.  The caller stages `tw` first;
-// the barrier after stage 0 publishes it too.
-template <int PER>
-__device__ __forceinline__ void inverse_row(float2* buf, const float2* tw,
-                                            const float2* sp,
-                                            const float (&bank_reg)[PER],
-                                            int k_bins, int log2n, int tid,
-                                            int threads) {
-  const int rev_shift = 32 - log2n;
+// The max of v over the block, in thread 0 (v >= 0 everywhere).  `red`
+// holds one float a warp; the caller's next barrier orders its reuse.
+__device__ __forceinline__ float block_max(float v, float* red, int tid,
+                                           int threads) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int k = tid + i * threads;
-    float2 v = make_float2(0.f, 0.f);
-    if (k < k_bins) {
-      const float2 s = sp[k];
-      v = make_float2(s.x * bank_reg[i], s.y * bank_reg[i]);
-    }
-    buf[__brev(k) >> rev_shift] = v;
-  }
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((tid & 31) == 0) red[tid >> 5] = v;
   __syncthreads();
-  for (int s = 1; s <= log2n; ++s) {
-    radix2_dit_pass(buf, tw, s, log2n, tid, threads);
-    __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < (threads >> 5); ++w) v = fmaxf(v, red[w]);
   }
+  return v;
 }
 
 template <int EPI, int PER>
@@ -93,7 +88,7 @@ __global__ void __launch_bounds__(1024)
 fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
                  const float* __restrict__ bank,      // (F, N)
                  const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
-                 float* __restrict__ out0,            // (C, F, N)
+                 float* __restrict__ out0,            // (C, F, N); amax: (C, F, E)
                  float* __restrict__ out1,            // (C, F, N), power_itc only
                  int n_epochs, int n_channels, int n_freqs, int log2n,
                  int k_bins, int row_len, float power_scale, float itc_scale) {
@@ -102,6 +97,7 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   const int half_n = n >> 1;
   float2* buf = smem;        // n complex samples
   float2* tw = smem + n;     // n/2 twiddles
+  float* red = reinterpret_cast<float*>(tw + half_n);   // amax: one float a warp
 
   const int f = blockIdx.x;
   const int c = blockIdx.y;
@@ -110,12 +106,14 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
 
   for (int m = tid; m < half_n; m += threads) tw[m] = twiddle[m];
 
+  // "amax" folds the inverse DFT's 1/N into the bank (exact: N = 2^log2n).
+  const float bank_scale = EPI == kAmax ? 1.f / static_cast<float>(n) : 1.f;
   float bank_reg[PER];
   const float* bank_row = bank + static_cast<size_t>(f) * n;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int k = tid + i * threads;
-    bank_reg[i] = k < k_bins ? bank_row[k] : 0.f;
+    bank_reg[i] = k < k_bins ? bank_row[k] * bank_scale : 0.f;
   }
 
   float acc_p[PER], acc_r[PER], acc_i[PER];
@@ -126,22 +124,36 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   const float2* sp = spec + static_cast<size_t>(c) * row_len;
 
   for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
-    inverse_row<PER>(buf, tw, sp, bank_reg, k_bins, log2n, tid, threads);
+    inverse_row<PER>(
+        buf, tw, [&](int i, int k) { return bank_times(sp[k], bank_reg[i]); },
+        k_bins, log2n, tid, threads);
 
     // Epilogue: fold this epoch into the register accumulators.
+    float peak = 0.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const float2 x = buf[tid + i * threads];
       const float p = x.x * x.x + x.y * x.y;
-      if (EPI != kItc) acc_p[i] += p;
-      if (EPI != kPower) {
-        const float inv = rsqrtf(p);
-        acc_r[i] += x.x * inv;
-        acc_i[i] += x.y * inv;
+      if (EPI == kAmax) {
+        peak = fmaxf(peak, p);
+      } else {
+        if (EPI != kItc) acc_p[i] += p;
+        if (EPI != kPower) {
+          const float inv = rsqrtf(p);
+          acc_r[i] += x.x * inv;
+          acc_i[i] += x.y * inv;
+        }
       }
     }
-    __syncthreads();   // the next epoch's stage 0 overwrites buf
+    if (EPI == kAmax) {
+      peak = block_max(peak, red, tid, threads);
+      if (tid == 0) {
+        out0[(static_cast<size_t>(c) * n_freqs + f) * n_epochs + e] = peak;
+      }
+    }
+    __syncthreads();   // the next epoch's stage 0 overwrites buf (and red)
   }
+  if (EPI == kAmax) return;
 
   const size_t base = (static_cast<size_t>(c) * n_freqs + f) * n;
 #pragma unroll
@@ -188,8 +200,10 @@ fused_cwt_each_kernel(const float2* __restrict__ spec,     // (E*C, L), L >= K
     bank_reg[i] = k < k_bins ? bank_row[k] : 0.f;
   }
 
-  inverse_row<PER>(buf, tw, spec + static_cast<size_t>(b) * row_len, bank_reg,
-                   k_bins, log2n, tid, threads);
+  const float2* sp = spec + static_cast<size_t>(b) * row_len;
+  inverse_row<PER>(
+      buf, tw, [&](int i, int k) { return bank_times(sp[k], bank_reg[i]); },
+      k_bins, log2n, tid, threads);
 
   float* dst = out + ((static_cast<size_t>(b) * n_freqs + f) << log2n);
 #pragma unroll
@@ -220,7 +234,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <int EPI, int PER>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int n = 1 << a.log2n;
-  const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2;
+  const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2 +
+                      (EPI == kAmax ? kMaxWarps * sizeof(float) : 0);
   if constexpr (EPI == kPowerEach) {
     auto kernel = fused_cwt_each_kernel<PER>;
     const cudaError_t err = allow_smem(kernel, smem);
@@ -269,7 +284,7 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
       (epilogue != kPowerEach && n_channels > 65535) ||
       (epilogue == kPowerEach &&
        static_cast<long long>(n_epochs) * n_channels > 2147483647LL) ||
-      epilogue < kPower || epilogue > kPowerEach ||
+      epilogue < kPower || epilogue > kAmax ||
       (epilogue == kPowerItc && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -285,7 +300,7 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   a.log2n = log2n;
   a.k_bins = k_bins;
   a.row_len = row_len;
-  const double power_epochs = epilogue == kPowerEach ? 1.0 : n_epochs;
+  const double power_epochs = epilogue == kPower || epilogue == kPowerItc ? n_epochs : 1.0;
   a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n * power_epochs));
   a.itc_scale = static_cast<float>(1.0 / n_epochs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -293,6 +308,7 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
     case kPower: return static_cast<int>(launch_per<kPower>(a, s));
     case kItc: return static_cast<int>(launch_per<kItc>(a, s));
     case kPowerItc: return static_cast<int>(launch_per<kPowerItc>(a, s));
+    case kAmax: return static_cast<int>(launch_per<kAmax>(a, s));
     default: return static_cast<int>(launch_per<kPowerEach>(a, s));
   }
 }

@@ -1,9 +1,11 @@
 """Loader and launchers for the hand-written CUDA kernels in ``../csrc``.
 
-Every ``.cu`` source there is compiled by one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``: the fused forward
-(``fused_cwt.cu``: the epoch reductions and the per-signal power) and the
-fused power backward (``fused_cwt_bwd.cu``).
+Every ``.cu`` source there is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``: the fused forward (``fused_cwt.cu``:
+the epoch reductions, the per-signal power and the per-row peak "amax"), the
+fused power backward (``fused_cwt_bwd.cu``) and the fused synchrosqueezing
+kernel (``fused_ssq.cu``).
 Nothing is compiled or loaded when this module is imported: the first launch
 builds the library (or ``build()`` does it up front), keyed by a hash of every
 source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
@@ -11,8 +13,9 @@ published with an atomic rename so concurrent builds race safely.  A failed
 build raises; there is no fallback.
 
 Each launcher validates its tensors (device, dtype, shape, contiguity),
-allocates its outputs with ``torch.empty``, launches on the current CUDA
-stream, raises on any non-zero CUDA error, and counts its launches in
+allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
+synchrosqueezing plane, which the kernel adds into), launches on the current
+CUDA stream, raises on any non-zero CUDA error, and counts its launches in
 ``launches``.
 """
 from __future__ import annotations
@@ -33,18 +36,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Epilogues of the fused forward kernel, by the code the C launcher takes.
-#: The first three reduce over epochs; "power_each" keeps every signal.
-EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3}
+#: The first three reduce over epochs; "power_each" keeps every signal;
+#: "amax" gives each (channel, row, epoch) its peak power.
+EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3, "amax": 4}
 #: Signal lengths the fused kernel takes: powers of two in this range (the
 #: block's shared memory holds N samples and N/2 twiddles, 12*N bytes).
 MIN_N, MAX_N = 256, 16384
 
 #: Kernel launches since the last ``reset_launches()``: one key per epilogue
-#: of the forward kernel, and "power_bwd" for the power backward.
-launches = dict.fromkeys((*EPILOGUES, "power_bwd"), 0)
+#: of the forward kernel, "power_bwd" for the power backward and "ssq" for
+#: the synchrosqueezing kernel.
+launches = dict.fromkeys((*EPILOGUES, "power_bwd", "ssq"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -67,7 +72,8 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile every ``csrc/*.cu`` for sm_90a into one library, unless a
+    """Compile every ``csrc/*.cu`` for sm_90a, one ``nvcc`` process a
+    source, all at once, and link the objects into one library, unless a
     library built from the same sources (headers included), flags and
     compiler exists; return its path.  The compiler's report (registers,
     shared memory, spills per kernel) is kept beside the library as
@@ -85,16 +91,33 @@ def build() -> str:
     if os.path.exists(lib):
         return lib
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp%d" % (lib, os.getpid())
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
+    os.makedirs(tmp + ".d", exist_ok=True)
+    objs = [os.path.join(tmp + ".d", os.path.basename(src) + ".o")
+            for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    report = []
+    for src, proc in zip(sources, procs):
+        out, err = proc.communicate()
+        report.append(out + err)
+        if proc.returncode != 0:
+            for other in procs:
+                other.wait()
+            shutil.rmtree(tmp + ".d", ignore_errors=True)
+            raise RuntimeError("nvcc failed (exit %d) on %s:\n%s"
+                               % (proc.returncode, src, err))
+    proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                           capture_output=True, text=True)
+    shutil.rmtree(tmp + ".d", ignore_errors=True)
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d) on %s:\n%s"
+        raise RuntimeError("nvcc failed (exit %d) linking %s:\n%s"
                            % (proc.returncode, " ".join(sources),
                               proc.stderr))
     with open(lib[:-3] + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
+        fh.write("".join(report))
     os.replace(tmp, lib)
     return lib
 
@@ -115,6 +138,10 @@ def _load():
             fn = lib.ninw_fused_cwt_bwd_rows
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int]
+            fn = lib.ninw_fused_ssq
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
             _lib = lib
         return _lib
 
@@ -173,7 +200,8 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
       epilogue: "power" -> [mean power]; "itc" -> [itc];
         "power_itc" -> [mean power, itc], each (C, F, N) float32;
         "power_each" -> [|cwt|^2 of every signal], (E, C, F, N) float32,
-        scaled 1/N^2 with no 1/E.
+        scaled 1/N^2 with no 1/E; "amax" -> [max over N of |cwt|^2 / N^2],
+        (C, F, E) float32.
       spec: (E, C, L) complex64 CUDA tensor, contiguous: the signal spectra,
         of which the first ``k_bins`` bins of each row are used (L may exceed
         ``k_bins``, e.g. a whole rFFT row of N/2 + 1 bins).
@@ -187,7 +215,8 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     del precision
     e, c, row_len, f, n = _check(spec, bank, k_bins)
     lib = _load()
-    shape = (e, c, f, n) if epilogue == "power_each" else (c, f, n)
+    shape = {"power_each": (e, c, f, n), "amax": (c, f, e)}.get(epilogue,
+                                                                (c, f, n))
     outs = [torch.empty(shape, dtype=torch.float32, device=spec.device)
             for _ in range(2 if epilogue == "power_itc" else 1)]
     with torch.cuda.device(spec.device):
@@ -239,3 +268,51 @@ def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
                            f"(E={e}, C={c}, F={f}, N={n})")
     launches["power_bwd"] += 1
     return dbank_part, t_part
+
+
+def fused_ssq(spec: torch.Tensor, bank: torch.Tensor, floors: torch.Tensor,
+              uniform_grid, sfreq: float) -> torch.Tensor:
+    """Launch the fused synchrosqueezing kernel (``csrc/fused_ssq.cu``).
+
+    Args:
+      spec: (E, C, L) complex64 CUDA tensor, contiguous: rFFT rows of real
+        signals, of which the first N/2 bins are used (the analytic path).
+      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      floors: (C, E) float32 CUDA tensor, contiguous: the noise gate of each
+        (epoch, channel), at the 1/N^2 power scale.
+      uniform_grid: ``("lin", e0, step)`` or ``("log", log e0, log ratio)``,
+        the closed-form row map of ``ops.sst.uniform_grid_hint``.
+      sfreq: sampling frequency (Hz).
+
+    Returns the (C, F, N) float32 epoch SUM of the reassigned power at scale
+    1/N^2.  Its float atomics make repeated runs differ at the ulp level.
+    """
+    if uniform_grid[0] not in ("lin", "log"):
+        raise ValueError(f"the kernel takes a 'lin' or 'log' row map, got "
+                         f"{uniform_grid[0]!r}")
+    kind, e0, step = uniform_grid
+    if not float(step) > 0:
+        raise ValueError(f"row map step {step} must be positive")
+    if (spec.ndim == 3 and (floors.dtype != torch.float32
+                            or not floors.is_contiguous()
+                            or tuple(floors.shape) != spec.shape[1::-1])):
+        raise ValueError(f"floors must be a contiguous (C, E) = "
+                         f"{tuple(spec.shape[1::-1])} float32 tensor, got "
+                         f"{tuple(floors.shape)} {floors.dtype}")
+    e, c, row_len, f, n = _check(spec, bank, bank.shape[-1] // 2)
+    if floors.device != spec.device:
+        raise ValueError("the kernel's tensors must be on one device")
+    lib = _load()
+    out = torch.zeros((c, f, n), dtype=torch.float32, device=spec.device)
+    with torch.cuda.device(spec.device):
+        err = lib.ninw_fused_ssq(
+            spec.data_ptr(), bank.data_ptr(),
+            _twiddles(n, spec.device).data_ptr(), floors.data_ptr(),
+            out.data_ptr(), e, c, f, n, row_len, int(kind == "log"),
+            2.0 * np.pi * float(sfreq) / n, float(e0), float(step),
+            _stream(spec.device))
+    if err != 0:
+        raise RuntimeError(f"fused_ssq launch failed: CUDA error {err} "
+                           f"(E={e}, C={c}, F={f}, N={n})")
+    launches["ssq"] += 1
+    return out

@@ -26,8 +26,11 @@ from ..device import resolve_device
 from ..ops import bank as _bank
 from ..ops.bank import WaveletDef, WaveletMode
 from ..ops.cwt import abs_from_bank, cwt_from_bank, power_from_bank
+from ..ops.denoise import denoise as _denoise
+from ..ops.ridge import extract_modes as _extract_modes
 from ..ops.scattering import scattering as _scattering
 from ..ops.signal_utils import pad_to
+from ..ops.sst import ssq_power as _ssq_power
 
 Numbers = Union[Sequence[float], np.ndarray, range, torch.Tensor]
 
@@ -175,6 +178,56 @@ class WaveletBase:
               reuse: bool = True) -> torch.Tensor:
         """Instantaneous phase ``angle(cwt)`` in radians."""
         return torch.angle(self.cwt(wave, freqs, reuse))
+
+    def denoise(self, wave, freqs: Optional[Numbers] = None,
+                reuse: bool = True, method: str = "soft",
+                threshold_scale: float = 1.0) -> torch.Tensor:
+        """Wavelet-domain denoising (see ``ops.denoise``): CWT -> soft/hard
+        shrinkage -> band-limited least-squares inverse.  The bank should
+        cover the signal band (``ops.coverage``); same bank-reuse contract
+        as ``cwt``.  Returns the real (..., N) float32 estimate."""
+        wave, bank = self._prepare(wave, freqs, reuse)
+        if wave.is_complex():
+            raise ValueError("denoise expects a real signal")
+        return _denoise(wave, bank, interpolate=self.interpolate,
+                        method=method, threshold_scale=threshold_scale)
+
+    def ssq_power(self, wave, freqs: Optional[Numbers] = None,
+                  reuse: bool = True,
+                  rel_threshold: float = 1e-6) -> torch.Tensor:
+        """Synchrosqueezed power (see ``ops.sst``): scalogram energy
+        reassigned to the analysis row nearest each cell's instantaneous
+        frequency, float32 (..., F, N).  Same bank-reuse contract as
+        ``cwt``; needs a real (analytic-family) bank, a real signal and a
+        monotone freqs grid.  On the card a single "lin" or "log" grid at a
+        kernel length runs the synchrosqueezing kernels."""
+        wave, bank = self._prepare(wave, freqs, reuse)
+        if bank.is_complex():
+            raise ValueError(
+                "synchrosqueezing needs an analytic (real-bank) family; "
+                "Normal/Twice-mode banks carry no usable phase")
+        if wave.is_complex():
+            raise ValueError("synchrosqueezing expects a real signal")
+        return _ssq_power(wave, bank, self._bank_freqs, self.sfreq,
+                          interpolate=self.interpolate,
+                          rel_threshold=rel_threshold)
+
+    def extract_modes(self, wave, freqs: Optional[Numbers] = None,
+                      reuse: bool = True, n_modes: int = 2,
+                      penalty: float = 0.5, bw_rows: float = 2.0):
+        """Iterative multi-component retrieval (see
+        ``ops.ridge.extract_modes``): ridge-track the dominant component,
+        reconstruct it around the track, subtract, ``n_modes`` times.  Same
+        bank-reuse contract as ``cwt``; one real (N,) signal.  Returns
+        ``(modes (K, N), tracks (K, N) row positions, residual (N,))``."""
+        wave, bank = self._prepare(wave, freqs, reuse)
+        if wave.is_complex():
+            raise ValueError("extract_modes expects a real signal")
+        if wave.ndim != 1:
+            raise ValueError("extract_modes takes one (N,) signal; loop for "
+                             "batches")
+        return _extract_modes(wave, bank, n_modes=n_modes, penalty=penalty,
+                              bw_rows=bw_rows, interpolate=self.interpolate)
 
     def scattering(self, wave, freqs1: Numbers, freqs2: Numbers,
                    stride: int = 32, lowpass: str = "auto"):

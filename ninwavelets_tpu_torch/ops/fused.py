@@ -1,8 +1,10 @@
 """Fused epoch reductions: bank x spectrum x inverse DFT x |.|^2 / unit phase
 x epoch sum in one hand-written CUDA kernel, the per-signal power (no
-reduction) through the same kernel's "power_each" epilogue, and the power's
-backward in a second kernel (port of ``ninwavelets_tpu.ops.fused``; kernel
-sources ``csrc/fused_cwt.cu`` and ``csrc/fused_cwt_bwd.cu``).
+reduction) through the same kernel's "power_each" epilogue, the power's
+backward in a second kernel, and synchrosqueezing through the forward
+kernel's "amax" epilogue (the noise gate's peaks) and a third kernel (port
+of ``ninwavelets_tpu.ops.fused``; kernel sources ``csrc/fused_cwt.cu``,
+``csrc/fused_cwt_bwd.cu`` and ``csrc/fused_ssq.cu``).
 
 Dispatch, with no fallback that hides the device or the kernel:
 
@@ -14,7 +16,8 @@ Dispatch, with no fallback that hides the device or the kernel:
   accepts the workload and the signals are real, and the plain path
   otherwise (complex signals, a complex bank, a signal length outside the
   kernel's range, a bank built for another length), on whatever device the
-  tensors are.
+  tensors are.  ``ops.sst.ssq_mean_power`` and ``ssq_power`` dispatch the
+  same way on ``supports_ssq()``, and only for CUDA tensors.
 
 The signal FFT runs outside the kernel, as ``torch.fft.rfft`` on the analytic
 path (``interpolate=True``) and ``torch.fft.fft`` otherwise.  Everything from
@@ -42,11 +45,15 @@ from .. import kernels
 from .cwt import (analytic_spectrum, itc_from_bank, mean_power_from_bank,
                   power_from_bank)
 from .grids import analytic_mask
+from .sst import ssq_mean_power_from_bank, ssq_power_from_bank
 
 #: Precision names the wrappers take.  The CUDA kernel computes in float32
 #: for every name (float32 meets the tightest, "exact", tolerance).
 PRECISIONS = ("fast3", "exact", "bf16")
 DEFAULT_PRECISION = "fast3"
+#: Signals a per-signal synchrosqueezing launch takes: they ride the
+#: kernel's channel axis, a grid axis of at most 65535 blocks.
+MAX_SSQ_SIGNALS = 65535
 
 
 def supports(signals_shape, bank, epilogue: str = "power") -> bool:
@@ -324,3 +331,134 @@ def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
                                          precision)
     return (mean_power_from_bank(signals, bank, interpolate),
             itc_from_bank(signals, bank, interpolate))
+
+
+# -- synchrosqueezing ---------------------------------------------------------
+
+def supports_ssq(signals_shape, bank, uniform_grid, interpolate: bool) -> bool:
+    """True when the synchrosqueezing kernels take this workload: what
+    ``supports()`` takes (an (E, C, N) batch, 1 <= C <= 65535, N a power of
+    two in [256, 16384], a real (F, N) bank built for that N), the analytic
+    path (``interpolate=True``), and a single "lin" or "log" row map (a
+    piecewise or irregular grid runs the plain path)."""
+    if uniform_grid is None or uniform_grid[0] not in ("lin", "log"):
+        return False
+    return bool(interpolate) and supports(signals_shape, bank)
+
+
+def ssq_kernel_takes(signals: torch.Tensor, bank, uniform_grid,
+                     interpolate: bool) -> bool:
+    """``supports_ssq()`` for real signals on a CUDA device: the dispatchers'
+    test."""
+    return (signals.device.type == "cuda" and not signals.is_complex()
+            and supports_ssq(signals.shape, bank, uniform_grid, interpolate))
+
+
+def signal_batch(signals: torch.Tensor) -> torch.Tensor:
+    """The (1, B, N) view of (..., N) per-signal work, cut to the signals
+    of one launch (``MAX_SSQ_SIGNALS``): what ``supports_ssq()`` checks for
+    ``fused_ssq_power_from_bank``."""
+    return signals.reshape(1, -1, signals.shape[-1])[:, :MAX_SSQ_SIGNALS]
+
+
+def _spectra(signals: torch.Tensor, bank: torch.Tensor):
+    """The kernels' inputs on the analytic path: contiguous rFFT rows and a
+    contiguous float32 bank."""
+    return (torch.fft.rfft(signals.to(torch.float32)).contiguous(),
+            bank.to(torch.float32).contiguous())
+
+
+def _peaks(spec: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """(C, E) peak power of each (epoch, channel): one "amax" launch for the
+    (C, F, E) row peaks, the max over rows in torch."""
+    return kernels.fused_cwt("amax", spec, bank, bank.shape[-1] // 2,
+                             DEFAULT_PRECISION)[0].amax(1)
+
+
+def ssq_peaks(signals: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """(E, C, N) real signals x (F, N) real bank -> (C, E): the peak of
+    each (epoch, channel)'s |cwt|^2 plane on the analytic path, which scales
+    the synchrosqueezing noise gate.  The "amax" epilogue on the card (it
+    launches or raises); on the CPU the plain max of ``power_from_bank``."""
+    if signals.device.type == "cpu":
+        return power_from_bank(signals, bank, True).amax(dim=(-2, -1)).T
+    return _peaks(*_spectra(signals, bank))
+
+
+def _fused_ssq_sum(signals: torch.Tensor, bank: torch.Tensor, uniform_grid,
+                   sfreq: float, rel_threshold: float) -> torch.Tensor:
+    """(E, C, N) real signals -> (C, F, N) epoch SUM of the reassigned
+    power: the rFFT, the (C, E) floors from one "amax" launch, one
+    synchrosqueezing launch."""
+    spec, bank = _spectra(signals, bank)
+    floors = (rel_threshold * _peaks(spec, bank)).contiguous()
+    return kernels.fused_ssq(spec, bank, floors, uniform_grid, sfreq)
+
+
+def _check_ssq(signals: torch.Tensor, bank: torch.Tensor, uniform_grid,
+               interpolate: bool) -> None:
+    if signals.is_complex() or not supports_ssq(signals.shape, bank,
+                                                uniform_grid, interpolate):
+        raise ValueError(
+            f"the synchrosqueezing kernels do not take {signals.dtype} "
+            f"signals {tuple(signals.shape)} with bank {tuple(bank.shape)} "
+            f"{bank.dtype}, row map {uniform_grid!r}, interpolate="
+            f"{interpolate}; see supports_ssq()")
+    _no_grad_on_card("the synchrosqueezing kernels",
+                     "ops.sst.ssq_mean_power_from_bank", signals, bank)
+
+
+def fused_ssq_mean_power(signals: torch.Tensor, bank: torch.Tensor, *,
+                         uniform_grid, sfreq: float,
+                         rel_threshold: float = 1e-6,
+                         interpolate: bool = True) -> torch.Tensor:
+    """Epoch-mean synchrosqueezed power through the kernels: (E, C, N) real
+    signals x (F, N) real bank -> (C, F, N) float32 (port of
+    ``ninwavelets_tpu/ops/fused.py:fused_ssq_mean_power``).
+
+    The same gate (per (epoch, channel)) and closed-form row map as
+    ``ops.sst.ssq_mean_power_from_bank``, which is what runs for a CPU
+    tensor.  On the card: one "amax" launch and one synchrosqueezing launch
+    for any E (the kernels loop over all epochs; none is padded in), or a
+    ValueError for a workload ``supports_ssq()`` rejects.  Cells whose
+    instantaneous frequency sits on a row edge may land in the neighbouring
+    row (float32 rounding differs between the two paths); each time column's
+    energy is the same.  Not differentiable.
+    """
+    if signals.device.type == "cpu":
+        return ssq_mean_power_from_bank(signals, bank, None, sfreq,
+                                        interpolate, rel_threshold,
+                                        uniform_grid)
+    _check_ssq(signals, bank, uniform_grid, interpolate)
+    return _fused_ssq_sum(signals, bank, uniform_grid, sfreq,
+                          rel_threshold) / signals.shape[0]
+
+
+def _fused_ssq_each(signals: torch.Tensor, bank: torch.Tensor, uniform_grid,
+                    sfreq: float, rel_threshold: float) -> torch.Tensor:
+    """Per-signal synchrosqueezed power through the kernels: (..., N) ->
+    (..., F, N).  The signals flatten onto the channel axis as (1, B, N), in
+    launches of at most ``MAX_SSQ_SIGNALS``; with one epoch the
+    (epoch, channel) floor is each signal's own."""
+    lead, n = signals.shape[:-1], signals.shape[-1]
+    flat = signals.reshape(1, -1, n)
+    out = torch.cat([
+        _fused_ssq_sum(flat[:, lo:lo + MAX_SSQ_SIGNALS], bank, uniform_grid,
+                       sfreq, rel_threshold)
+        for lo in range(0, flat.shape[1], MAX_SSQ_SIGNALS)])
+    return out.reshape(*lead, bank.shape[0], n)
+
+
+def fused_ssq_power_from_bank(signals: torch.Tensor, bank: torch.Tensor, *,
+                              uniform_grid, sfreq: float,
+                              rel_threshold: float = 1e-6,
+                              interpolate: bool = True) -> torch.Tensor:
+    """Per-signal synchrosqueezed power: (..., N) real x (F, N) real bank ->
+    (..., F, N) float32, each signal gated against its own peak, as
+    ``ops.sst.ssq_power_from_bank`` (what runs for a CPU tensor).  On the
+    card it launches the kernels or raises."""
+    if signals.device.type == "cpu":
+        return ssq_power_from_bank(signals, bank, None, sfreq, interpolate,
+                                   rel_threshold, uniform_grid)
+    _check_ssq(signal_batch(signals), bank, uniform_grid, interpolate)
+    return _fused_ssq_each(signals, bank, uniform_grid, sfreq, rel_threshold)

@@ -64,7 +64,7 @@ def _smooth_decimate_operator(n: int, stride: int, sfreq: float,
 
 
 @contextlib.contextmanager
-def _fp32_matmul(precision: str):
+def fp32_matmul(precision: str):
     """True float32 matmuls (no TF32) inside, the JAX package's
     ``Precision.HIGHEST``; the process's setting is restored on exit.
     "bf16" keeps the process's setting, as JAX keeps DEFAULT."""
@@ -115,7 +115,7 @@ def scattering_from_banks(signal: torch.Tensor, bank1: torch.Tensor,
             n, int(stride), float(sfreq), float(cutoff))).to(signal.device)
 
         def smooth(u):
-            with _fp32_matmul(precision):
+            with fp32_matmul(precision):
                 return torch.matmul(u, gmat)
     else:
         phi = lowpass_spectrum(n, sfreq, cutoff, device=signal.device)

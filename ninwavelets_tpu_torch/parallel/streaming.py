@@ -13,6 +13,11 @@ A batch of windows, with any channel dims riding along, is one call of
 or of the plain ``ops.cwt.power_from_bank``.  ``power_device`` pastes each
 batch into a (..., F, N) plane preallocated on the device; ``blocks`` and
 ``power`` hand host numpy back, as the JAX package does.
+``ssq_power_device`` does the same with synchrosqueezed power: one call of
+``ops.fused.fused_ssq_power_from_bank`` (the "amax" and synchrosqueezing
+kernels) per batch when the stream is fused and the grid has a single
+"lin" or "log" row map, of the plain ``ops.sst.ssq_power_from_bank``
+otherwise.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ from ..device import resolve_device
 from ..io.stream import ArraySource, iter_ext_batches
 from ..ops.bank import WaveletDef, make_fft_bank
 from ..ops.cwt import power_from_bank
-from ..ops.fused import fused_power_from_bank, supports
+from ..ops.fused import (fused_power_from_bank, fused_ssq_power_from_bank,
+                         supports, supports_ssq)
+from ..ops.sst import ssq_power_from_bank, uniform_grid_hint
 from .chunked import halo_samples, pow2_halo
 
 
@@ -166,13 +173,51 @@ class StreamingCWT:
         """``power_device`` over any :mod:`ninwavelets_tpu_torch.io` source,
         e.g. ``io.EDFSource(path)`` streams a recording straight off the
         file mmap, window batch by window batch; the gather of batch ``i+1``
-        runs on a worker thread while the device computes batch ``i``.
+        runs on a worker thread while the device computes batch ``i``."""
+        return self._assemble(source, self._window_batch)
+
+    def ssq_power_device(self, signal: np.ndarray,
+                         rel_threshold: float = 1e-6) -> torch.Tensor:
+        """(..., F, N) synchrosqueezed power of an arbitrarily long
+        recording, assembled on the device: frequency reassignment is local
+        in time, so the overlap-discard windows apply as for
+        ``power_device``.
+
+        The noise-gate floor (``rel_threshold`` x peak power) is evaluated
+        per window and channel, not over the whole recording, as in the JAX
+        package.  The zero-filled windows of a ragged last batch give zero
+        planes (floor 0, omega 0, row 0, power 0).  Real banks only."""
+        if self._bank.is_complex():
+            raise ValueError(
+                "synchrosqueezing needs an analytic (real-bank) family")
+        hint = uniform_grid_hint(self.freqs)
+        ext = self.window + 2 * self.halo
+        fused = self._fused and supports_ssq((1, 1, ext), self._bank, hint,
+                                             self.interpolate)
+
+        def window_fn(x):
+            if fused:
+                p = fused_ssq_power_from_bank(
+                    x, self._bank, uniform_grid=hint, sfreq=self.sfreq,
+                    rel_threshold=rel_threshold,
+                    interpolate=self.interpolate)
+            else:
+                p = ssq_power_from_bank(x, self._bank, self.freqs,
+                                        self.sfreq, self.interpolate,
+                                        rel_threshold, hint)
+            return p[..., self.halo:ext - self.halo]
+
+        return self._assemble(ArraySource(signal), window_fn)
+
+    def _assemble(self, source, window_fn) -> torch.Tensor:
+        """The (..., F, N) plane of ``window_fn`` over the window batches of
+        ``source``: ``window_fn`` maps a (W, ..., ext) batch on the device
+        to its (W, ..., F, window) cropped block.
 
         The plane is preallocated as (..., F, n_batches * batch * window)
-        and returned as the view of its first N samples: the cropped
-        (W, ..., F, window) block of each batch lands as one
-        (..., F, W * window) slab, with the crop and the transpose in the
-        one copy."""
+        and returned as the view of its first N samples: the block of each
+        batch lands as one (..., F, W * window) slab, with the crop and the
+        transpose in the one copy."""
         n = int(source.n_samples)
         lead = tuple(source.lead)
         span = self.batch * self.window
@@ -180,7 +225,7 @@ class StreamingCWT:
         buf = torch.empty(lead + (self.freqs.shape[0], n_batches * span),
                           dtype=torch.float32, device=self.device)
         for batch_starts, ext in self._source_batches(source):
-            block = self._window_batch(torch.from_numpy(ext).to(self.device))
+            block = window_fn(torch.from_numpy(ext).to(self.device))
             start = batch_starts[0]
             buf[..., start:start + span].unflatten(
                 -1, (self.batch, self.window)).copy_(block.movedim(0, -2))

@@ -21,6 +21,8 @@ from ..ops.baseline import baseline_tf
 from ..ops.cwt import cwt_from_bank
 from ..ops.fused import itc_auto, mean_power_auto, power_itc_auto
 from ..ops.signal_utils import pad_to
+from ..ops.reassign import reassigned_mean_power
+from ..ops.sst import ssq_mean_power
 from ..parallel.streaming import StreamingCWT
 
 
@@ -164,6 +166,57 @@ class EpochsWavelet:
         return power_itc_auto(waves, bank,
                               interpolate=self.wavelet.interpolate)
 
+    # -- synchrosqueezing ---------------------------------------------------
+
+    def _ssq_bank(self, waves: torch.Tensor, freqs) -> torch.Tensor:
+        bank = self._bank_for(waves, freqs)
+        if bank.is_complex():
+            raise ValueError(
+                "synchrosqueezing needs an analytic (real-bank) family; "
+                "Normal/Twice-mode banks carry no usable phase")
+        return bank
+
+    def ssq_power(self, ch_name: str, freqs: Numbers,
+                  rel_threshold: float = 1e-6) -> torch.Tensor:
+        """(F, N) epoch-mean synchrosqueezed power of one channel (see
+        ``ops.sst``): each epoch's scalogram energy is reassigned to its
+        instantaneous-frequency row before the epoch mean, with the noise
+        gate per epoch."""
+        waves = self._channel_data(ch_name)
+        bank = self._ssq_bank(waves, freqs)
+        return ssq_mean_power(waves[:, None, :], bank,
+                              self.wavelet._bank_freqs, self.wavelet.sfreq,
+                              interpolate=self.wavelet.interpolate,
+                              rel_threshold=rel_threshold)[0]
+
+    def ssq_power_all(self, freqs: Numbers,
+                      rel_threshold: float = 1e-6) -> torch.Tensor:
+        """(C, F, N) epoch-mean synchrosqueezed power of all channels.  On
+        the card, a single "lin" or "log" grid (``ops.sst.uniform_grid_hint``)
+        on the analytic path runs the two synchrosqueezing kernels, one
+        launch each; a piecewise or irregular grid runs the plain path."""
+        waves = self._all_data()
+        bank = self._ssq_bank(waves, freqs)
+        return ssq_mean_power(waves, bank, self.wavelet._bank_freqs,
+                              self.wavelet.sfreq,
+                              interpolate=self.wavelet.interpolate,
+                              rel_threshold=rel_threshold)
+
+    def reassigned_power(self, ch_name: str, freqs: Numbers,
+                         rel_threshold: float = 1e-6,
+                         t_decim: int = 16) -> torch.Tensor:
+        """(F, ceil(N / t_decim)) epoch-mean reassigned scalogram of one
+        channel (see ``ops.reassign``): each cell's energy moves to its
+        local centroid in time and frequency, per trial, then the trials
+        are averaged.  Analytic (real-bank) families only."""
+        waves = self._channel_data(ch_name)
+        bank = self._ssq_bank(waves, freqs)
+        return reassigned_mean_power(waves, bank, self.wavelet._bank_freqs,
+                                     self.wavelet.sfreq,
+                                     interpolate=self.wavelet.interpolate,
+                                     rel_threshold=rel_threshold,
+                                     t_decim=t_decim)
+
 
 class ArrayEpochs:
     """Minimal epochs container over a plain ``(E, C, N)`` array: the
@@ -298,3 +351,15 @@ class RawWavelet:
             return self._stream_for(freqs).power_device_source(source)[0]
         data = self._host_data()[self.raw.ch_names.index(ch_name)]
         return self._stream_for(freqs).power_device(data)
+
+    def ssq_power(self, freqs: Numbers, picks=None,
+                  rel_threshold: float = 1e-6) -> torch.Tensor:
+        """(C, F, N) synchrosqueezed power of the whole recording, streamed
+        windowwise (``StreamingCWT.ssq_power_device``: the noise gate is
+        per window and channel).  Real banks only."""
+        data = self._host_data()
+        if picks is not None:
+            idx = [self.raw.ch_names.index(ch) for ch in picks]
+            data = data[idx]
+        return self._stream_for(freqs).ssq_power_device(
+            data, rel_threshold=rel_threshold)
