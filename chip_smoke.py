@@ -7,10 +7,10 @@ What it does, failing (non-zero exit, no result line) if any check fails:
 
 1. Requires CUDA and prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels (``csrc/fused_cwt.cu``, the forward,
-   ``csrc/fused_cwt_bwd.cu``, the power backward, and ``csrc/fused_ssq.cu``,
-   synchrosqueezing) for sm_90a, one nvcc process a source, all started
-   together, into one library, and prints each kernel's registers and
-   spills.
+   ``csrc/fused_cwt_bwd.cu``, the power backward, ``csrc/fused_ssq.cu``,
+   synchrosqueezing, and ``csrc/fused_pair.cu``, the cross-pair sums) for
+   sm_90a, one nvcc process a source, all started together, into one
+   library, and prints each kernel's registers and spills.
 
 Slice 1, serving:
 
@@ -119,6 +119,56 @@ Slice 4, synchrosqueezing (the serving data; the JAX package's
    CUDA events, and the 64-channel ``RawWavelet.ssq_power``; then breaks
    one 64-channel recording batch down by CUDA events.
 
+Slice 5, pair connectivity (the serving data as 64 channel pairs: channel
+b of each pair is 0.6 x its channel a lagged 5 samples plus 0.8 x the
+neighbouring channel; the layout in which the JAX package's ``*_auto``
+functions reach its kernel, ``benchmarks/extensions_bench.py:105-143``):
+
+20. Drives ``epoch_coherence_auto``, ``imcoh_auto``, ``plv_auto``,
+   ``ppc_auto`` and ``phase_lag_auto`` ("pli", "wpli", "dwpli") on the
+   (200, 64, 2048) pair batches, 100 Morse rows, the counters zeroed just
+   before: "coherence" (K6) must launch exactly twice, "plv" twice and
+   "phaselag" three times; then the same seven calls at a ragged 19
+   epochs.
+21. Holds each epilogue's raw sums against the plain sums on the same
+   tensors: coherence's four planes and phaselag's sum Im, sum |Im| and
+   sum Im^2 max|d| / max|ref| <= 1e-5; phaselag's sum sign(Im) by a count
+   rule (at most 1e-4 of the cells differ, each by at most 2 per epoch
+   whose |Im| lies within 1e-5 of |a| max|b| + |b| max|a| of 0, the maxima
+   over the epoch's row); plv's two planes max|d| <= 2e-3 E overall and
+   <= 1e-4 E on sound cells (every epoch's |a| and |b| at least 1e-2 of
+   their row's max, the rule of ``tests/test_torch_cwt.py``; where only
+   sum |a||b| >= 1e-6 of its max the error is printed, not gated: one weak
+   epoch's unit phase is round-off), NaN masks equal.  Then the finished
+   statistics: coherence and imcoh <= 1e-4 where their denominator >= 1e-6
+   of its max; plv and ppc at the ITC gates of slice 1 on sound cells
+   (ppc's scaled by 2E / (E - 1), the most its derivative in PLV reaches);
+   wpli and dwpli <= 1e-4 where sum |Im| >= 1e-6 of its max; NaN masks
+   equal.  At full width and at E = 19.
+22. Every N from 256 to 16384 at both ``interpolate`` settings on 5 epochs
+   x 3 pairs x 13 rows: a lagged pair, a self-pair (a = b) and an all-zero
+   channel a; the gates of 21, the NaN masks of wpli, dwpli and plv equal
+   to the plain path's, and the self-pair's PLI exactly 0.
+23. Known answers, 64 epochs x 2 pairs x 2048, a 60 Hz tone with a random
+   phase per epoch plus 0.1 noise: against the same tone lagged a quarter
+   period (own noise) PLV, wPLI and |imcoh| >= 0.99 over the interior of
+   the 60 Hz row; against a zero-lag copy PLV >= 0.99, mean wPLI <= 0.2,
+   mean |imcoh| <= 0.05.
+24. The adapter: ``EpochsWavelet.plv``, ``coherence``, ``wpli``, ``ppc``,
+   ``imcoh`` and ``psi`` on one channel pair of the serving data run the
+   plain path (no K6 launch: the JAX package's dispatch) and equal the ops
+   functions on that pair; ``plv_matrix``, ``coherence_matrix``,
+   ``ppc_matrix`` and ``wpli_matrix`` at 16 x 64 x 2048 x 100
+   (``benchmarks/extensions_bench.py:167-173``), timed, with PLV and PPC
+   diagonals 1 within 1e-5 and wPLI's diagonal NaN; TF32 matmuls off.
+   Then ``plv_matrix`` (the row stream) against ``fused_plv`` over all
+   2016 channel pairs followed by the time mean, timed and compared.
+25. Times (median of 5 after warm-up, fresh values each run) each epilogue's
+   entry point (``epoch_coherence_auto``, ``plv_auto``,
+   ``phase_lag_auto(method="wpli")``) against its plain path, and each
+   epilogue alone by CUDA events; prints the bounds of the complex-bank
+   rows of the kernel table, worked out from their shapes.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -155,6 +205,12 @@ AMAX_REPLACES = "ninwavelets_tpu/ops/fused.py:358"
 SSQ_SOURCE = "ninwavelets_tpu_torch/csrc/fused_ssq.cu"
 SSQ_REPLACES = "ninwavelets_tpu/ops/fused.py:530"
 SSQ_SNR_DB, SSQ_COLSUM_RTOL = 40.0, 1e-5
+PAIR_SOURCE = "ninwavelets_tpu_torch/csrc/fused_pair.cu"
+PAIR_REPLACES = {"coherence": "ninwavelets_tpu/ops/fused.py:311",
+                 "phaselag": "ninwavelets_tpu/ops/fused.py:326",
+                 "plv": "ninwavelets_tpu/ops/fused.py:344"}
+E_MATRIX = 16
+SIGN_ROUNDOFF, SIGN_CELLS = 1e-5, 1e-4
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 
 
@@ -247,8 +303,8 @@ def print_ptxas(lib):
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(fused_(?:cwt|cwt_bwd|cwt_each|ssq)_kernel)I"
-                              r"(.*?)EEv", m.group(1))
+                k = re.search(r"(fused_(?:cwt|cwt_bwd|cwt_each|ssq|pair)"
+                              r"_kernel)I(.*?)EEv", m.group(1))
                 name = (f"{k.group(1)}<"
                         + ",".join(re.findall(r"L[ib](\d+)E",
                                               k.group(2) + "E"))
@@ -953,6 +1009,403 @@ def ssq_phase(data):
              "library_ms": None}]
 
 
+def pair_b(a):
+    """Channel b of each pair: 0.6 x channel a lagged 5 samples plus 0.8 x
+    the neighbouring channel, so that every statistic is non-trivial."""
+    import torch
+    return (0.6 * torch.roll(a, 5, -1) + 0.8 * torch.roll(a, 1, 1)
+            ).contiguous()
+
+
+def cross_mag(a, b, bank, interpolate):
+    """sum_e |a| |b| per cell, the plain way."""
+    from ninwavelets_tpu_torch.ops.extensions import epoch_sums
+    return epoch_sums(a, b, bank, interpolate,
+                      lambda wa, wb: (wa.abs() * wb.abs(),))[0]
+
+
+def sound_cells(a, b, bank, interpolate):
+    """Cells where every epoch's |a| and |b| are at least 1e-2 of their
+    row's maximum over epochs and time, the plain way: elsewhere the unit
+    phase of a weak coefficient is round-off (the rule of
+    ``tests/test_torch_cwt.py``)."""
+    import torch
+    from ninwavelets_tpu_torch.ops.cwt import cwt_from_bank
+    lows, highs = [None, None], [None, None]
+    for pair in zip(a, b):
+        for i, sig in enumerate(pair):
+            m = cwt_from_bank(sig, bank, interpolate).abs()
+            top = m.amax(-1, keepdim=True)
+            lows[i] = m if lows[i] is None else torch.minimum(lows[i], m)
+            highs[i] = top if highs[i] is None else torch.maximum(highs[i],
+                                                                  top)
+    return (lows[0] >= 1e-2 * highs[0]) & (lows[1] >= 1e-2 * highs[1])
+
+
+def above(weight):
+    """Cells whose ``weight`` is at least STRONG_POWER of its plane's max."""
+    return weight >= STRONG_POWER * weight.amax(dim=(-2, -1), keepdim=True)
+
+
+def strong_err(name, got, ref, strong, gate, overall=None,
+               where=f"the weight >= {STRONG_POWER} of its plane max"):
+    """NaN masks equal; max|d| <= ``gate`` on the ``strong`` cells (and <=
+    ``overall`` everywhere, if given).  Returns max|d|."""
+    import torch
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
+          f"{tuple(ref.shape)}")
+    check(torch.equal(got.isnan(), ref.isnan()), f"{name}: NaN masks differ "
+          f"({int(got.isnan().sum())} against {int(ref.isnan().sum())})")
+    d = torch.where(ref.isnan() | got.isnan(), torch.zeros_like(ref),
+                    (got - ref).abs())
+    err = d.max().item()
+    err_strong = torch.where(strong, d, torch.zeros_like(d)).max().item()
+    print(f"check {name}: max|d| {err}"
+          + (f" (gate {overall})" if overall is not None else "")
+          + f", where {where} {err_strong} (gate {gate}; "
+          f"{int(strong.sum())} of {strong.numel()} cells), NaN cells "
+          f"{int(ref.isnan().sum())}")
+    if overall is not None:
+        check(err <= overall, f"{name}: err {err} > {overall}")
+    check(err_strong <= gate, f"{name}: err {err_strong} > {gate} on strong "
+          "cells")
+    return err
+
+
+def sign_err(name, got, ref, a, b, bank, interpolate):
+    """The rule for sum sign(Im): at most SIGN_CELLS of the cells differ,
+    each by at most 2 per epoch whose plain |Im| lies within SIGN_ROUNDOFF
+    (|a| max|b| + |b| max|a|) of 0, the maxima over that epoch's row (a
+    sign flip moves the sum by 2, a flip to a pinned 0 by 1)."""
+    import torch
+    from ninwavelets_tpu_torch.ops.cwt import cwt_from_bank
+    d = (got - ref).abs()
+    bad = d > 0
+    count = int(bad.sum())
+    worst = d.max().item()
+    print(f"check {name}: {count} of {d.numel()} cells differ (gate "
+          f"{SIGN_CELLS} of them), largest difference {worst}")
+    check(count <= SIGN_CELLS * d.numel(), f"{name}: {count} cells differ")
+    if not count:
+        return worst
+    idx = bad.nonzero()
+    allowed = torch.zeros(count, device=d.device)
+    for c in idx[:, 0].unique().tolist():
+        sel = idx[:, 0] == c
+        f_, n_ = idx[sel, 1], idx[sel, 2]
+        wa = cwt_from_bank(a[:, c], bank, interpolate)        # (E, F, N)
+        wb = cwt_from_bank(b[:, c], bank, interpolate)
+        xa, xb = wa[:, f_, n_], wb[:, f_, n_]
+        ma, mb = wa.abs().amax(-1)[:, f_], wb.abs().amax(-1)[:, f_]
+        im = (xa * xb.conj()).imag
+        near = im.abs() <= SIGN_ROUNDOFF * (xa.abs() * mb + xb.abs() * ma)
+        allowed[sel] = 2.0 * near.sum(0)
+        del wa, wb
+    over = int((d[bad] > allowed).sum())
+    print(f"check {name}: cells beyond 2 x their near-zero epochs {over}")
+    check(over == 0, f"{name}: {over} cells differ beyond the rule")
+    return worst
+
+
+def pair_sums_err(tag, a, b, bank, interpolate):
+    """Each epilogue's raw sums against the plain sums on the same tensors
+    (step 21), then the finished statistics; returns ({epilogue: max|d|},
+    the kernel's raw sums)."""
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import extensions as ext
+    from ninwavelets_tpu_torch.ops import fused
+    e = a.shape[0]
+    errs = {}
+    k_coh = fused.fused_coherence_sums(a, b, bank, interpolate)
+    p_coh = ext.coherence_sums(a, b, bank, interpolate)
+    errs["coherence"] = max(
+        rel_err(f"K6 coherence {part}, {tag}", g, r)
+        for part, g, r in zip(("sum Re", "sum Im", "sum |a|^2", "sum |b|^2"),
+                              k_coh, p_coh))
+    xr, xi, pa, pb = p_coh
+    strong_err(f"coherence, {tag}",
+               ext.coherence_from_sums(*k_coh, e),
+               ext.coherence_from_sums(*p_coh, e), above(pa * pb), 1e-4)
+    strong_err(f"imcoh, {tag}", ext.imcoh_from_sums(*k_coh),
+               ext.imcoh_from_sums(*p_coh), above((pa * pb).sqrt()), 1e-4)
+    del k_coh, p_coh, xr, xi, pa, pb
+
+    k_pl = fused.fused_phase_lag_sums(a, b, bank, interpolate)
+    p_pl = conn.phase_lag_sums(a, b, bank, interpolate)
+    errs["phaselag"] = max(
+        rel_err(f"K6 phaselag {part}, {tag}", k_pl[i], p_pl[i])
+        for i, part in ((0, "sum Im"), (1, "sum |Im|"), (3, "sum Im^2")))
+    sign_err(f"K6 phaselag sum sign(Im), {tag}", k_pl[2], p_pl[2], a, b,
+             bank, interpolate)
+    for method in ("wpli", "dwpli"):
+        strong_err(f"{method}, {tag}",
+                   conn.phase_lag_from_sums(k_pl, e, method),
+                   conn.phase_lag_from_sums(p_pl, e, method), above(p_pl[1]),
+                   1e-4)
+    pli_k = conn.phase_lag_from_sums(k_pl, e, "pli")
+    pli_p = conn.phase_lag_from_sums(p_pl, e, "pli")
+    check(bool(pli_k.isfinite().all()), f"pli, {tag}: non-finite")
+    print(f"check pli, {tag}: max|d| {(pli_k - pli_p).abs().max().item()} "
+          "(the sign rule above bounds it)")
+
+    k_plv = fused.fused_plv_sums(a, b, bank, interpolate)
+    p_plv = conn.plv_sums(a, b, bank, interpolate)
+    sound = sound_cells(a, b, bank, interpolate)
+    weak = above(cross_mag(a, b, bank, interpolate))
+    sound_where = "every epoch's |a|, |b| >= 1e-2 of the row max"
+    ppc_scale = 2 * e / (e - 1.0)
+    errs["plv"] = 0.0
+    for part, g, r in zip(("sum Re", "sum Im"), k_plv, p_plv):
+        errs["plv"] = max(errs["plv"], strong_err(
+            f"K6 plv {part}, {tag}", g, r, sound, ITC_ATOL_STRONG * e,
+            ITC_ATOL * e, sound_where))
+        strong_err(f"K6 plv {part}, {tag}, by sum |a||b| (not gated)", g, r,
+                   weak, math.inf,
+                   where=f"sum |a||b| >= {STRONG_POWER} of its plane max")
+    for name, fin, scale in (
+            ("plv", lambda s_: (s_[0] ** 2 + s_[1] ** 2).sqrt() / e, 1.0),
+            ("ppc", lambda s_: (s_[0] ** 2 + s_[1] ** 2 - e)
+             / (e * (e - 1.0)), ppc_scale)):
+        strong_err(f"{name}, {tag}", fin(k_plv), fin(p_plv), sound,
+                   scale * ITC_ATOL_STRONG, scale * ITC_ATOL, sound_where)
+    return errs, (k_pl, k_plv)
+
+
+def pair_phase(data):
+    """Slice 5: the pair-connectivity path at full width, its checks and
+    times; returns the three K6 records."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import extensions as ext
+    from ninwavelets_tpu_torch.ops import fused
+
+    freqs = np.arange(1.0, F + 1.0)
+    bank = morse_bank(freqs, N, True)
+    a = torch.from_numpy(data).cuda()
+    b = pair_b(a)
+
+    # -- the main path: the *_auto entry points on 64-pair batches ----------
+    def drive(sa, sb):
+        return {"coherence": ext.epoch_coherence_auto(sa, sb, bank,
+                                                      interpolate=True),
+                "imcoh": ext.imcoh_auto(sa, sb, bank, interpolate=True),
+                "plv": conn.plv_auto(sa, sb, bank, interpolate=True),
+                "ppc": conn.ppc_auto(sa, sb, bank, interpolate=True),
+                **{m: conn.phase_lag_auto(sa, sb, bank, method=m,
+                                          interpolate=True)
+                   for m in conn.PHASE_LAG_METHODS}}
+
+    want = {"coherence": 2, "plv": 2, "phaselag": 3}
+    for tag, sa, sb in (("full width", a, b),
+                        (f"E={E_RAGGED}", a[:E_RAGGED], b[:E_RAGGED])):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        stats = drive(sa, sb)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        print(f"pair main path, {tag}: {time.perf_counter() - t0} s "
+              f"(E={sa.shape[0]} pairs={C} N={N} F={F}, 7 calls, first calls "
+              f"included); launches {counts}")
+        for key, n_calls in want.items():
+            check(counts[key] == n_calls, f"{key!r} launched {counts[key]} "
+                  f"times for {n_calls} calls, {tag}")
+        for name, plane in stats.items():
+            check(tuple(plane.shape) == (C, F, N), f"{name} shape "
+                  f"{tuple(plane.shape)}, {tag}")
+        if tag == "full width":
+            main_counts = counts
+        del stats
+
+    # -- K6 against the plain sums, same tensors -----------------------------
+    errs, _ = pair_sums_err("full width", a, b, bank, True)
+    pair_sums_err(f"E={E_RAGGED}", a[:E_RAGGED].contiguous(),
+                  b[:E_RAGGED].contiguous(), bank, True)
+    torch.cuda.empty_cache()
+    gen = np.random.default_rng(8)
+    freqs_small = freqs[::8]
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        xa = torch.from_numpy(gen.standard_normal((5, 3, n),
+                                                  dtype=np.float32)).cuda()
+        xb = (0.6 * torch.roll(xa, 5, -1) + 0.8 * torch.from_numpy(
+            gen.standard_normal((5, 3, n), dtype=np.float32)).cuda())
+        xb[:, 1] = xa[:, 1]                       # a self-pair
+        xa[:, 2] = 0.0                            # an all-zero channel a
+        for interp in (True, False):
+            bs = morse_bank(freqs_small, n, interp)
+            tag = f"N={n} interpolate={interp} (5, 3) x {len(freqs_small)}"
+            _, (k_pl, k_plv) = pair_sums_err(tag, xa, xb.contiguous(), bs,
+                                             interp)
+            pli = conn.phase_lag_from_sums(k_pl, 5, "pli")
+            check(bool((pli[1] == 0).all()), f"{tag}: self-pair PLI is not "
+                  "exactly 0")
+            wpli = conn.phase_lag_from_sums(k_pl, 5, "wpli")
+            check(bool(wpli[1:].isnan().all()), f"{tag}: the self-pair's and "
+                  "the zero channel's wPLI are not all NaN")
+            check(bool(k_plv[0][2].isnan().all()), f"{tag}: the zero "
+                  "channel's PLV sums are not all NaN")
+
+    # -- known answers ----------------------------------------------------
+    rng = np.random.default_rng(9)
+    t = np.arange(N) / SFREQ
+    phi = rng.uniform(0, 2 * np.pi, (64, 1, 1))
+    tone_a = np.sin(2 * np.pi * 60.0 * t + phi) + 0.1 * rng.standard_normal(
+        (64, 2, N))
+    tone_b = np.concatenate([
+        np.sin(2 * np.pi * 60.0 * t + phi - np.pi / 2),   # a quarter period
+        np.sin(2 * np.pi * 60.0 * t + phi)], 1) + 0.1 * rng.standard_normal(
+            (64, 2, N))
+    ta = torch.from_numpy(tone_a.astype(np.float32)).cuda()
+    tb = torch.from_numpy(tone_b.astype(np.float32)).cuda()
+    mid = slice(N // 4, 3 * N // 4)
+    kernels.reset_launches()
+    v = conn.plv_auto(ta, tb, bank, interpolate=True)[:, 59, mid]
+    w = conn.phase_lag_auto(ta, tb, bank, interpolate=True)[:, 59, mid]
+    ic = ext.imcoh_auto(ta, tb, bank, interpolate=True)[:, 59, mid].abs()
+    check(all(kernels.launches[k] == 1 for k in want),
+          f"known answers did not run K6: {dict(kernels.launches)}")
+    print(f"check lagged 60 Hz pair: min PLV {v[0].min().item()}, min wPLI "
+          f"{w[0].min().item()}, min |imcoh| {ic[0].min().item()} (gates "
+          f">= 0.99); zero-lag pair: min PLV {v[1].min().item()} (>= 0.99), "
+          f"mean wPLI {w[1].mean().item()} (<= 0.2), mean |imcoh| "
+          f"{ic[1].mean().item()} (<= 0.05)")
+    check(min(v[0].min().item(), w[0].min().item(), ic[0].min().item())
+          >= 0.99, "lagged 60 Hz pair below 0.99")
+    check(v[1].min().item() >= 0.99, "zero-lag PLV below 0.99")
+    check(w[1].mean().item() <= 0.2, "zero-lag wPLI above 0.2")
+    check(ic[1].mean().item() <= 0.05, "zero-lag |imcoh| above 0.05")
+
+    # -- the adapter: single pairs run the plain path; the matrices ----------
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ),
+                          nt.Morse(SFREQ, interpolate=True, device="cuda"))
+    bank_c = ew._conn_bank(N, freqs)
+    sa, sb = a[:, 0].contiguous(), a[:, 1].contiguous()
+    kernels.reset_launches()
+    pair_calls = {
+        "plv": (ew.plv("ch0", "ch1", freqs), conn.plv(sa, sb, bank_c, True)),
+        "coherence": (ew.coherence("ch0", "ch1", freqs),
+                      ext.epoch_coherence(sa, sb, bank_c, True)),
+        "wpli": (ew.wpli("ch0", "ch1", freqs),
+                 conn.phase_lag(sa, sb, bank_c, "wpli", True)),
+        "ppc": (ew.ppc("ch0", "ch1", freqs), conn.ppc(sa, sb, bank_c, True)),
+        "imcoh": (ew.imcoh("ch0", "ch1", freqs),
+                  ext.imcoh(sa, sb, bank_c, True)),
+        "psi": (ew.psi("ch0", "ch1", freqs),
+                ext.psi(sa, sb, bank_c, interpolate=True))}
+    torch.cuda.synchronize()
+    print(f"adapter pair methods: launches {dict(kernels.launches)}")
+    check(sum(kernels.launches[k] for k in want) == 0, "an adapter pair "
+          "method reached K6; the JAX package's (E, N) pairs run XLA")
+    for name, (got, ref) in pair_calls.items():
+        same = torch.equal(got.isnan(), ref.isnan()) and torch.equal(
+            got.nan_to_num(), ref.nan_to_num())
+        print(f"check EpochsWavelet.{name} equals the ops function: {same}")
+        check(same, f"EpochsWavelet.{name} differs from the ops function")
+    del pair_calls
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    ew16 = nt.EpochsWavelet(nt.ArrayEpochs(data[:E_MATRIX], SFREQ),
+                            nt.Morse(SFREQ, interpolate=True, device="cuda"))
+    mats = {name: getattr(ew16, f"{name}_matrix")(freqs)
+            for name in ("plv", "coherence", "ppc", "wpli")}
+    for name in ("plv", "ppc"):
+        dev = (mats[name].diagonal(dim1=1, dim2=2) - 1).abs().max().item()
+        print(f"check {name}_matrix diagonal: max|d - 1| {dev} (gate 1e-5)")
+        check(dev <= 1e-5, f"{name}_matrix diagonal off 1 by {dev}")
+    check(bool(mats["wpli"].diagonal(dim1=1, dim2=2).isnan().all()),
+          "wpli_matrix diagonal is not NaN")
+    for name, m in mats.items():
+        off = ~torch.eye(C, dtype=torch.bool, device=m.device)
+        check(tuple(m.shape) == (F, C, C) and bool(m[:, off].isfinite().all()),
+              f"{name}_matrix shape {tuple(m.shape)} or non-finite values")
+    x16 = ew16._all_data().clone()
+    fns = {"plv": conn.plv_matrix, "coherence": conn.coherence_matrix,
+           "ppc": conn.ppc_matrix, "wpli": conn.wpli_matrix}
+    for name, fn in fns.items():
+        ms = host_ms(lambda x: fn(x, bank, interpolate=True),
+                     lambda: x16.normal_())
+        print(f"time {name}_matrix ({E_MATRIX} x {C} x {N} x {F}): {ms} ms")
+    iu = torch.triu_indices(C, C, 1, device="cuda")
+
+    def plv_by_pairs(x):
+        v_ = fused.fused_plv(x[:, iu[0]].contiguous(),
+                             x[:, iu[1]].contiguous(), bank).mean(-1)
+        m = torch.ones((F, C, C), device="cuda")
+        m[:, iu[0], iu[1]] = v_.T
+        m[:, iu[1], iu[0]] = v_.T
+        return m
+
+    got = plv_by_pairs(x16)
+    ref = conn.plv_matrix(x16, bank, True)
+    d = (got - ref).abs().max().item()
+    print(f"check plv_matrix by fused_plv over {iu.shape[1]} pairs against "
+          f"the row stream: max|d| {d} (gate 1e-4)")
+    check(d <= 1e-4, f"plv by pairs differs from plv_matrix by {d}")
+    del got, ref, mats
+    torch.cuda.empty_cache()
+    row_ms, pairs_ms = median_ms(x16, [lambda: conn.plv_matrix(x16, bank,
+                                                                True),
+                                       lambda: plv_by_pairs(x16)])
+    print(f"time plv_matrix {E_MATRIX} x {C} x {N} x {F}: row stream "
+          f"{row_ms} ms, fused_plv over {iu.shape[1]} pairs + time mean "
+          f"{pairs_ms} ms")
+    del x16
+    torch.cuda.empty_cache()
+
+    # -- times ----------------------------------------------------------------
+    x = a.clone()
+    calls = {
+        "coherence": (lambda: ext.epoch_coherence_auto(x, b, bank,
+                                                       interpolate=True),
+                      lambda: ext.epoch_coherence(x, b, bank, True)),
+        "plv": (lambda: conn.plv_auto(x, b, bank, interpolate=True),
+                lambda: conn.plv(x, b, bank, True)),
+        "phaselag": (lambda: conn.phase_lag_auto(x, b, bank, method="wpli",
+                                                 interpolate=True),
+                     lambda: conn.phase_lag(x, b, bank, "wpli", True)),
+    }
+    spec_a = torch.fft.rfft(x).contiguous()
+    spec_b = torch.fft.rfft(b).contiguous()
+    fft = fft_flops(N)
+    records = []
+    for epilogue, (kern, plain) in calls.items():
+        ms, plain_ms = median_ms(x, [kern, plain])
+        alone = event_ms(lambda: kernels.fused_cwt_pair(
+            epilogue, spec_a, spec_b, bank, N // 2))
+        print(f"time {epilogue} (E={E} pairs={C} N={N} F={F}): kernel path "
+              f"(2 rFFTs + K6 + finisher) {ms} ms, plain torch.fft {plain_ms}"
+              f" ms; K6 alone {alone} ms (CUDA events, mean of {REPS})")
+        bound_ms, bound_by = bound(
+            E * C * (fft + 2 * F * fft),
+            4 * (2 * E * C * N + F * N
+                 + kernels.PAIR_PLANES[epilogue] * C * F * N))
+        records.append({"name": f"fused_pair[{epilogue}]", "route": "cuda",
+                        "source": PAIR_SOURCE,
+                        "replaces": PAIR_REPLACES[epilogue],
+                        "launches": main_counts[epilogue],
+                        "max_abs_err": errs[epilogue], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+    del spec_a, spec_b, x, a, b
+    torch.cuda.empty_cache()
+
+    # -- the complex-bank rows of the kernel table: bounds from shapes --------
+    cx_fwd = bound(E * C * (fft / 2 + F * fft),
+                   4 * (E * C * N + 2 * F * N + C * F * N))
+    cx_bwd = bound(E_GRAD * C * (fft / 2 + 2 * F * fft + fft),
+                   4 * (2 * E_GRAD * C * N + 4 * F * N + C * F * N))
+    print(f"bound K1/K2 cx (complex bank, {E} x {C} x {N} x {F}, one output "
+          f"plane): {cx_fwd[0]} ms ({cx_fwd[1]}); K3 cx ({E_GRAD} x {C} x {N}"
+          f" x {F}): {cx_bwd[0]} ms ({cx_bwd[1]})")
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1079,6 +1532,10 @@ def main() -> int:
 
     # -- slice 4: synchrosqueezing --------------------------------------------
     records += ssq_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 5: pair connectivity -------------------------------------------
+    records += pair_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

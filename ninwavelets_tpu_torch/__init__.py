@@ -12,11 +12,15 @@ reader in ``io``, and ``scattering``), and the synchrosqueezing path
 (``ssq_power`` on the wavelet classes, ``EpochsWavelet.ssq_power_all``,
 ``RawWavelet.ssq_power``, ``StreamingCWT.ssq_power_device``) with the
 reassignment, inverse-CWT, denoising, ridge and Torrence & Compo extensions
-in ``ops``.  On a CUDA tensor the epoch reductions and the per-signal power
-run the fused kernels of ``csrc/fused_cwt.cu``, the power's gradient the
-fused backward of ``csrc/fused_cwt_bwd.cu``, and synchrosqueezing on a
-single "lin" or "log" grid the "amax" epilogue and ``csrc/fused_ssq.cu``;
-on the CPU they run the plain ``torch.fft`` path.
+in ``ops``, and pair connectivity (coherence, imaginary coherency, PLV,
+PPC, PLI / wPLI / debiased wPLI^2, the phase slope index in ``ops``; the
+all-pairs matrices; the ``EpochsWavelet`` pair and matrix methods).  On a
+CUDA tensor the epoch reductions and the per-signal power run the fused
+kernels of ``csrc/fused_cwt.cu``, the power's gradient the fused backward
+of ``csrc/fused_cwt_bwd.cu``, synchrosqueezing on a single "lin" or "log"
+grid the "amax" epilogue and ``csrc/fused_ssq.cu``, and the pair
+statistics of (E, C, N) pair batches ``csrc/fused_pair.cu``; on the CPU
+they run the plain ``torch.fft`` path.
 Entry points place their data on the card unless the caller passes
 ``device="cpu"``.
 """

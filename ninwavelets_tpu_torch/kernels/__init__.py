@@ -4,8 +4,9 @@ Every ``.cu`` source there is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``: the fused forward (``fused_cwt.cu``:
 the epoch reductions, the per-signal power and the per-row peak "amax"), the
-fused power backward (``fused_cwt_bwd.cu``) and the fused synchrosqueezing
-kernel (``fused_ssq.cu``).
+fused power backward (``fused_cwt_bwd.cu``), the fused synchrosqueezing
+kernel (``fused_ssq.cu``) and the cross-pair epoch sums (``fused_pair.cu``:
+coherence, phase lag, unit cross-phase).
 Nothing is compiled or loaded when this module is imported: the first launch
 builds the library (or ``build()`` does it up front), keyed by a hash of every
 source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
@@ -46,10 +47,17 @@ EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3, "amax": 4}
 #: block's shared memory holds N samples and N/2 twiddles, 12*N bytes).
 MIN_N, MAX_N = 256, 16384
 
+#: Epilogues of the cross-pair kernel, by the code its C launcher takes, and
+#: the (C, F, N) planes each returns.
+PAIR_EPILOGUES = {"coherence": 0, "phaselag": 1, "plv": 2}
+PAIR_PLANES = {"coherence": 4, "phaselag": 4, "plv": 2}
+
 #: Kernel launches since the last ``reset_launches()``: one key per epilogue
-#: of the forward kernel, "power_bwd" for the power backward and "ssq" for
-#: the synchrosqueezing kernel.
-launches = dict.fromkeys((*EPILOGUES, "power_bwd", "ssq"), 0)
+#: of the forward kernel, "power_bwd" for the power backward, "ssq" for the
+#: synchrosqueezing kernel, and one key per epilogue of the cross-pair
+#: kernel.
+launches = dict.fromkeys((*EPILOGUES, "power_bwd", "ssq", *PAIR_EPILOGUES),
+                         0)
 
 _lock = threading.Lock()
 _lib = None
@@ -142,6 +150,10 @@ def _load():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+            fn = lib.ninw_fused_pair
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             _lib = lib
         return _lib
 
@@ -316,3 +328,46 @@ def fused_ssq(spec: torch.Tensor, bank: torch.Tensor, floors: torch.Tensor,
                            f"(E={e}, C={c}, F={f}, N={n})")
     launches["ssq"] += 1
     return out
+
+
+def fused_cwt_pair(epilogue: str, spec_a: torch.Tensor, spec_b: torch.Tensor,
+                   bank: torch.Tensor, k_bins: int):
+    """Launch the cross-pair kernel (``csrc/fused_pair.cu``).
+
+    Args:
+      epilogue: "coherence" -> [sum Re a conj b, sum Im a conj b,
+        sum |a|^2, sum |b|^2]; "phaselag" -> [sum Im, sum |Im|,
+        sum sign(Im), sum Im^2] of a conj b, with Im pinned to 0 where its
+        two rounded products agree; "plv" -> [sum Re, sum Im] of the unit
+        cross-phase.  Each plane is (C, F, N) float32, summed over epochs
+        (no 1/E), at the plain path's coefficient scale (ifft's 1/N).
+      spec_a, spec_b: (E, C, L) complex64 CUDA tensors, contiguous, of one
+        shape and device: the spectra of channels a and b of every pair, of
+        which the first ``k_bins`` bins of each row are used.
+      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      k_bins: N/2 on the analytic path, N otherwise.
+    """
+    if epilogue not in PAIR_EPILOGUES:
+        raise ValueError(f"unknown pair epilogue {epilogue!r}")
+    if (spec_b.dtype != spec_a.dtype or spec_b.shape != spec_a.shape
+            or not spec_b.is_contiguous()):
+        raise ValueError(f"spec_b must be a contiguous tensor like spec_a "
+                         f"{tuple(spec_a.shape)} {spec_a.dtype}, got "
+                         f"{tuple(spec_b.shape)} {spec_b.dtype}")
+    e, c, row_len, f, n = _check(spec_a, bank, k_bins)
+    if spec_b.device != spec_a.device:
+        raise ValueError("the kernel's tensors must be on one device")
+    lib = _load()
+    out = torch.empty((PAIR_PLANES[epilogue], c, f, n), dtype=torch.float32,
+                      device=spec_a.device)
+    with torch.cuda.device(spec_a.device):
+        err = lib.ninw_fused_pair(
+            PAIR_EPILOGUES[epilogue], spec_a.data_ptr(), spec_b.data_ptr(),
+            bank.data_ptr(), _twiddles(n, spec_a.device).data_ptr(),
+            out.data_ptr(), e, c, f, n, k_bins, row_len,
+            _stream(spec_a.device))
+    if err != 0:
+        raise RuntimeError(f"fused_cwt_pair[{epilogue}] launch failed: CUDA "
+                           f"error {err} (E={e}, C={c}, F={f}, N={n})")
+    launches[epilogue] += 1
+    return list(out.unbind(0))

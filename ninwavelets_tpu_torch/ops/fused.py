@@ -1,10 +1,12 @@
 """Fused epoch reductions: bank x spectrum x inverse DFT x |.|^2 / unit phase
 x epoch sum in one hand-written CUDA kernel, the per-signal power (no
 reduction) through the same kernel's "power_each" epilogue, the power's
-backward in a second kernel, and synchrosqueezing through the forward
-kernel's "amax" epilogue (the noise gate's peaks) and a third kernel (port
-of ``ninwavelets_tpu.ops.fused``; kernel sources ``csrc/fused_cwt.cu``,
-``csrc/fused_cwt_bwd.cu`` and ``csrc/fused_ssq.cu``).
+backward in a second kernel, synchrosqueezing through the forward kernel's
+"amax" epilogue (the noise gate's peaks) and a third kernel, and the
+cross-pair epoch sums of connectivity in a fourth (port of
+``ninwavelets_tpu.ops.fused``; kernel sources ``csrc/fused_cwt.cu``,
+``csrc/fused_cwt_bwd.cu``, ``csrc/fused_ssq.cu`` and
+``csrc/fused_pair.cu``).
 
 Dispatch, with no fallback that hides the device or the kernel:
 
@@ -32,18 +34,32 @@ Gradients, as in the JAX package's custom VJPs:
 * ``fused_itc_from_bank`` is an autograd Function whose backward
   differentiates the plain ``itc_from_bank`` (the JAX package does the same
   with ``jax.vjp``).
-* ``fused_power_itc_from_bank`` and ``fused_power_from_bank`` have no
-  derivative (the JAX package gives them none): on the card they raise when
-  an input requires grad.  On the CPU they are the plain versions, which
-  torch differentiates.
+* ``fused_power_itc_from_bank``, ``fused_power_from_bank`` and the pair
+  wrappers (``fused_coherence_sums``, ``fused_phase_lag_sums``,
+  ``fused_plv_sums`` and the statistics built on them) have no derivative
+  (the JAX package gives them none): on the card they raise when an input
+  requires grad.  On the CPU they are the plain versions, which torch
+  differentiates.
+
+The pair wrappers take two (E, C, N) batches, channel a and channel b of C
+pairs, and run both spectra and one cross-pair launch for any E: the kernel
+loops over every epoch of both inside a block, so the JAX package's pair
+chunks (half its epoch cap, zero-padded or with a remainder call) have no
+counterpart here.  The pair dispatchers (``*_auto`` in ``ops.extensions``
+and ``ops.connectivity``) take them where ``_kernel_takes`` accepts the
+channel-a batch: a single pair given as (E, N), as the adapter's pair
+methods give it, runs the plain sums, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
+from .connectivity import (phase_lag_from_sums, phase_lag_sums,
+                           plv_sums)
 from .cwt import (analytic_spectrum, itc_from_bank, mean_power_from_bank,
                   power_from_bank)
+from .extensions import coherence_from_sums, coherence_sums, imcoh_from_sums
 from .grids import analytic_mask
 from .sst import ssq_mean_power_from_bank, ssq_power_from_bank
 
@@ -462,3 +478,132 @@ def fused_ssq_power_from_bank(signals: torch.Tensor, bank: torch.Tensor, *,
                                    rel_threshold, uniform_grid)
     _check_ssq(signal_batch(signals), bank, uniform_grid, interpolate)
     return _fused_ssq_each(signals, bank, uniform_grid, sfreq, rel_threshold)
+
+
+# -- cross-pair connectivity --------------------------------------------------
+
+def _pair_launch(epilogue: str, sigs_a: torch.Tensor, sigs_b: torch.Tensor,
+                 bank: torch.Tensor, interpolate: bool):
+    """Both channels' spectra outside the kernel, then one cross-pair
+    launch: the epilogue's (C, F, N) epoch-sum planes."""
+    if (sigs_b.shape != sigs_a.shape or sigs_b.is_complex()
+            or not _kernel_takes(sigs_a, bank)):
+        raise ValueError(
+            f"the cross-pair kernel does not take {sigs_a.dtype} / "
+            f"{sigs_b.dtype} pairs {tuple(sigs_a.shape)} / "
+            f"{tuple(sigs_b.shape)} with bank {tuple(bank.shape)} "
+            f"{bank.dtype}; see supports()")
+    n = sigs_a.shape[-1]
+    fft = torch.fft.rfft if interpolate else torch.fft.fft
+    k_bins = n // 2 if interpolate else n
+    spec_a = fft(sigs_a.to(torch.float32)).contiguous()
+    spec_b = fft(sigs_b.to(torch.float32)).contiguous()
+    return kernels.fused_cwt_pair(epilogue, spec_a, spec_b,
+                                  bank.to(torch.float32).contiguous(), k_bins)
+
+
+def _pair_epoch_sums(epilogue, plain, sigs_a, sigs_b, bank, interpolate,
+                     precision):
+    _check_precision(precision)
+    if sigs_a.device.type == "cpu":
+        return plain(sigs_a, sigs_b, bank, interpolate)
+    _no_grad_on_card(f"the cross-pair kernel ({epilogue!r})",
+                     "the plain functions of ops.extensions and "
+                     "ops.connectivity", sigs_a, sigs_b, bank)
+    return tuple(_pair_launch(epilogue, sigs_a, sigs_b, bank, interpolate))
+
+
+def fused_coherence_sums(sigs_a: torch.Tensor, sigs_b: torch.Tensor,
+                         bank: torch.Tensor, interpolate: bool = True,
+                         precision: str = DEFAULT_PRECISION):
+    """Epoch-SUMMED coherence accumulators ``(sum cross_r, sum cross_i,
+    sum |Wa|^2, sum |Wb|^2)`` of (E, C, N) pair batches: one "coherence"
+    launch on the card (it launches or raises), the plain
+    ``ops.extensions.coherence_sums`` on the CPU."""
+    return _pair_epoch_sums("coherence", coherence_sums, sigs_a, sigs_b,
+                            bank, interpolate, precision)
+
+
+def fused_phase_lag_sums(sigs_a: torch.Tensor, sigs_b: torch.Tensor,
+                         bank: torch.Tensor, interpolate: bool = True,
+                         precision: str = DEFAULT_PRECISION):
+    """Epoch-SUMMED phase-lag accumulators ``(sum Im, sum |Im|,
+    sum sign(Im), sum Im^2)``: one "phaselag" launch on the card, the plain
+    ``ops.connectivity.phase_lag_sums`` on the CPU.  Both pin Im to 0 where
+    its two rounded products agree, so a self-pair reads 0/0 -> NaN in
+    wPLI / dwPLI on either path.  PLI counts the sign of Im: a cell whose Im
+    sits within round-off of 0 may flip between the two paths (wPLI and
+    dwPLI weigh such epochs by |Im|)."""
+    return _pair_epoch_sums("phaselag", phase_lag_sums, sigs_a, sigs_b, bank,
+                            interpolate, precision)
+
+
+def fused_plv_sums(sigs_a: torch.Tensor, sigs_b: torch.Tensor,
+                   bank: torch.Tensor, interpolate: bool = True,
+                   precision: str = DEFAULT_PRECISION):
+    """Epoch-SUMMED unit cross-phase planes ``(sum_r, sum_i)``
+    (``ops.connectivity.plv_sums`` at eps = 0: a zero cross-spectrum gives
+    NaN): one "plv" launch on the card, the plain sums on the CPU."""
+    return _pair_epoch_sums("plv", plv_sums, sigs_a, sigs_b, bank,
+                            interpolate, precision)
+
+
+def _plv_from_sums(sigs_a, sigs_b, bank, interpolate, precision):
+    sr, si = fused_plv_sums(sigs_a, sigs_b, bank, interpolate, precision)
+    return torch.sqrt(sr * sr + si * si) / sigs_a.shape[0]
+
+
+def fused_plv(sigs_a, sigs_b, bank, *, interpolate: bool = True,
+              precision: str = DEFAULT_PRECISION) -> torch.Tensor:
+    """Phase-locking value off the "plv" epilogue
+    (``ops.connectivity.plv_from_bank`` at eps = 0)."""
+    return _plv_from_sums(sigs_a, sigs_b, bank, interpolate, precision)
+
+
+def fused_ppc(sigs_a, sigs_b, bank, *, interpolate: bool = True,
+              precision: str = DEFAULT_PRECISION) -> torch.Tensor:
+    """Pairwise phase consistency off the "plv" epilogue's sums
+    (``ops.connectivity.ppc_from_bank`` at eps = 0)."""
+    sr, si = fused_plv_sums(sigs_a, sigs_b, bank, interpolate, precision)
+    e = sigs_a.shape[0]
+    return (sr * sr + si * si - e) / (e * (e - 1.0))
+
+
+def fused_epoch_coherence(sigs_a, sigs_b, bank, interpolate: bool = True,
+                          precision: str = DEFAULT_PRECISION,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """Epoch-wise magnitude-squared wavelet coherence off the "coherence"
+    epilogue (``ops.extensions.epoch_coherence_from_bank``)."""
+    xr, xi, pa, pb = fused_coherence_sums(sigs_a, sigs_b, bank, interpolate,
+                                          precision)
+    return coherence_from_sums(xr, xi, pa, pb, sigs_a.shape[0], eps)
+
+
+def fused_coherence(sigs_a, sigs_b, bank, *, interpolate: bool = True,
+                    precision: str = DEFAULT_PRECISION,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """``fused_epoch_coherence`` with keyword options (real banks; a
+    complex bank goes through ``ops.extensions.epoch_coherence``)."""
+    return fused_epoch_coherence(sigs_a, sigs_b, bank, interpolate,
+                                 precision, eps)
+
+
+def fused_imcoh(sigs_a, sigs_b, bank, *, interpolate: bool = True,
+                precision: str = DEFAULT_PRECISION,
+                eps: float = 1e-12) -> torch.Tensor:
+    """Imaginary coherency off the "coherence" epilogue's sums
+    (``ops.extensions.imcoh_from_bank``)."""
+    xr, xi, pa, pb = fused_coherence_sums(sigs_a, sigs_b, bank, interpolate,
+                                          precision)
+    return imcoh_from_sums(xr, xi, pa, pb, eps)
+
+
+def fused_phase_lag(sigs_a, sigs_b, bank, *, method: str = "wpli",
+                    interpolate: bool = True,
+                    precision: str = DEFAULT_PRECISION,
+                    eps: float = 0.0) -> torch.Tensor:
+    """PLI / wPLI / debiased wPLI^2 off the "phaselag" epilogue
+    (``ops.connectivity.phase_lag_from_bank``; see
+    ``fused_phase_lag_sums`` on PLI's sign counts)."""
+    sums = fused_phase_lag_sums(sigs_a, sigs_b, bank, interpolate, precision)
+    return phase_lag_from_sums(sums, sigs_a.shape[0], method, eps)

@@ -4,7 +4,11 @@ continuous recordings.
 
 For epochs the whole (epochs, channels, time) block moves to the wavelet's
 device once; the epoch reductions run through ``ops.fused`` (the CUDA kernel
-on the card, the plain path on the CPU).  A continuous recording streams
+on the card, the plain path on the CPU).  The pair connectivity methods
+(``plv``, ``coherence``, ``phase_lag`` ...) hand one channel pair to the
+``*_auto`` entry points as (E, N) signals, which run the plain sums, as in
+the JAX package; the all-pairs ``*_matrix`` methods stream the bank rows
+through plain FFTs and batched matrix products.  A continuous recording streams
 through ``parallel.StreamingCWT`` in overlap-discard windows.  Both need
 only the duck-typed MNE surface ``.info['sfreq']``, ``.ch_names`` and
 ``.get_data()``.
@@ -17,6 +21,9 @@ import torch
 from ..io.edf import EDFRaw
 from ..io.stream import EDFSource
 from ..models.base import Numbers, WaveletBase
+from ..ops import bank as _bank
+from ..ops import connectivity as _conn
+from ..ops import extensions as _ext
 from ..ops.baseline import baseline_tf
 from ..ops.cwt import cwt_from_bank
 from ..ops.fused import itc_auto, mean_power_auto, power_itc_auto
@@ -216,6 +223,147 @@ class EpochsWavelet:
                                      interpolate=self.wavelet.interpolate,
                                      rel_threshold=rel_threshold,
                                      t_decim=t_decim)
+
+    # -- pair connectivity ----------------------------------------------------
+
+    def _conn_bank(self, n: int, freqs: Numbers,
+                   need_phase: bool = True) -> torch.Tensor:
+        """Signal-length bank for the connectivity metrics, built directly
+        on the wavelet's device (the cached cwt / power bank is not
+        touched)."""
+        w = self.wavelet
+        bank = _bank.make_fft_bank(w._wdef(), w._check_freqs(freqs), int(n),
+                                   w.sfreq, w.interpolate,
+                                   w.real_wave_length, device=w.device)
+        if need_phase and bank.is_complex():
+            raise ValueError(
+                "phase metrics need an analytic (real-bank) family — "
+                "Normal/Twice-mode banks carry no usable phase")
+        return bank
+
+    def _pair(self, ch_a: str, ch_b: str, freqs: Numbers,
+              need_phase: bool = True):
+        sa = self._channel_data(ch_a)
+        sb = self._channel_data(ch_b)
+        return sa, sb, self._conn_bank(sa.shape[-1], freqs, need_phase)
+
+    def plv(self, ch_a: str, ch_b: str, freqs: Numbers,
+            eps: float = 0.0) -> torch.Tensor:
+        """(F, N) phase-locking value between two channels across epochs
+        (``ops.connectivity.plv_auto``)."""
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs)
+        return _conn.plv_auto(sa, sb, bank,
+                              interpolate=self.wavelet.interpolate, eps=eps)
+
+    def coherence(self, ch_a: str, ch_b: str, freqs: Numbers,
+                  eps: float = 1e-12) -> torch.Tensor:
+        """(F, N) epoch-wise wavelet coherence between two channels
+        (``ops.extensions.epoch_coherence_auto``; any family)."""
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs, need_phase=False)
+        return _ext.epoch_coherence_auto(
+            sa, sb, bank, interpolate=self.wavelet.interpolate, eps=eps)
+
+    def phase_lag(self, ch_a: str, ch_b: str, freqs: Numbers,
+                  method: str = "wpli", eps: float = 0.0) -> torch.Tensor:
+        """(F, N) phase-lag connectivity between two channels across
+        epochs (``ops.connectivity.phase_lag_auto``): "pli", "wpli" or
+        "dwpli".  Only the imaginary cross-spectrum counts, so zero-lag
+        (volume-conduction) coupling contributes nothing."""
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs)
+        return _conn.phase_lag_auto(sa, sb, bank, method=method,
+                                    interpolate=self.wavelet.interpolate,
+                                    eps=eps)
+
+    def pli(self, ch_a: str, ch_b: str, freqs: Numbers,
+            eps: float = 0.0) -> torch.Tensor:
+        """(F, N) phase-lag index (``phase_lag(method="pli")``)."""
+        return self.phase_lag(ch_a, ch_b, freqs, "pli", eps)
+
+    def wpli(self, ch_a: str, ch_b: str, freqs: Numbers,
+             eps: float = 0.0) -> torch.Tensor:
+        """(F, N) weighted phase-lag index (``phase_lag(method="wpli")``)."""
+        return self.phase_lag(ch_a, ch_b, freqs, "wpli", eps)
+
+    def ppc(self, ch_a: str, ch_b: str, freqs: Numbers,
+            eps: float = 0.0) -> torch.Tensor:
+        """(F, N) pairwise phase consistency between two channels across
+        epochs (``ops.connectivity.ppc_auto``); needs 2 epochs."""
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs)
+        return _conn.ppc_auto(sa, sb, bank,
+                              interpolate=self.wavelet.interpolate, eps=eps)
+
+    def imcoh(self, ch_a: str, ch_b: str, freqs: Numbers,
+              eps: float = 1e-12) -> torch.Tensor:
+        """(F, N) imaginary coherency between two channels across epochs
+        (``ops.extensions.imcoh_auto``; any family)."""
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs, need_phase=False)
+        return _ext.imcoh_auto(sa, sb, bank,
+                               interpolate=self.wavelet.interpolate, eps=eps)
+
+    def psi(self, ch_a: str, ch_b: str, freqs: Numbers, band=None,
+            eps: float = 1e-12) -> torch.Tensor:
+        """(N,) time-resolved phase slope index between two channels
+        (``ops.extensions.psi``): positive where ``ch_a`` leads ``ch_b``.
+        ``freqs`` must ascend; ``band`` restricts the slope to a (lo, hi)
+        row-index slice."""
+        arr = np.asarray(freqs, np.float64)
+        if arr.size < 2 or np.any(np.diff(arr) <= 0):
+            raise ValueError("psi needs >= 2 strictly ascending freqs")
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs, need_phase=False)
+        return _ext.psi(sa, sb, bank, band=band,
+                        interpolate=self.wavelet.interpolate, eps=eps)
+
+    def _matrix_input(self, freqs: Numbers, need_phase: bool = True):
+        waves = self._all_data()
+        return waves, self._conn_bank(waves.shape[-1], freqs, need_phase)
+
+    def wpli_matrix(self, freqs: Numbers, method: str = "wpli",
+                    time_range=None, eps: float = 0.0) -> torch.Tensor:
+        """(F, C, C) all-pairs phase-lag matrix over every channel,
+        time-averaged (``ops.connectivity.wpli_matrix``).  The diagonal is
+        NaN at ``eps = 0`` (a channel has no lag against itself)."""
+        waves, bank = self._matrix_input(freqs)
+        return _conn.wpli_matrix(waves, bank, method=method,
+                                 interpolate=self.wavelet.interpolate,
+                                 eps=eps,
+                                 time_range=self._samples(time_range))
+
+    def ppc_matrix(self, freqs: Numbers, time_range=None,
+                   eps: float = 0.0) -> torch.Tensor:
+        """(F, C, C) all-pairs pairwise-phase-consistency matrix,
+        time-averaged (``ops.connectivity.ppc_matrix``)."""
+        waves, bank = self._matrix_input(freqs)
+        return _conn.ppc_matrix(waves, bank,
+                                interpolate=self.wavelet.interpolate,
+                                eps=eps, time_range=self._samples(time_range))
+
+    def plv_matrix(self, freqs: Numbers, time_range=None,
+                   eps: float = 0.0) -> torch.Tensor:
+        """(F, C, C) all-pairs phase-locking matrix, time-averaged
+        (``ops.connectivity.plv_matrix``).  ``time_range=(start_s, stop_s)``
+        windows the average in seconds."""
+        waves, bank = self._matrix_input(freqs)
+        return _conn.plv_matrix(waves, bank,
+                                interpolate=self.wavelet.interpolate,
+                                eps=eps, time_range=self._samples(time_range))
+
+    def coherence_matrix(self, freqs: Numbers, time_range=None,
+                         eps: float = 1e-12) -> torch.Tensor:
+        """(F, C, C) all-pairs epoch-wise coherence matrix, time-averaged
+        (``ops.connectivity.coherence_matrix``; any family)."""
+        waves, bank = self._matrix_input(freqs, need_phase=False)
+        return _conn.coherence_matrix(waves, bank,
+                                      interpolate=self.wavelet.interpolate,
+                                      eps=eps,
+                                      time_range=self._samples(time_range))
+
+    def _samples(self, time_range):
+        """(start_s, stop_s) -> integer sample window, or None."""
+        if time_range is None:
+            return None
+        sf = self.wavelet.sfreq
+        return (int(round(time_range[0] * sf)),
+                int(round(time_range[1] * sf)))
 
 
 class ArrayEpochs:
