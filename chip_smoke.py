@@ -7,7 +7,8 @@ What it does, failing (non-zero exit, no result line) if any check fails:
 
 1. Requires CUDA and prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels (``csrc/fused_cwt.cu``, the forward,
-   ``csrc/fused_cwt_bwd.cu``, the power backward, ``csrc/fused_ssq.cu``,
+   ``csrc/fused_cwt_bwd.cu``, the power backward, both also for complex
+   banks, ``csrc/fused_ssq.cu``,
    synchrosqueezing, and ``csrc/fused_pair.cu``, the cross-pair sums) for
    sm_90a, one nvcc process a source, all started together, into one
    library, and prints each kernel's registers and spills.
@@ -166,8 +167,56 @@ functions reach its kernel, ``benchmarks/extensions_bench.py:105-143``):
 25. Times (median of 5 after warm-up, fresh values each run) each epilogue's
    entry point (``epoch_coherence_auto``, ``plv_auto``,
    ``phase_lag_auto(method="wpli")``) against its plain path, and each
-   epilogue alone by CUDA events; prints the bounds of the complex-bank
-   rows of the kernel table, worked out from their shapes.
+   epilogue alone by CUDA events.
+
+Slice 6, complex banks (MexicanHat, Haar: Normal-mode families, complex64
+banks) and the rest of the zoo, on the serving data:
+
+26. Drives ``EpochsWavelet.power_all`` (with the baseline), ``itc_all`` and
+   ``power_itc_all`` on ``MexicanHat`` (``interpolate=False``, the family's
+   default), ``power_itc_all`` on ``MexicanHat(interpolate=True)`` and
+   ``itc_all`` on ``Haar`` at a ragged 19 epochs, the counters zeroed just
+   before: "power_cx", "itc_cx" and "power_itc_cx" (K1/K2 cx) must each
+   launch, and no real-bank kernel.  Then the MexicanHat bank on every
+   other path (``power_auto``, the five pair ``*_auto``, ``StreamingCWT``)
+   must launch nothing, ``supports_ssq`` and scattering must refuse it,
+   and ``fused_power_from_bank`` must raise.
+27. Holds K1/K2 cx against the plain path on the same tensors at slice 1's
+   power gates (1e-5 relative; z-scores by the carried tolerance) and ITC
+   max|d| <= 1e-4 on sound cells (every epoch's |c| at least 1e-2 of its
+   row max); on the analytic path also slice 1's ITC gates (2e-3 overall,
+   1e-4 where the power is at least 1e-6 of its plane max).  Without the
+   analytic mask a Normal-mode family's coefficients pass through zero in
+   time, so at a cell of strong mean power one epoch's unit phase can be
+   round-off: there those two are printed, not gated.  In their place
+   every ITC cell must lie within the tolerance carried through the unit
+   phases (each coefficient moved by 1e-5 of its row max), both between
+   the kernel and the plain path and from each of them to a float64
+   witness (the plain path's math in float64).  NaN masks equal.
+   Then 5 epochs x 3 channels x 13 rows at every N from 256 to 16384 on both
+   ``interpolate`` settings.  Times every epilogue at both settings.
+28. Drives ``learn_bank`` from 1.2 x a complex MexicanHat bank (as the float
+   pair ``bank0``, ``bank0_i``) for 3 steps at 64 x 64 x 2048 x 100
+   (``interpolate=True``): "power_cx" and "power_bwd_cx" (K3 cx) launch
+   once a step and the loss falls.  K3 cx against ``mean_power_bwd`` (ds,
+   dbank.real, dbank.imag each <= 1e-4 relative) at the full shape, at
+   ``interpolate=False`` with E = 8, with F = 13, and at every N from 256
+   to 16384 on both settings; 5 steps at E = 8 follow the plain path's
+   losses (rtol 1e-3).  Times K3 cx (its path and alone) and one training
+   step against the plain path.
+29. The rest of the zoo: ``Paul``, ``DOG`` and ``Bump`` ``power_all`` (one
+   "power" launch each) against the plain path, a 60 Hz tone peaking at
+   the 60 Hz row for each; ``multitaper_mean_power`` (one "power" launch
+   over 300 rows) and ``EpochsWavelet.superlet_power`` on one channel, 200
+   epochs, orders 1-8 (eight "power_each" launches) against the plain path
+   (1e-5; superlets 1e-4), the plain versions built from the public
+   pieces (the plain epoch mean over the flat taper banks; the weighted
+   geometric mean of each order's plain power); ``induced_power`` and
+   ``evoked_power`` ("power"), and ``single_trial_power_all`` at 19
+   epochs ("power_each") against the plain path;
+   ``multitaper_coherence_matrix`` at 16 x 64 x 2048 x 100 with its
+   diagonal 1.  Times the multitaper and superlet
+   epoch means against the plain path, and the matrix.
 
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
@@ -205,6 +254,8 @@ AMAX_REPLACES = "ninwavelets_tpu/ops/fused.py:358"
 SSQ_SOURCE = "ninwavelets_tpu_torch/csrc/fused_ssq.cu"
 SSQ_REPLACES = "ninwavelets_tpu/ops/fused.py:530"
 SSQ_SNR_DB, SSQ_COLSUM_RTOL = 40.0, 1e-5
+CX_REPLACES = "ninwavelets_tpu/ops/fused.py:246"
+BWD_CX_REPLACES = "ninwavelets_tpu/ops/fused.py:955"
 PAIR_SOURCE = "ninwavelets_tpu_torch/csrc/fused_pair.cu"
 PAIR_REPLACES = {"coherence": "ninwavelets_tpu/ops/fused.py:311",
                  "phaselag": "ninwavelets_tpu/ops/fused.py:326",
@@ -1394,16 +1445,552 @@ def pair_phase(data):
                         "bound_by": bound_by, "library_ms": None})
     del spec_a, spec_b, x, a, b
     torch.cuda.empty_cache()
-
-    # -- the complex-bank rows of the kernel table: bounds from shapes --------
-    cx_fwd = bound(E * C * (fft / 2 + F * fft),
-                   4 * (E * C * N + 2 * F * N + C * F * N))
-    cx_bwd = bound(E_GRAD * C * (fft / 2 + 2 * F * fft + fft),
-                   4 * (2 * E_GRAD * C * N + 4 * F * N + C * F * N))
-    print(f"bound K1/K2 cx (complex bank, {E} x {C} x {N} x {F}, one output "
-          f"plane): {cx_fwd[0]} ms ({cx_fwd[1]}); K3 cx ({E_GRAD} x {C} x {N}"
-          f" x {F}): {cx_bwd[0]} ms ({cx_bwd[1]})")
     return records
+
+
+# -- slice 6: complex banks and the rest of the zoo ---------------------------
+
+def itc_witness(x, bank, interpolate):
+    """The plain path's math in float64, one epoch at a time, for (E, C, N)
+    signals: (the float64 ITC, the sound cells, the carried tolerance).  The
+    sound cells have every epoch's |c| at least 1e-2 of its row max (the
+    rule of ``tests/test_torch_cwt.py``).  The carried tolerance is, per
+    cell, the most the ITC can move when every coefficient moves by at most
+    POWER_RTOL of its row max M: (1/E) sum_e min(2, 2 POWER_RTOL M / |c_e|),
+    since a unit phase c / |c| moves by at most 2 |dc| / |c|."""
+    import torch
+    from ninwavelets_tpu_torch.ops.grids import analytic_mask
+    bank = bank.to(torch.complex128)
+
+    def coefs(sig):
+        spec = torch.fft.fft(sig.to(torch.float64))
+        if interpolate:
+            spec = spec * analytic_mask(spec.shape[-1], torch.float64,
+                                        spec.device)
+        return torch.fft.ifft(spec[..., None, :] * bank)
+
+    top = None
+    for sig in x:
+        m = coefs(sig).abs().amax(-1, keepdim=True)
+        top = m if top is None else torch.maximum(top, m)
+    low, total, phase = None, 0.0, 0.0
+    for sig in x:
+        c = coefs(sig)
+        m = c.abs()
+        low = m if low is None else torch.minimum(low, m)
+        total = total + torch.nan_to_num(2 * POWER_RTOL * top / m,
+                                         nan=2.0).clamp(max=2.0)
+        phase = phase + c / m
+    e = x.shape[0]
+    return (phase / e).abs(), low >= 1e-2 * top, total / e
+
+
+def cx_itc_err(name, got, ref, witness, interpolate, ref_power):
+    """ITC of a complex-bank (Normal-mode) family against the plain path,
+    with ``witness = itc_witness(...)`` of the same signals and bank: NaN
+    masks equal; max|d| <= ITC_ATOL_STRONG on sound cells; on every cell
+    |d| within the carried tolerance, and the kernel and the plain float32
+    path each within the carried tolerance of the float64 ITC; on the
+    analytic path also slice 1's gates (ITC_ATOL overall, ITC_ATOL_STRONG
+    where the power is at least STRONG_POWER of its plane max).  Without
+    the analytic mask a Normal-mode family's coefficients pass through zero
+    in time, so at a cell of strong mean power one epoch's unit phase can be
+    round-off, in either float32 path: there slice 1's gates cannot hold,
+    and are printed, not gated; the float64 witness shows which path is
+    off and by how much."""
+    import torch
+    itc64, sound, carried = witness
+    if interpolate:
+        itc_err(name, got, ref, ref_power)
+    else:
+        strong_err(f"{name} (printed, not gated: power rule)", got, ref,
+                   above(ref_power), float("inf"))
+    d = torch.where(ref.isnan() | got.isnan(), torch.zeros_like(ref),
+                    (got - ref).abs())
+    ratio = torch.where(d > 0, d / carried, torch.zeros_like(carried))
+    at = int(ratio.argmax())
+    ratio = ratio.flatten()[at].item()
+    print(f"check {name}: max|d| / carried tolerance {ratio} (gate 1); at "
+          f"that cell kernel {got.flatten()[at].item()}, plain "
+          f"{ref.flatten()[at].item()}, float64 {itc64.flatten()[at].item()}")
+    check(ratio <= 1.0, f"{name}: ITC outside the carried tolerance "
+          f"({ratio})")
+    for path, v in (("kernel", got), ("plain float32", ref)):
+        bad = v.isnan() | itc64.isnan()
+        d64 = torch.where(bad, torch.zeros_like(itc64),
+                          (v.double() - itc64).abs())
+        r64 = torch.where(d64 > 0, d64 / carried,
+                          torch.zeros_like(carried)).max().item()
+        strong = above(ref_power)
+        print(f"check {name}, {path} vs float64: max|d| {d64.max().item()}"
+              f", where the power >= {STRONG_POWER} of its plane max "
+              f"{d64[strong].max().item()} (not gated); max|d| / carried "
+              f"tolerance {r64} (gate 1); NaN cells {int(bad.sum())}")
+        check(r64 <= 1.0, f"{name}: {path} ITC outside the carried "
+              f"tolerance of the float64 ITC ({r64})")
+    return strong_err(name, got, ref, sound, ITC_ATOL_STRONG,
+                      where="every epoch's |c| >= 1e-2 of its row max")
+
+
+def cx_bank(family, freqs, n, interpolate):
+    import ninwavelets_tpu_torch as nt
+    return getattr(nt, family)(SFREQ, interpolate=interpolate,
+                               device="cuda").make_fft_wavelets(freqs,
+                                                                n / SFREQ)
+
+
+def complex_bank_elsewhere(data, bank):
+    """A complex bank on every path but the three epoch reductions (K4, K5,
+    K6, streaming, scattering) takes the plain path and launches nothing;
+    the per-signal wrapper raises rather than launch."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import extensions as ext
+    from ninwavelets_tpu_torch.ops import fused
+    from ninwavelets_tpu_torch.ops.scattering import _fused_ok
+    from ninwavelets_tpu_torch.parallel import StreamingCWT
+
+    a = torch.from_numpy(data[:5, :8]).cuda()
+    b = torch.roll(a, 1, 1).contiguous()
+    kernels.reset_launches()
+    fused.power_auto(a, bank)
+    for fn in (ext.epoch_coherence_auto, ext.imcoh_auto, conn.plv_auto,
+               conn.ppc_auto, conn.phase_lag_auto):
+        fn(a, b, bank)
+    stream = StreamingCWT(nt.MexicanHat(SFREQ, device="cuda")._wdef(),
+                          np.arange(5.0, 101.0), SFREQ, window=1024, halo=256,
+                          device="cuda")
+    stream.power_device(data[0, :4])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    takes_ssq = fused.supports_ssq(a.shape, bank, ("lin", 1.0, 1.0), True)
+    print(f"check complex bank elsewhere (power_auto, the five pair autos, "
+          f"StreamingCWT): launches {counts}; streaming fused "
+          f"{stream._fused}, supports_ssq {takes_ssq}, scattering fused "
+          f"{_fused_ok(N, bank)}")
+    check(not counts and not stream._fused and not takes_ssq
+          and not _fused_ok(N, bank), "a complex bank reached K4/K5/K6")
+    try:
+        fused.fused_power_from_bank(a, bank, False)
+        check(False, "fused_power_from_bank took a complex bank")
+    except ValueError as exc:
+        print(f"check fused_power_from_bank raises for a complex bank: {exc}")
+    check(not any(kernels.launches.values()), "a complex bank launched")
+
+
+def complex_bank_phase(data):
+    """Slice 6, complex banks: MexicanHat / Haar serving and training through
+    the complex-bank kernels (K1/K2 cx, K3 cx) at full width, their checks
+    and times; returns their kernel records."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt, fused
+
+    freqs = np.arange(1.0, F + 1.0)
+    cx_keys = ("power_cx", "itc_cx", "power_itc_cx")
+
+    # -- the main path: MexicanHat / Haar serving through K1/K2 cx ------------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mh = nt.MexicanHat(SFREQ, device="cuda")           # interpolate=False
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ), mh)
+    power_bl = ew.power_all(freqs, baseline=BASELINE)
+    itc = ew.itc_all(freqs)
+    pi_power, pi_itc = ew.power_itc_all(freqs)
+    mh_a = nt.MexicanHat(SFREQ, interpolate=True, device="cuda")
+    ew_a = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ), mh_a)
+    pa_power, pa_itc = ew_a.power_itc_all(freqs)
+    ew_h = nt.EpochsWavelet(nt.ArrayEpochs(data[:E_RAGGED], SFREQ),
+                            nt.Haar(SFREQ, device="cuda"))
+    itc_h = ew_h.itc_all(freqs)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"complex-bank main path {time.perf_counter() - t0} s (MexicanHat "
+          f"power_all with baseline, itc_all, power_itc_all; MexicanHat("
+          f"interpolate=True) power_itc_all; Haar itc_all at E={E_RAGGED}; "
+          f"first calls included); launches {counts}")
+    for key in cx_keys:
+        check(counts[key] > 0, f"{key!r} never launched on the complex-bank "
+              "main path")
+    others = {k: v for k, v in counts.items() if k not in cx_keys and v}
+    check(not others, f"real-bank kernels launched on the complex-bank main "
+          f"path: {others}")
+
+    # -- a complex bank anywhere else runs the plain path ---------------------
+    complex_bank_elsewhere(data, mh.fft_wavelets)
+
+    # -- K1/K2 cx against the plain path, same tensors ------------------------
+    err = {}
+    x, bank = ew._all_data(), mh.fft_wavelets
+    check(bank.dtype == torch.complex64, f"MexicanHat bank is {bank.dtype}")
+    ref_power = cwt.mean_power_from_bank(x, bank, False)
+    ref_itc = cwt.itc_from_bank(x, bank, False)
+    err["power"] = rel_err("MexicanHat power kernel alone",
+                           fused.fused_mean_power_from_bank(x, bank, False),
+                           ref_power)
+    baselined_err("MexicanHat power_all baselined", power_bl, ref_power)
+    wit = itc_witness(x, bank, False)
+    err["itc"] = cx_itc_err("MexicanHat itc_all", itc, ref_itc, wit, False,
+                            ref_power)
+    err["power_itc"] = max(
+        rel_err("MexicanHat power_itc_all power", pi_power, ref_power),
+        cx_itc_err("MexicanHat power_itc_all itc", pi_itc, ref_itc, wit,
+                   False, ref_power))
+    del ref_itc, power_bl, itc, pi_power, pi_itc, wit
+    bank_a = mh_a.fft_wavelets
+    ref_a = cwt.mean_power_from_bank(x, bank_a, True)
+    err["power_itc"] = max(
+        err["power_itc"],
+        rel_err("MexicanHat(interpolate=True) power_itc_all power", pa_power,
+                ref_a),
+        cx_itc_err("MexicanHat(interpolate=True) power_itc_all itc", pa_itc,
+                   cwt.itc_from_bank(x, bank_a, True),
+                   itc_witness(x, bank_a, True), True, ref_a))
+    del ref_a, pa_power, pa_itc
+    xh, bank_h = ew_h._all_data(), ew_h.wavelet.fft_wavelets
+    err["itc"] = max(err["itc"], cx_itc_err(
+        f"Haar itc_all E={E_RAGGED}", itc_h, cwt.itc_from_bank(xh, bank_h,
+                                                               False),
+        itc_witness(xh, bank_h, False), False,
+        cwt.mean_power_from_bank(xh, bank_h, False)))
+    del xh, itc_h
+    torch.cuda.empty_cache()
+
+    gen = np.random.default_rng(11)
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        for interp in (True, False):
+            xs = torch.from_numpy(gen.standard_normal(
+                (5, 3, n), dtype=np.float32)).cuda()
+            bs = cx_bank("MexicanHat", freqs[:F_RAGGED], n, interp)
+            tag = f"N={n} interpolate={interp} (5, 3) x {F_RAGGED}"
+            rp = cwt.mean_power_from_bank(xs, bs, interp)
+            ri = cwt.itc_from_bank(xs, bs, interp)
+            wit = itc_witness(xs, bs, interp)
+            rel_err(f"K1 cx power {tag}",
+                    fused.fused_mean_power_from_bank(xs, bs, interp), rp)
+            cx_itc_err(f"K2 cx itc {tag}",
+                       fused.fused_itc_from_bank(xs, bs, interp), ri, wit,
+                       interp, rp)
+            gp, gi = fused.fused_power_itc_from_bank(xs, bs, interp)
+            rel_err(f"K2 cx power_itc power {tag}", gp, rp)
+            cx_itc_err(f"K2 cx power_itc itc {tag}", gi, ri, wit, interp, rp)
+
+    # -- times: K1/K2 cx against the plain path, both settings ----------------
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    x = x.clone()
+    fft = fft_flops(N)
+    times = {}
+    for interp, bk in ((False, bank), (True, bank_a)):
+        pairs = {
+            "power": (lambda: fused.fused_mean_power_from_bank(x, bk, interp),
+                      lambda: cwt.mean_power_from_bank(x, bk, interp)),
+            "itc": (lambda: fused.fused_itc_from_bank(x, bk, interp),
+                    lambda: cwt.itc_from_bank(x, bk, interp)),
+            "power_itc": (
+                lambda: fused.fused_power_itc_from_bank(x, bk, interp),
+                lambda: (cwt.mean_power_from_bank(x, bk, interp),
+                         cwt.itc_from_bank(x, bk, interp))),
+        }
+        k_bins = N // 2 if interp else N
+        for epilogue, (kern, plain) in pairs.items():
+            ms, plain_ms = median_ms(x, [kern, plain])
+            n_out = 2 if epilogue == "power_itc" else 1
+            times[epilogue, interp] = (ms, plain_ms, *bound(
+                E * C * (fft / 2 + F * fft),
+                4 * (E * C * N + 2 * F * k_bins + n_out * C * F * N)))
+            print(f"time {epilogue} complex bank (MexicanHat, E={E} C={C} "
+                  f"N={N} F={F}, interpolate={interp}): kernel {ms} ms, plain "
+                  f"torch.fft {plain_ms} ms; bound "
+                  f"{times[epilogue, interp][2]} ms "
+                  f"({times[epilogue, interp][3]})")
+    records = []
+    for epilogue in ("power", "itc", "power_itc"):
+        ms, plain_ms, bound_ms, bound_by = times[epilogue, False]
+        ms_a, plain_a, bound_a, _ = times[epilogue, True]
+        records.append({"name": f"fused_cwt_cx[{epilogue}]", "route": "cuda",
+                        "source": KERNEL_SOURCE, "replaces": CX_REPLACES,
+                        "launches": counts[f"{epilogue}_cx"],
+                        "max_abs_err": err[epilogue], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None,
+                        "interpolate": False, "ms_analytic": ms_a,
+                        "plain_ms_analytic": plain_a,
+                        "bound_ms_analytic": bound_a})
+    del x, bank, bank_a
+    torch.cuda.empty_cache()
+    records.append(complex_training())
+    return records
+
+
+def complex_training():
+    """Slice 6, training: ``learn_bank`` from a complex MexicanHat start
+    through K1 cx and K3 cx, K3 cx against ``mean_power_bwd``, times;
+    returns K3 cx's record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt, fused
+
+    freqs = np.arange(1.0, F + 1.0)
+    gen = np.random.default_rng(12)
+    x = torch.from_numpy(gen.standard_normal((E_GRAD, C, N),
+                                             dtype=np.float32)).cuda()
+    bank = cx_bank("MexicanHat", freqs, N, True)
+    target = cwt.mean_power_from_bank(x, bank, True)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    (_, _), losses = nt.learn_bank(x, 1.2 * bank.real, target,
+                                   bank0_i=1.2 * bank.imag, loss="mse",
+                                   steps=STEPS, lr=1e-3, use_fused=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    losses = losses.tolist()
+    print(f"complex-bank training main path {time.perf_counter() - t0} s "
+          f"(E={E_GRAD} C={C} N={N} F={F} MexicanHat rows, {STEPS} steps); "
+          f"losses {losses}; launches {counts}")
+    check(losses[-1] < losses[0], f"complex learn_bank loss did not fall: "
+          f"{losses}")
+    for key in ("power_cx", "power_bwd_cx"):
+        check(counts[key] == STEPS, f"{key!r} launched {counts[key]} times "
+              f"in {STEPS} training steps")
+    others = {k: v for k, v in counts.items()
+              if k not in ("power_cx", "power_bwd_cx") and v}
+    check(not others, f"other kernels launched in complex training: {others}")
+
+    def bwd_err(tag, ds, dbank, ds_ref, dbank_ref):
+        return max(rel_err(f"K3 cx ds, {tag}", ds, ds_ref, GRAD_RTOL),
+                   rel_err(f"K3 cx dbank.real, {tag}", dbank.real,
+                           dbank_ref.real, GRAD_RTOL),
+                   rel_err(f"K3 cx dbank.imag, {tag}", dbank.imag,
+                           dbank_ref.imag, GRAD_RTOL))
+
+    w = torch.from_numpy(gen.standard_normal((C, F, N),
+                                             dtype=np.float32)).cuda()
+    err_bwd = 0.0
+    runs = [("full shape", x, bank, w, True),
+            (f"interpolate=False E={E_SMALL}", x[:E_SMALL],
+             cx_bank("MexicanHat", freqs, N, False), w, False),
+            (f"F={F_RAGGED}", x, bank[:F_RAGGED].contiguous(),
+             w[:, :F_RAGGED].contiguous(), True)]
+    for name, xs, bs, ws, interp in runs:
+        ds, dbank = fused_grads(fused.fused_mean_power_from_bank, xs, bs, ws,
+                                interp)
+        check(dbank.dtype == torch.complex64, f"dbank is {dbank.dtype}")
+        e_ = bwd_err(name, ds, dbank, *fused.mean_power_bwd(xs, bs, interp,
+                                                            ws))
+        err_bwd = e_ if name == "full shape" else err_bwd
+        del ds, dbank
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        for interp in (True, False):
+            xs = torch.from_numpy(gen.standard_normal(
+                (3, 2, n), dtype=np.float32)).cuda()
+            ws = torch.from_numpy(gen.standard_normal(
+                (2, F_RAGGED, n), dtype=np.float32)).cuda()
+            bs = cx_bank("MexicanHat", freqs[:F_RAGGED], n, interp)
+            bwd_err(f"N={n} interpolate={interp} E=3 C=2 F={F_RAGGED}",
+                    *fused._fused_power_bwd(xs, bs, ws, interp),
+                    *fused.mean_power_bwd(xs, bs, interp, ws))
+
+    kw = dict(bank0_i=1.2 * bank.imag, steps=5, lr=1e-3)
+    _, l_fused = nt.learn_bank(x[:E_SMALL], 1.2 * bank.real, target,
+                               use_fused=True, **kw)
+    _, l_plain = nt.learn_bank(x[:E_SMALL], 1.2 * bank.real, target,
+                               use_fused=False, **kw)
+    d = ((l_fused - l_plain).abs() / l_plain.abs()).max().item()
+    print(f"check complex learn_bank trajectory E={E_SMALL}: fused "
+          f"{l_fused.tolist()} plain {l_plain.tolist()} max rel {d} "
+          "(gate 1e-3)")
+    check(d <= 1e-3, f"complex learn_bank trajectory rel {d} > 1e-3")
+
+    g = torch.empty_like(w)
+    ms, plain_ms = median_ms(x, [
+        lambda: fused._fused_power_bwd(x, bank, g.normal_(), True),
+        lambda: fused.mean_power_bwd(x, bank, True, g.normal_())])
+    spec = torch.fft.rfft(x).contiguous()
+    alone = event_ms(lambda: kernels.fused_cwt_bwd(spec, bank, g, N // 2))
+    print(f"time power backward complex bank (E={E_GRAD} C={C} N={N} F={F}, "
+          f"interpolate=True): kernel path {ms} ms, plain mean_power_bwd "
+          f"{plain_ms} ms; K3 cx alone {alone} ms (CUDA events, mean of "
+          f"{REPS})")
+    del spec
+    pr = bank.real.detach().clone().requires_grad_(True)
+    pi = bank.imag.detach().clone().requires_grad_(True)
+
+    def step(power):
+        p = power(x, torch.complex(pr, pi), True)
+        return torch.autograd.grad(torch.mean(torch.square(p - target)),
+                                   (pr, pi))
+
+    step_ms, step_plain_ms = median_ms(x, [
+        lambda: step(fused.fused_mean_power_from_bank),
+        lambda: step(cwt.mean_power_from_bank)])
+    print(f"time training step complex bank (loss and bank gradient, "
+          f"E={E_GRAD} C={C} N={N} F={F}): fused {step_ms} ms, plain "
+          f"{step_plain_ms} ms")
+    fft = fft_flops(N)
+    bound_ms, bound_by = bound(
+        E_GRAD * C * (fft / 2 + 2 * F * fft + fft),
+        4 * (2 * E_GRAD * C * N + 2 * 2 * F * N + C * F * N))
+    return {"name": "fused_cwt_bwd_cx[power]", "route": "cuda",
+            "source": BWD_SOURCE, "replaces": BWD_CX_REPLACES,
+            "launches": counts["power_bwd_cx"], "max_abs_err": err_bwd,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def plain_multitaper(x, freqs, n_tapers=3):
+    """The multitaper epoch-mean power the plain way, from the public
+    pieces: the plain epoch mean over the flat (F*K, N) taper banks, then
+    the mean over each frequency's K tapers."""
+    from ninwavelets_tpu_torch.ops import cwt
+    from ninwavelets_tpu_torch.ops.multitaper import multitaper_banks
+    n = x.shape[-1]
+    banks = multitaper_banks(freqs, n, SFREQ, n_tapers=n_tapers,
+                             device=x.device)
+    p = cwt.mean_power_from_bank(x, banks.reshape(-1, n), False)
+    return p.reshape(*p.shape[:-2], len(freqs), n_tapers, n).mean(-2)
+
+
+def plain_superlet(x, freqs):
+    """The superlet epoch-mean power the plain way, from the public pieces:
+    each epoch's weighted geometric mean of the plain member powers, then
+    the mean over epochs."""
+    import torch
+    from ninwavelets_tpu_torch.ops import cwt
+    from ninwavelets_tpu_torch.ops.superlets import (superlet_banks,
+                                                     superlet_weights)
+    banks = superlet_banks(freqs, x.shape[-1], SFREQ, device=x.device)
+    w = torch.from_numpy(superlet_weights(freqs)).to(x.device)[:, :, None]
+    logs = sum(w_k * torch.log(torch.clamp(cwt.power_from_bank(x, b, False),
+                                           min=1e-30))
+               for b, w_k in zip(banks, w))
+    return torch.exp(logs / w.sum(0)).mean(0)
+
+
+def zoo_phase(data):
+    """Slice 6, the rest of the zoo at full width: Paul / DOG / Bump serving
+    through K1, the multitaper epoch mean through one "power" launch over
+    3 F rows, superlets through K4 (one launch an order), the adapter's
+    induced / evoked / single-trial power and the multitaper coherence
+    matrix, each against the plain path, with known answers and times."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt
+    from ninwavelets_tpu_torch.ops.multitaper import (
+        multitaper_coherence_matrix, multitaper_mean_power)
+    from ninwavelets_tpu_torch.ops.superlets import superlet_mean_power
+
+    freqs = np.arange(1.0, F + 1.0)
+    tone = tone_epochs(8, 2, N)
+    for family in ("Paul", "DOG", "Bump"):
+        w = getattr(nt, family)(SFREQ, device="cuda")
+        ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ), w)
+        kernels.reset_launches()
+        got = ew.power_all(freqs)
+        torch.cuda.synchronize()
+        check(kernels.launches["power"] == 1, f"{family} power_all launched "
+              f"{dict(kernels.launches)}")
+        rel_err(f"{family} power_all (K1) vs plain", got,
+                cwt.mean_power_from_bank(ew._all_data(), w.fft_wavelets,
+                                         False))
+        p = nt.EpochsWavelet(nt.ArrayEpochs(tone, SFREQ), getattr(nt, family)(
+            SFREQ, device="cuda")).power_all(freqs)
+        peak = int(p.mean(-1).argmax(-1)[0]) + 1
+        print(f"check {family} 60 Hz tone: power peak at {peak} Hz")
+        check(peak == 60, f"{family}: 60 Hz tone peaks at {peak} Hz")
+        del got, ew
+
+    x = torch.from_numpy(data).cuda()
+    kernels.reset_launches()
+    mt = multitaper_mean_power(x, freqs, SFREQ)
+    torch.cuda.synchronize()
+    mt_counts = dict(kernels.launches)
+    print(f"multitaper_mean_power (E={E} C={C} N={N}, {F} x 3 = {3 * F} "
+          f"rows) launches {mt_counts}")
+    check(mt_counts["power"] == 1 and sum(mt_counts.values()) == 1,
+          f"multitaper launches {mt_counts}")
+    rel_err("multitaper_mean_power (K1, 300 rows) vs plain", mt,
+            plain_multitaper(x, freqs))
+    del mt
+
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ),
+                          nt.Morse(SFREQ, device="cuda"))
+    x0 = ew._channel_data("ch0")[:, None, :]
+    kernels.reset_launches()
+    sl = ew.superlet_power("ch0", freqs)
+    torch.cuda.synchronize()
+    sl_counts = dict(kernels.launches)
+    print(f"superlet_power (one channel, E={E}, orders 1-8) launches "
+          f"{sl_counts}")
+    check(sl_counts["power_each"] == 8 and sum(sl_counts.values()) == 8,
+          f"superlet launches {sl_counts}")
+    rel_err("superlet_power (K4) vs plain", sl,
+            plain_superlet(x0, freqs)[0], 1e-4)
+
+    waves = x0[:, 0]
+    kernels.reset_launches()
+    induced = ew.induced_power("ch0", freqs)
+    evoked = ew.evoked_power("ch0", freqs)
+    torch.cuda.synchronize()
+    bank = ew.wavelet.fft_wavelets
+    check(kernels.launches["power"] == 2, f"induced / evoked launches "
+          f"{dict(kernels.launches)}")
+    rel_err("induced_power (K1) vs plain", induced, cwt.mean_power_from_bank(
+        (waves - waves.mean(0, keepdim=True))[:, None], bank, False)[0])
+    rel_err("evoked_power (K1) vs plain", evoked, cwt.mean_power_from_bank(
+        waves.mean(0)[None, None], bank, False)[0])
+
+    ew19 = nt.EpochsWavelet(nt.ArrayEpochs(data[:E_RAGGED], SFREQ),
+                            nt.Morse(SFREQ, device="cuda"))
+    kernels.reset_launches()
+    st = ew19.single_trial_power_all(freqs)
+    torch.cuda.synchronize()
+    check(kernels.launches["power_each"] == 1, f"single_trial_power_all "
+          f"launches {dict(kernels.launches)}")
+    rel_err(f"single_trial_power_all E={E_RAGGED} (K4) vs plain", st,
+            cwt.power_from_bank(ew19._all_data(), ew19.wavelet.fft_wavelets,
+                                False))
+    del st
+    torch.cuda.empty_cache()
+
+    xm = x[:E_MATRIX].contiguous()
+    coh = multitaper_coherence_matrix(xm, freqs, SFREQ)
+    diag = torch.diagonal(coh, dim1=1, dim2=2)
+    derr = (diag - 1).abs().max().item()
+    print(f"check multitaper_coherence_matrix ({E_MATRIX} x {C} x {N} x {F})"
+          f": shape {tuple(coh.shape)}, max|diag - 1| {derr} (gate 1e-5)")
+    check(tuple(coh.shape) == (F, C, C) and derr <= 1e-5
+          and bool(coh.isfinite().all()), "multitaper coherence matrix")
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    ms, plain_ms = median_ms(x, [
+        lambda: multitaper_mean_power(x, freqs, SFREQ),
+        lambda: plain_multitaper(x, freqs)])
+    print(f"time multitaper_mean_power (E={E} C={C} N={N}, {3 * F} rows): "
+          f"kernel path {ms} ms, plain {plain_ms} ms")
+    ms, plain_ms = median_ms(x0, [
+        lambda: superlet_mean_power(x0, freqs, SFREQ),
+        lambda: plain_superlet(x0, freqs)])
+    print(f"time superlet_mean_power (one channel, E={E} N={N} F={F}, "
+          f"orders 1-8): kernel path (8 K4 launches) {ms} ms, plain "
+          f"{plain_ms} ms")
+    ms = host_ms(lambda xs: multitaper_coherence_matrix(xs, freqs, SFREQ),
+                 lambda: xm.normal_())
+    print(f"time multitaper_coherence_matrix ({E_MATRIX} x {C} x {N} x {F}, "
+          f"3 tapers): {ms} ms")
 
 
 def main() -> int:
@@ -1536,6 +2123,12 @@ def main() -> int:
 
     # -- slice 5: pair connectivity -------------------------------------------
     records += pair_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 6: complex banks and the rest of the zoo -----------------------
+    records += complex_bank_phase(data)
+    torch.cuda.empty_cache()
+    zoo_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

@@ -3,9 +3,11 @@ with hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of ``ninwavelets_tpu`` (JAX), which stays beside it as the reference;
 this package imports neither ``jax`` nor ``ninwavelets_tpu``.  It covers the
-main path so far: the Morse / Morlet / MexicanHat / Shannon / Haar banks, the
-CWT and its epoch reductions (epoch-mean power, inter-trial coherence, both
-off one pass), baseline correction, the ``EpochsWavelet`` adapter, the
+main path so far: the Morse / Morlet / MexicanHat / Shannon / Haar banks and
+the rest of the zoo (Paul, DOG, Bump, the multitaper Morse family, superlets,
+``MorseMNE`` where mne is installed), the CWT and its epoch reductions
+(epoch-mean power, inter-trial coherence, both off one pass), baseline
+correction, the ``EpochsWavelet`` adapter, the
 training path (``learn_bank``, ``fit_frequencies``), and the long-recording
 path (``RawWavelet``, ``parallel.StreamingCWT`` / ``OnlineCWT``, the EDF
 reader in ``io``, and ``scattering``), and the synchrosqueezing path
@@ -15,9 +17,10 @@ reassignment, inverse-CWT, denoising, ridge and Torrence & Compo extensions
 in ``ops``, and pair connectivity (coherence, imaginary coherency, PLV,
 PPC, PLI / wPLI / debiased wPLI^2, the phase slope index in ``ops``; the
 all-pairs matrices; the ``EpochsWavelet`` pair and matrix methods).  On a
-CUDA tensor the epoch reductions and the per-signal power run the fused
-kernels of ``csrc/fused_cwt.cu``, the power's gradient the fused backward
-of ``csrc/fused_cwt_bwd.cu``, synchrosqueezing on a single "lin" or "log"
+CUDA tensor the epoch reductions (for real and complex banks) and the
+per-signal power run the fused kernels of ``csrc/fused_cwt.cu``, the power's
+gradient the fused backward of ``csrc/fused_cwt_bwd.cu`` (real and complex
+banks), synchrosqueezing on a single "lin" or "log"
 grid the "amax" epilogue and ``csrc/fused_ssq.cu``, and the pair
 statistics of (E, C, N) pair batches ``csrc/fused_pair.cu``; on the CPU
 they run the plain ``torch.fft`` path.
@@ -25,7 +28,8 @@ Entry points place their data on the card unless the caller passes
 ``device="cpu"``.
 """
 from . import convert, io, kernels, ops, parallel
-from .models import (Haar, MexicanHat, Morlet, Morse, Shannon, WaveletBase,
+from .models import (DOG, Bump, Haar, MexicanHat, Morlet, Morse, MorseMNE,
+                     MorseMultitaper, Paul, Shannon, Superlet, WaveletBase,
                      WaveletMode)
 from .ops.baseline import Baseline, baseline_correct, baseline_tf
 from .ops.fit import fit_frequencies, learn_bank
@@ -36,7 +40,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "WaveletBase", "WaveletMode", "Baseline",
-    "Morse", "Morlet", "Haar", "MexicanHat", "Shannon",
+    "Morse", "MorseMNE", "Morlet", "Haar", "MexicanHat", "Shannon",
+    "Paul", "DOG", "Bump", "Superlet", "MorseMultitaper",
     "ArrayEpochs", "EpochsWavelet", "RawWavelet", "StreamingCWT",
     "OnlineCWT",
     "baseline_correct", "baseline_tf", "fit_frequencies", "learn_bank",

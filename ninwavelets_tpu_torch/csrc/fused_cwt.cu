@@ -5,7 +5,10 @@
 // Replaces the Pallas TPU kernel ninwavelets_tpu/ops/fused.py:_kernel with
 // its "power", "itc", "power_itc" and "amax" epilogues (fused_cwt_kernel)
 // and its "power_each" epilogue (fused_cwt_each_kernel), for a real (F, N)
-// bank.
+// bank; and its complex-bank stage 0 (complex_bank=True) for the "power",
+// "itc" and "power_itc" epilogues (fused_cwt_kernel<..., CX = true>), the
+// only ones the reference sends a complex (Normal/Twice-mode: MexicanHat,
+// Haar) bank to.
 //
 // What it computes, for every signal (e, c), bank row f and sample n:
 //     x_e[n]  = sum_{k < K} bank[f, k] * spec[e, c, k] * exp(+2 pi i k n / N)
@@ -56,6 +59,17 @@
 // its radix-2 passes through shared memory are what bound it in practice,
 // as for the reductions.  Offsets into the spectra and the output are
 // size_t: E*C*F*N passes 2^31 at large batches.
+//
+// A complex bank (CX) arrives as contiguous complex64 (F, N), read as
+// float2; stage 0 is the complex product s * b (inverse_row.cuh), and
+// everything after it, scales and output included, is the real kernel's.
+// The real kernel keeps its bank row in registers (PER floats); a complex
+// row would be 2 PER, and under the 64-register cap that
+// __launch_bounds__(1024) sets, on top of "power_itc"'s 3 PER accumulators,
+// it would spill.  So the CX instantiations read the row through the
+// read-only cache in each epoch's stage 0 instead (8 N bytes a row, 16 KB
+// at N = 2048: L1-resident across the epochs), next to the spectrum load
+// stage 0 makes anyway.  The real instantiations compile as before.
 
 #include <cuda_runtime.h>
 
@@ -83,10 +97,10 @@ __device__ __forceinline__ float block_max(float v, float* red, int tid,
   return v;
 }
 
-template <int EPI, int PER>
+template <int EPI, int PER, bool CX>
 __global__ void __launch_bounds__(1024)
 fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
-                 const float* __restrict__ bank,      // (F, N)
+                 const float* __restrict__ bank,      // (F, N); CX: (F, N) float2
                  const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
                  float* __restrict__ out0,            // (C, F, N); amax: (C, F, E)
                  float* __restrict__ out1,            // (C, F, N), power_itc only
@@ -110,10 +124,15 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   const float bank_scale = EPI == kAmax ? 1.f / static_cast<float>(n) : 1.f;
   float bank_reg[PER];
   const float* bank_row = bank + static_cast<size_t>(f) * n;
+  // CX: row f of the float2 bank, read in every epoch's stage 0.
+  const float2* cbank_row = reinterpret_cast<const float2*>(bank) +
+                            static_cast<size_t>(f) * n;
+  if constexpr (!CX) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int k = tid + i * threads;
-    bank_reg[i] = k < k_bins ? bank_row[k] * bank_scale : 0.f;
+    for (int i = 0; i < PER; ++i) {
+      const int k = tid + i * threads;
+      bank_reg[i] = k < k_bins ? bank_row[k] * bank_scale : 0.f;
+    }
   }
 
   float acc_p[PER], acc_r[PER], acc_i[PER];
@@ -125,7 +144,14 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
 
   for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
     inverse_row<PER>(
-        buf, tw, [&](int i, int k) { return bank_times(sp[k], bank_reg[i]); },
+        buf, tw,
+        [&](int i, int k) {
+          if constexpr (CX) {
+            return bank_times(sp[k], __ldg(cbank_row + k));
+          } else {
+            return bank_times(sp[k], bank_reg[i]);
+          }
+        },
         k_bins, log2n, tid, threads);
 
     // Epilogue: fold this epoch into the register accumulators.
@@ -231,7 +257,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int EPI, int PER>
+template <int EPI, int PER, bool CX>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int n = 1 << a.log2n;
   const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2 +
@@ -248,7 +274,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         a.k_bins, a.row_len, a.power_scale);
     return cudaGetLastError();
   } else {
-    auto kernel = fused_cwt_kernel<EPI, PER>;
+    auto kernel = fused_cwt_kernel<EPI, PER, CX>;
     const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(a.n_freqs, a.n_channels);
@@ -259,10 +285,11 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   }
 }
 
-template <int EPI>
+template <int EPI, bool CX = false>
 cudaError_t launch_per(const Args& a, cudaStream_t stream) {
   // 8 samples a thread up to N = 8192 (1024 threads); N = 16384 takes 16.
-  return a.log2n <= 13 ? launch<EPI, 8>(a, stream) : launch<EPI, 16>(a, stream);
+  return a.log2n <= 13 ? launch<EPI, 8, CX>(a, stream)
+                       : launch<EPI, 16, CX>(a, stream);
 }
 
 }  // namespace
@@ -271,11 +298,14 @@ cudaError_t launch_per(const Args& a, cudaStream_t stream) {
 // on `stream`.  Returns the cudaError_t of the launch (0 on success);
 // arguments the kernel does not take return cudaErrorInvalidValue without
 // launching.  The reductions put C on a grid axis (C <= 65535);
-// "power_each" flattens E * C onto two (E * C < 2^31).
+// "power_each" flattens E * C onto two (E * C < 2^31).  complex_bank != 0
+// reads `bank` as complex64 (F, N), for "power", "itc" and "power_itc"
+// only.
 extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
                               const void* twiddle, void* out0, void* out1,
                               int n_epochs, int n_channels, int n_freqs, int n,
-                              int k_bins, int row_len, void* stream) {
+                              int k_bins, int row_len, int complex_bank,
+                              void* stream) {
   int log2n = 0;
   while ((1 << log2n) < n) ++log2n;
   if ((1 << log2n) != n || log2n < kMinLog2N || log2n > kMaxLog2N ||
@@ -285,6 +315,7 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
       (epilogue == kPowerEach &&
        static_cast<long long>(n_epochs) * n_channels > 2147483647LL) ||
       epilogue < kPower || epilogue > kAmax ||
+      (complex_bank && epilogue > kPowerItc) ||
       (epilogue == kPowerItc && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -304,6 +335,13 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n * power_epochs));
   a.itc_scale = static_cast<float>(1.0 / n_epochs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (complex_bank) {
+    switch (epilogue) {
+      case kPower: return static_cast<int>(launch_per<kPower, true>(a, s));
+      case kItc: return static_cast<int>(launch_per<kItc, true>(a, s));
+      default: return static_cast<int>(launch_per<kPowerItc, true>(a, s));
+    }
+  }
   switch (epilogue) {
     case kPower: return static_cast<int>(launch_per<kPower>(a, s));
     case kItc: return static_cast<int>(launch_per<kItc>(a, s));

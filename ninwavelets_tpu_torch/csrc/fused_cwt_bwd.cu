@@ -3,7 +3,9 @@
 //     forward DFT -> the two reductions the adjoint needs.
 //
 // Replaces the Pallas TPU kernel ninwavelets_tpu/ops/fused.py:_bwd_kernel
-// (launched by _fused_power_bwd), for a real (F, N) bank.
+// (launched by _fused_power_bwd), for a real (F, N) bank and, with
+// CX = true, for a complex (Normal/Twice-mode) one (its complex_bank=True
+// branches).
 //
 // What it computes, for every channel c, bank row f and epoch e, with S_e
 // the signal spectrum on its first K bins (K = N/2 on the analytic
@@ -16,6 +18,12 @@
 // normalised iDFT of the reference carries, folded into one constant applied
 // to g at its load.  u is then exactly the reference's
 // u = fft((2/E) g ifft(bank S)) (ninwavelets_tpu/ops/fused.py:756-763).
+// A complex bank (CX) keeps the same u; then
+//     dbank_part[c, f, k]      = sum_e u[k] conj(S_e[k])          (complex)
+//     t_part[grp, e, c, k]     = sum_{f in grp} conj(bank[f,k]) u[k]
+// PyTorch's gradient convention, sum u conj(S) / N, as the port's plain
+// adjoint mean_power_bwd computes it: the conjugate of the reference's
+// sum conj(u) S / N (fused.py:1002-1005), the same derivative.
 // Outside the kernel, in torch: the rFFT / FFT of the signals, the sum of
 // dbank_part over c (and its 1/N, as the reference applies it), the zero
 // upper bins of dbank, the sum of t_part over row groups, ds = Re(iFFT(t)).
@@ -52,9 +60,15 @@
 //    groups.  The reduction over f is deterministic, with no atomics.
 //  * G = 4 rows to N = 4096, 2 at 8192 and 1 at 16384, where a thread owns
 //    8 and 16 samples (1024 threads a block); N = 16384 spills (ptxas -v).
+//  * A complex bank doubles the dbank accumulators (G x PER float2), so CX
+//    halves G (2 rows to N = 4096, 1 above) to stay within the same
+//    64-register cap; t_part then has twice the row groups.  Its bank row
+//    is a float2 read through the read-only cache, as the real row is.
 // Everything runs in float32.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "radix2.cuh"
 
@@ -63,28 +77,30 @@ namespace {
 constexpr int kMinLog2N = 8;    // N = 256
 constexpr int kMaxLog2N = 14;   // N = 16384: 12 N bytes = 192 KB of shared memory
 
-template <int LOG2N>
+template <int LOG2N, bool CX = false>
 struct BwdShape {
   static constexpr int kN = 1 << LOG2N;
   static constexpr int kPer = LOG2N <= 12 ? 4 : (LOG2N == 13 ? 8 : 16);
   static constexpr int kThreads = kN / kPer;     // samples a thread: kPer
-  static constexpr int kRows = LOG2N <= 12 ? 4 : (LOG2N == 13 ? 2 : 1);
+  static constexpr int kRealRows = LOG2N <= 12 ? 4 : (LOG2N == 13 ? 2 : 1);
+  static constexpr int kRows = CX && kRealRows > 1 ? kRealRows / 2 : kRealRows;
   // Blocks an SM should hold: 1024 threads at 64 registers each.
   static constexpr int kMinBlocks = 1024 / kThreads;
 };
 
-template <int LOG2N>
-__global__ void __launch_bounds__(BwdShape<LOG2N>::kThreads,
-                                  BwdShape<LOG2N>::kMinBlocks)
+template <int LOG2N, bool CX>
+__global__ void __launch_bounds__(BwdShape<LOG2N, CX>::kThreads,
+                                  BwdShape<LOG2N, CX>::kMinBlocks)
 fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
-                     const float* __restrict__ bank,      // (F, N)
+                     const float* __restrict__ bank,      // (F, N); CX: float2
                      const float* __restrict__ cot,       // (C, F, N): g
                      const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
-                     float* __restrict__ dbank_part,      // (C, F, K)
+                     float* __restrict__ dbank_part,      // (C, F, K); CX: float2
                      float2* __restrict__ t_part,         // (groups, E, C, K)
                      int n_epochs, int n_channels, int n_freqs, int k_bins,
                      int row_len, float scale) {
-  using S = BwdShape<LOG2N>;
+  using S = BwdShape<LOG2N, CX>;
+  using Acc = std::conditional_t<CX, float2, float>;
   constexpr int N = S::kN;
   constexpr int PER = S::kPer;
   constexpr int T = S::kThreads;
@@ -105,11 +121,11 @@ fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   for (int m = tid; m < HALF; m += T) tw[m] = twiddle[m];
 
   // Thread-owned positions: sample / bin tid + i * T, i < PER.
-  float acc[G][PER];
+  Acc acc[G][PER];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) acc[j][i] = 0.f;
+    for (int i = 0; i < PER; ++i) acc[j][i] = Acc{};
   }
 
   const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
@@ -127,14 +143,21 @@ fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
     for (int j = 0; j < G; ++j) {
       if (j >= rows) break;   // block-uniform: the ragged last group
       const float* bank_row = bank + static_cast<size_t>(f0 + j) * N;
+      const float2* cbank_row = reinterpret_cast<const float2*>(bank) +
+                                static_cast<size_t>(f0 + j) * N;
       const float* g_row = cot + (static_cast<size_t>(c) * n_freqs + f0 + j) * N;
 
       // Stage 0: bank x spectrum, stored bit-reversed for the DIT passes.
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int k = tid + i * T;
-        const float b = k < k_bins ? __ldg(bank_row + k) : 0.f;
-        buf[__brev(k) >> REV] = make_float2(s_reg[i].x * b, s_reg[i].y * b);
+        if constexpr (CX) {
+          const float2 b = k < k_bins ? __ldg(cbank_row + k) : make_float2(0.f, 0.f);
+          buf[__brev(k) >> REV] = cmul(s_reg[i], b);
+        } else {
+          const float b = k < k_bins ? __ldg(bank_row + k) : 0.f;
+          buf[__brev(k) >> REV] = make_float2(s_reg[i].x * b, s_reg[i].y * b);
+        }
       }
       __syncthreads();
 
@@ -170,16 +193,26 @@ fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
         __syncthreads();
       }
 
-      // Epilogue on the first K bins: dbank += Re(u conj S), t += bank u.
+      // Epilogue on the first K bins: dbank += Re(u conj S), t += bank u;
+      // CX: dbank += u conj S, t += conj(bank) u.
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int k = tid + i * T;
         if (k < k_bins) {
           const float2 u = buf[__brev(k) >> REV];
-          const float b = __ldg(bank_row + k);
-          acc[j][i] += u.x * s_reg[i].x + u.y * s_reg[i].y;
-          t_acc[i].x += b * u.x;
-          t_acc[i].y += b * u.y;
+          if constexpr (CX) {
+            const float2 us = cmul_conj(u, s_reg[i]);
+            const float2 bu = cmul_conj(u, __ldg(cbank_row + k));
+            acc[j][i].x += us.x;
+            acc[j][i].y += us.y;
+            t_acc[i].x += bu.x;
+            t_acc[i].y += bu.y;
+          } else {
+            const float b = __ldg(bank_row + k);
+            acc[j][i] += u.x * s_reg[i].x + u.y * s_reg[i].y;
+            t_acc[i].x += b * u.x;
+            t_acc[i].y += b * u.y;
+          }
         }
       }
       __syncthreads();   // the next row's stage 0 overwrites buf
@@ -197,7 +230,8 @@ fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     if (j >= rows) break;
-    float* dp = dbank_part + (static_cast<size_t>(c) * n_freqs + f0 + j) * k_bins;
+    Acc* dp = reinterpret_cast<Acc*>(dbank_part) +
+              (static_cast<size_t>(c) * n_freqs + f0 + j) * k_bins;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int k = tid + i * T;
@@ -217,11 +251,11 @@ struct BwdArgs {
   float scale;
 };
 
-template <int LOG2N>
+template <int LOG2N, bool CX>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  using S = BwdShape<LOG2N>;
+  using S = BwdShape<LOG2N, CX>;
   const size_t smem = static_cast<size_t>(S::kN) * sizeof(float2) * 3 / 2;
-  auto kernel = fused_cwt_bwd_kernel<LOG2N>;
+  auto kernel = fused_cwt_bwd_kernel<LOG2N, CX>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -240,31 +274,51 @@ int log2_of(int n) {
   return (1 << log2n) == n && log2n >= kMinLog2N && log2n <= kMaxLog2N ? log2n : -1;
 }
 
-}  // namespace
-
-// Bank rows per block at signal length n (the row-group size G, which sizes
-// t_part), or 0 when the kernel does not take n.
-extern "C" int ninw_fused_cwt_bwd_rows(int n) {
-  switch (log2_of(n)) {
-    case 8: return BwdShape<8>::kRows;
-    case 9: return BwdShape<9>::kRows;
-    case 10: return BwdShape<10>::kRows;
-    case 11: return BwdShape<11>::kRows;
-    case 12: return BwdShape<12>::kRows;
-    case 13: return BwdShape<13>::kRows;
-    case 14: return BwdShape<14>::kRows;
+template <bool CX>
+int rows_of(int log2n) {
+  switch (log2n) {
+    case 8: return BwdShape<8, CX>::kRows;
+    case 9: return BwdShape<9, CX>::kRows;
+    case 10: return BwdShape<10, CX>::kRows;
+    case 11: return BwdShape<11, CX>::kRows;
+    case 12: return BwdShape<12, CX>::kRows;
+    case 13: return BwdShape<13, CX>::kRows;
+    case 14: return BwdShape<14, CX>::kRows;
     default: return 0;
   }
 }
 
+template <bool CX>
+cudaError_t launch_log2n(int log2n, const BwdArgs& a, cudaStream_t s) {
+  switch (log2n) {
+    case 8: return launch_bwd<8, CX>(a, s);
+    case 9: return launch_bwd<9, CX>(a, s);
+    case 10: return launch_bwd<10, CX>(a, s);
+    case 11: return launch_bwd<11, CX>(a, s);
+    case 12: return launch_bwd<12, CX>(a, s);
+    case 13: return launch_bwd<13, CX>(a, s);
+    default: return launch_bwd<14, CX>(a, s);
+  }
+}
+
+}  // namespace
+
+// Bank rows per block at signal length n for a real (complex_bank == 0) or
+// complex bank (the row-group size G, which sizes t_part), or 0 when the
+// kernel does not take n.
+extern "C" int ninw_fused_cwt_bwd_rows(int n, int complex_bank) {
+  return complex_bank ? rows_of<true>(log2_of(n)) : rows_of<false>(log2_of(n));
+}
+
 // Launch one fused backward on `stream`.  Returns the cudaError_t of the
 // launch (0 on success); arguments the kernel does not take return
-// cudaErrorInvalidValue without launching.
+// cudaErrorInvalidValue without launching.  complex_bank != 0 reads `bank`
+// as complex64 (F, N) and writes `dbank_part` as complex64 (C, F, K).
 extern "C" int ninw_fused_cwt_bwd(const void* spec, const void* bank,
                                   const void* cot, const void* twiddle,
                                   void* dbank_part, void* t_part, int n_epochs,
                                   int n_channels, int n_freqs, int n, int k_bins,
-                                  int row_len, void* stream) {
+                                  int row_len, int complex_bank, void* stream) {
   const int log2n = log2_of(n);
   if (log2n < 0 || k_bins < 1 || k_bins > n || row_len < k_bins ||
       n_epochs < 1 || n_channels < 1 || n_channels > 65535 || n_freqs < 1) {
@@ -284,13 +338,6 @@ extern "C" int ninw_fused_cwt_bwd(const void* spec, const void* bank,
   a.row_len = row_len;
   a.scale = static_cast<float>(2.0 / (static_cast<double>(n_epochs) * n));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (log2n) {
-    case 8: return static_cast<int>(launch_bwd<8>(a, s));
-    case 9: return static_cast<int>(launch_bwd<9>(a, s));
-    case 10: return static_cast<int>(launch_bwd<10>(a, s));
-    case 11: return static_cast<int>(launch_bwd<11>(a, s));
-    case 12: return static_cast<int>(launch_bwd<12>(a, s));
-    case 13: return static_cast<int>(launch_bwd<13>(a, s));
-    default: return static_cast<int>(launch_bwd<14>(a, s));
-  }
+  return static_cast<int>(complex_bank ? launch_log2n<true>(log2n, a, s)
+                                       : launch_log2n<false>(log2n, a, s));
 }

@@ -37,3 +37,8 @@ __device__ __forceinline__ void inverse_row(float2* buf, const float2* tw,
 __device__ __forceinline__ float2 bank_times(float2 s, float b) {
   return make_float2(s.x * b, s.y * b);
 }
+
+// The same for a complex (Normal/Twice-mode) bank: the complex product.
+__device__ __forceinline__ float2 bank_times(float2 s, float2 b) {
+  return cmul(s, b);
+}

@@ -24,3 +24,12 @@ def resolve_device(device=None, cuda: Optional[bool] = None) -> torch.device:
         raise RuntimeError('CUDA is not available: the port runs on the card '
                            'by default; pass device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+def as_float32(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor: on ``device`` when given, else where ``x``
+    already lies (a tensor), else on the default of ``resolve_device``."""
+    if device is None:
+        device = (x.device if isinstance(x, torch.Tensor)
+                  else resolve_device())
+    return torch.as_tensor(x, dtype=torch.float32, device=device)

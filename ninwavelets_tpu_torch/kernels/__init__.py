@@ -4,9 +4,10 @@ Every ``.cu`` source there is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``: the fused forward (``fused_cwt.cu``:
 the epoch reductions, the per-signal power and the per-row peak "amax"), the
-fused power backward (``fused_cwt_bwd.cu``), the fused synchrosqueezing
-kernel (``fused_ssq.cu``) and the cross-pair epoch sums (``fused_pair.cu``:
-coherence, phase lag, unit cross-phase).
+fused power backward (``fused_cwt_bwd.cu``; both of these also take a
+complex bank, the forward for its three epoch reductions), the fused
+synchrosqueezing kernel (``fused_ssq.cu``) and the cross-pair epoch sums
+(``fused_pair.cu``: coherence, phase lag, unit cross-phase).
 Nothing is compiled or loaded when this module is imported: the first launch
 builds the library (or ``build()`` does it up front), keyed by a hash of every
 source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
@@ -43,6 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: The first three reduce over epochs; "power_each" keeps every signal;
 #: "amax" gives each (channel, row, epoch) its peak power.
 EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3, "amax": 4}
+#: The epilogues that take a complex64 bank (the reference's complex stage
+#: 0): the three epoch reductions.
+COMPLEX_EPILOGUES = ("power", "itc", "power_itc")
 #: Signal lengths the fused kernel takes: powers of two in this range (the
 #: block's shared memory holds N samples and N/2 twiddles, 12*N bytes).
 MIN_N, MAX_N = 256, 16384
@@ -54,10 +58,13 @@ PAIR_PLANES = {"coherence": 4, "phaselag": 4, "plv": 2}
 
 #: Kernel launches since the last ``reset_launches()``: one key per epilogue
 #: of the forward kernel, "power_bwd" for the power backward, "ssq" for the
-#: synchrosqueezing kernel, and one key per epilogue of the cross-pair
-#: kernel.
-launches = dict.fromkeys((*EPILOGUES, "power_bwd", "ssq", *PAIR_EPILOGUES),
-                         0)
+#: synchrosqueezing kernel, one key per epilogue of the cross-pair kernel,
+#: and the complex-bank launches under their own keys ("power_cx",
+#: "itc_cx", "power_itc_cx", "power_bwd_cx"), so a run of a real-bank
+#: kernel is never read as a run of its complex-bank form.
+launches = dict.fromkeys((*EPILOGUES, "power_bwd", "ssq", *PAIR_EPILOGUES,
+                          *(f"{e}_cx" for e in COMPLEX_EPILOGUES),
+                          "power_bwd_cx"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -138,14 +145,14 @@ def _load():
             fn = lib.ninw_fused_cwt
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             fn = lib.ninw_fused_cwt_bwd
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p])
             fn = lib.ninw_fused_cwt_bwd_rows
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int]
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
             fn = lib.ninw_fused_ssq
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -167,13 +174,15 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
-           g: torch.Tensor = None):
+           g: torch.Tensor = None, complex_bank: bool = False):
     """Validate what a kernel takes: dtypes, ranks, contiguity and shapes
-    first, the device last.  Returns (E, C, L, F, N).  The kernels take the
-    signal count E*C as a C int and index every buffer with size_t, so
-    E*C*F*N may pass 2^31."""
+    first, the device last.  Returns (E, C, L, F, N).  The bank is float32,
+    or complex64 where ``complex_bank``.  The kernels take the signal count
+    E*C as a C int and index every buffer with size_t, so E*C*F*N may pass
+    2^31."""
     named = [("spec", spec, torch.complex64, 3),
-             ("bank", bank, torch.float32, 2)]
+             ("bank", bank,
+              torch.complex64 if complex_bank else torch.float32, 2)]
     if g is not None:
         named.append(("g", g, torch.float32, 3))
     for name, t, dtype, ndim in named:
@@ -217,7 +226,9 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
       spec: (E, C, L) complex64 CUDA tensor, contiguous: the signal spectra,
         of which the first ``k_bins`` bins of each row are used (L may exceed
         ``k_bins``, e.g. a whole rFFT row of N/2 + 1 bins).
-      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      bank: (F, N) CUDA tensor, contiguous: float32, or complex64 (a
+        Normal/Twice-mode bank) for the epilogues in ``COMPLEX_EPILOGUES``,
+        counted under ``"<epilogue>_cx"``.
       k_bins: N/2 on the analytic path, N otherwise.
       precision: accepted for the API of the fused wrappers; the kernel
         computes in float32 for every precision name.
@@ -225,7 +236,11 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     del precision
-    e, c, row_len, f, n = _check(spec, bank, k_bins)
+    cx = bank.is_complex()
+    if cx and epilogue not in COMPLEX_EPILOGUES:
+        raise ValueError(f"a complex bank takes only the {COMPLEX_EPILOGUES} "
+                         f"epilogues, not {epilogue!r}")
+    e, c, row_len, f, n = _check(spec, bank, k_bins, complex_bank=cx)
     lib = _load()
     shape = {"power_each": (e, c, f, n), "amax": (c, f, e)}.get(epilogue,
                                                                 (c, f, n))
@@ -236,11 +251,12 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
             EPILOGUES[epilogue], spec.data_ptr(), bank.data_ptr(),
             _twiddles(n, spec.device).data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr() if len(outs) > 1 else None,
-            e, c, f, n, k_bins, row_len, _stream(spec.device))
+            e, c, f, n, k_bins, row_len, int(cx), _stream(spec.device))
+    key = f"{epilogue}_cx" if cx else epilogue
     if err != 0:
-        raise RuntimeError(f"fused_cwt[{epilogue}] launch failed: CUDA error "
+        raise RuntimeError(f"fused_cwt[{key}] launch failed: CUDA error "
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
-    launches[epilogue] += 1
+    launches[key] += 1
     return outs
 
 
@@ -251,21 +267,24 @@ def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
     Args:
       spec: (E, C, L) complex64 CUDA tensor, contiguous, as for
         ``fused_cwt``: the first ``k_bins`` bins of each row are used.
-      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      bank: (F, N) CUDA tensor, contiguous: float32, or complex64 (a
+        Normal/Twice-mode bank, counted under "power_bwd_cx").
       g: (C, F, N) float32 CUDA tensor, contiguous: the cotangent of the
         epoch-mean power plane.
       k_bins: N/2 on the analytic path, N otherwise.
 
-    Returns ``(dbank_part, t_part)``: (C, F, K) float32, the per-channel
-    sum over epochs of Re(u conj S), and (groups, E, C, K) complex64, the
-    per-row-group sum of bank x u, with u = fft((2/E) g ifft(bank S)) on
-    the first K = ``k_bins`` bins.  ``ops.fused`` completes them to the
-    gradients.
+    Returns ``(dbank_part, t_part)``: (C, F, K), the per-channel sum over
+    epochs of Re(u conj S) (float32), or of u conj S for a complex bank
+    (complex64, PyTorch's gradient convention); and (groups, E, C, K)
+    complex64, the per-row-group sum of bank x u (conj(bank) x u for a
+    complex bank), with u = fft((2/E) g ifft(bank S)) on the first
+    K = ``k_bins`` bins.  ``ops.fused`` completes them to the gradients.
     """
-    e, c, row_len, f, n = _check(spec, bank, k_bins, g)
+    cx = bank.is_complex()
+    e, c, row_len, f, n = _check(spec, bank, k_bins, g, complex_bank=cx)
     lib = _load()
-    rows = lib.ninw_fused_cwt_bwd_rows(n)
-    dbank_part = torch.empty((c, f, k_bins), dtype=torch.float32,
+    rows = lib.ninw_fused_cwt_bwd_rows(n, int(cx))
+    dbank_part = torch.empty((c, f, k_bins), dtype=bank.dtype,
                              device=spec.device)
     t_part = torch.empty((-(-f // rows), e, c, k_bins), dtype=torch.complex64,
                          device=spec.device)
@@ -273,12 +292,13 @@ def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
         err = lib.ninw_fused_cwt_bwd(
             spec.data_ptr(), bank.data_ptr(), g.data_ptr(),
             _twiddles(n, spec.device).data_ptr(), dbank_part.data_ptr(),
-            t_part.data_ptr(), e, c, f, n, k_bins, row_len,
+            t_part.data_ptr(), e, c, f, n, k_bins, row_len, int(cx),
             _stream(spec.device))
+    key = "power_bwd_cx" if cx else "power_bwd"
     if err != 0:
-        raise RuntimeError(f"fused_cwt_bwd launch failed: CUDA error {err} "
-                           f"(E={e}, C={c}, F={f}, N={n})")
-    launches["power_bwd"] += 1
+        raise RuntimeError(f"fused_cwt_bwd launch failed ({key}): CUDA error "
+                           f"{err} (E={e}, C={c}, F={f}, N={n})")
+    launches[key] += 1
     return dbank_part, t_part
 
 

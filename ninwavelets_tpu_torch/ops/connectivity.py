@@ -191,12 +191,15 @@ def _pair_sums(w: torch.Tensor):
     as a (real, imag) pair of (C, C, n) planes: two real batched matrix
     products over the stacked epoch axis, ``S_r = u . u`` and
     ``S_i = [wi; -wr] . u`` with ``u = [wr; wi]``, the time axis the batch.
-    Float32 products run in full float32 (no TF32 on the card)."""
+    Float32 products run in full float32 (no TF32 on the card, whatever the
+    process's matmul precision; it is restored on exit)."""
+    from .scattering import fp32_matmul    # scattering imports ops.fused
     u = torch.cat([w.real, w.imag], dim=0)                  # (2E, C, n)
     v = torch.cat([w.imag, -w.real], dim=0)
     ut = u.permute(2, 0, 1)                                  # (n, 2E, C)
-    sr = torch.bmm(ut.transpose(1, 2), ut).permute(1, 2, 0)
-    si = torch.bmm(v.permute(2, 1, 0), ut).permute(1, 2, 0)
+    with fp32_matmul("exact"):
+        sr = torch.bmm(ut.transpose(1, 2), ut).permute(1, 2, 0)
+        si = torch.bmm(v.permute(2, 1, 0), ut).permute(1, 2, 0)
     return sr, si
 
 

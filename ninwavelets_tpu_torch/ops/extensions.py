@@ -1,6 +1,12 @@
-"""Cross-signal products of two channels (port of the coherence part of
+"""The Paul / DOG / Bump wavelet spectra and the cross-signal products of
+two channels (port of the spectra and the coherence part of
 ``ninwavelets_tpu.ops.extensions``): the cross-wavelet product, epoch-wise
 wavelet coherence, imaginary coherency and the phase slope index.
+
+The spectra follow the engine convention of ``ops.spectra``: a
+frequency-domain ``trans_formula(grid, freq)`` peaking at ``grid == freq``
+with amplitude 2, zero at zero and negative frequency, evaluated in log space
+where powers would overflow float32.
 
 All three statistics come from the same four epoch sums
 (``coherence_sums``), which loop over epochs so memory stays O(C*F*N).  The
@@ -8,14 +14,55 @@ All three statistics come from the same four epoch sums
 (``ops.fused``) for a real bank and an (E, C, N) pair batch that
 ``ops.fused.supports()`` takes, as the JAX package does on a TPU; the
 single-pair (E, N) shape runs the plain sums.  The other families of the
-JAX module (Paul / DOG / Bump spectra, bicoherence, single-trial wavelet
-coherence, cross-frequency directionality) are not ported yet.
+JAX module (bicoherence, single-trial wavelet coherence, cross-frequency
+directionality) are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from .cwt import cwt_from_bank
+from .spectra import _like
+
+
+# -- Paul, DOG and Bump spectra (mode=Reverse) --------------------------------
+
+def paul_spectrum(freq_grid: torch.Tensor, freq, m: float = 4.0
+                  ) -> torch.Tensor:
+    """Paul wavelet of order m, peak-normalized:
+    ``2 * H(w) * w**m * exp(m * (1 - w))`` with ``w = grid / freq`` (the
+    textbook ``w**m e^{-w}`` rescaled so the peak sits at the analysis
+    frequency), evaluated in log space."""
+    w = freq_grid / _like(freq, freq_grid)
+    m = float(m)
+    safe_w = torch.where(w > 0, w, torch.ones_like(w))
+    log_mag = m * torch.log(safe_w) + m * (1.0 - safe_w)
+    return torch.where(w > 0, 2.0 * torch.exp(log_mag), torch.zeros_like(w))
+
+
+def dog_spectrum(freq_grid: torch.Tensor, freq, m: float = 2.0
+                 ) -> torch.Tensor:
+    """Analytic derivative-of-Gaussian wavelet of order m, peak-normalized:
+    ``2 * H(w) * w**m * exp(m/2 * (1 - w**2))``.  ``m = 2`` is the analytic
+    counterpart of the MexicanHat family."""
+    w = freq_grid / _like(freq, freq_grid)
+    m = float(m)
+    safe_w = torch.where(w > 0, w, torch.ones_like(w))
+    log_mag = m * torch.log(safe_w) + 0.5 * m * (1.0 - safe_w * safe_w)
+    return torch.where(w > 0, 2.0 * torch.exp(log_mag), torch.zeros_like(w))
+
+
+def bump_spectrum(freq_grid: torch.Tensor, freq, sigma: float = 0.6
+                  ) -> torch.Tensor:
+    """Bump wavelet, peak-normalized: ``2 * exp(1 - 1/(1 - u**2))`` on
+    ``|u| < 1`` with ``u = (w - 1) / sigma``, ``w = grid / freq``; zero
+    elsewhere (compact support in frequency)."""
+    w = freq_grid / _like(freq, freq_grid)
+    u = (w - 1.0) / float(sigma)
+    inside = (torch.abs(u) < 1.0) & (w > 0)
+    safe_u2 = torch.where(inside, u * u, torch.zeros_like(u))
+    val = 2.0 * torch.exp(1.0 - 1.0 / (1.0 - safe_u2))
+    return torch.where(inside, val, torch.zeros_like(w))
 
 
 def cross_power_from_bank(sig_a: torch.Tensor, sig_b: torch.Tensor,

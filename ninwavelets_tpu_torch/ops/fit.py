@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..device import resolve_device
+from ..device import as_float32, resolve_device
 from .bank import WaveletDef, make_fft_bank
 from .cwt import mean_power_from_bank
 from .fused import DEFAULT_PRECISION, mean_power_auto
@@ -35,9 +35,6 @@ def _placement(*args) -> torch.device:
             return a.device
     return resolve_device()
 
-
-def _as_f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def fit_frequencies(signals, wdef: WaveletDef, freqs0, sfreq: float,
@@ -56,9 +53,9 @@ def fit_frequencies(signals, wdef: WaveletDef, freqs0, sfreq: float,
       freqs0: (F,) initial frequencies (Hz), e.g. a coarse uniform grid.
     """
     device = _placement(signals, freqs0)
-    signals = _as_f32(signals, device)
+    signals = as_float32(signals, device)
     n = int(signals.shape[-1])
-    log_f = torch.log(_as_f32(freqs0, device)).detach().requires_grad_(True)
+    log_f = torch.log(as_float32(freqs0, device)).detach().requires_grad_(True)
     opt = torch.optim.Adam([log_f], lr=lr)
     losses = []
     for _ in range(int(steps)):
@@ -82,10 +79,10 @@ def learn_bank(signals, bank0, target=None, loss: str = "mse",
     ``loss="mse"`` matches a ``target`` (C, F, N) power plane;
     ``loss="power"`` maximises captured power.  ``use_fused=True`` runs
     every step's forward and backward through the fused kernels where they
-    take the workload (``ops.fused.mean_power_auto``: a real bank and real
-    signals; a complex bank takes the plain path, which torch
-    differentiates).  A wavelet bank (``make_fft_bank``) is the natural
-    ``bank0``.
+    take the workload (``ops.fused.mean_power_auto``: real signals and a
+    real or complex bank; a complex bank runs the complex-bank forward and
+    backward kernels, "power_cx" and "power_bwd_cx").  A wavelet bank
+    (``make_fft_bank``) is the natural ``bank0``.
 
     A complex (Normal/Twice-mode) start comes as the float pair
     (``bank0``, ``bank0_i``): two real leaf tensors, joined by
@@ -101,10 +98,10 @@ def learn_bank(signals, bank0, target=None, loss: str = "mse",
     elif loss != "power":
         raise ValueError('loss must be "mse" or "power"')
     device = _placement(signals, bank0)
-    signals = _as_f32(signals, device)
+    signals = as_float32(signals, device)
     if target is not None:
-        target = _as_f32(target, device)
-    params = [_as_f32(b, device).detach().clone().requires_grad_(True)
+        target = as_float32(target, device)
+    params = [as_float32(b, device).detach().clone().requires_grad_(True)
               for b in (bank0, bank0_i) if b is not None]
     opt = torch.optim.Adam(params, lr=lr)
 

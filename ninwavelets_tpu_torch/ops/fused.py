@@ -16,10 +16,19 @@ Dispatch, with no fallback that hides the device or the kernel:
   launch fails;
 * the ``*_auto`` entry points take the fused wrapper when ``supports()``
   accepts the workload and the signals are real, and the plain path
-  otherwise (complex signals, a complex bank, a signal length outside the
-  kernel's range, a bank built for another length), on whatever device the
-  tensors are.  ``ops.sst.ssq_mean_power`` and ``ssq_power`` dispatch the
-  same way on ``supports_ssq()``, and only for CUDA tensors.
+  otherwise (complex signals, a signal length outside the kernel's range, a
+  bank built for another length), on whatever device the tensors are.
+  ``ops.sst.ssq_mean_power`` and ``ssq_power`` dispatch the same way on
+  ``supports_ssq()``, and only for CUDA tensors;
+* a complex (Normal/Twice-mode: MexicanHat, Haar) bank reaches the kernels
+  through the three epoch reductions only, as in the JAX package:
+  ``mean_power_auto``, ``itc_auto`` and ``power_itc_auto`` ask
+  ``supports()`` about its real part, and ``fused_mean_power_from_bank``
+  (its backward too), ``fused_itc_from_bank`` and
+  ``fused_power_itc_from_bank`` launch the complex-bank kernels for it.
+  ``supports()`` itself rejects a complex bank, so every other dispatcher
+  (``power_auto``, streaming, scattering, ``supports_ssq``, the pair
+  ``*_auto``) runs the plain path for it.
 
 The signal FFT runs outside the kernel, as ``torch.fft.rfft`` on the analytic
 path (``interpolate=True``) and ``torch.fft.fft`` otherwise.  Everything from
@@ -78,7 +87,9 @@ def supports(signals_shape, bank, epilogue: str = "power") -> bool:
     real floating (F, N) bank built for the same N.  Any epoch count works
     for every epilogue: the kernel loops over all epochs and never pads one
     in.  A CUDA workload this rejects runs the plain torch path on the card
-    through the ``*_auto`` entry points."""
+    through the ``*_auto`` entry points; the three epoch reductions ask it
+    about a complex bank's real part (``_reduction_takes``), as the JAX
+    package does, and so take the complex-bank kernels."""
     del epilogue
     if bank is None or len(signals_shape) != 3:
         return False
@@ -102,12 +113,30 @@ def _kernel_takes(signals: torch.Tensor, bank) -> bool:
     return not signals.is_complex() and supports(signals.shape, bank)
 
 
+def _reduction_takes(signals: torch.Tensor, bank) -> bool:
+    """``_kernel_takes`` for the three epoch reductions, which also take a
+    complex bank: ``supports()`` is asked about its real part, as the JAX
+    package's autos pass only ``bank_r``."""
+    if bank is not None and bank.is_complex():
+        bank = bank.real
+    return _kernel_takes(signals, bank)
+
+
+def _kernel_bank(bank: torch.Tensor) -> torch.Tensor:
+    """The bank as the kernels read it: contiguous float32, or complex64."""
+    return bank.to(torch.complex64 if bank.is_complex()
+                   else torch.float32).contiguous()
+
+
 def _launch(epilogue, signals, bank, interpolate, precision):
-    """Spectra outside the kernel, then one kernel launch."""
-    if not _kernel_takes(signals, bank):
+    """Spectra outside the kernel, then one kernel launch.  A complex bank
+    is taken for the epilogues of ``kernels.COMPLEX_EPILOGUES``."""
+    takes = (_reduction_takes if epilogue in kernels.COMPLEX_EPILOGUES
+             else _kernel_takes)
+    if not takes(signals, bank):
         raise ValueError(
-            f"the fused kernel does not take {signals.dtype} signals "
-            f"{tuple(signals.shape)} with bank {tuple(bank.shape)} "
+            f"the fused kernel ({epilogue!r}) does not take {signals.dtype} "
+            f"signals {tuple(signals.shape)} with bank {tuple(bank.shape)} "
             f"{bank.dtype}; see supports()")
     n = signals.shape[-1]
     signals = signals.to(torch.float32)
@@ -115,9 +144,8 @@ def _launch(epilogue, signals, bank, interpolate, precision):
         spec, k_bins = torch.fft.rfft(signals), n // 2
     else:
         spec, k_bins = torch.fft.fft(signals), n
-    return kernels.fused_cwt(epilogue, spec.contiguous(),
-                             bank.to(torch.float32).contiguous(), k_bins,
-                             precision)
+    return kernels.fused_cwt(epilogue, spec.contiguous(), _kernel_bank(bank),
+                             k_bins, precision)
 
 
 def mean_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
@@ -159,10 +187,11 @@ def mean_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
 
 def _fused_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
                      g: torch.Tensor, interpolate: bool):
-    """``mean_power_bwd`` through the fused backward kernel (real signals
-    and bank on the card): the spectra, one launch, then the sums and the
-    one inverse FFT that complete it, as the JAX package's
-    ``_fused_power_bwd`` does in XLA."""
+    """``mean_power_bwd`` through the fused backward kernel (real signals,
+    a real or complex bank, on the card): the spectra, one launch, then the
+    sums and the one inverse FFT that complete it, as the JAX package's
+    ``_fused_power_bwd`` does in XLA.  A complex bank's dbank is PyTorch's
+    convention, as ``mean_power_bwd`` gives it."""
     n = signals.shape[-1]
     signals32 = signals.to(torch.float32)
     if interpolate:
@@ -170,7 +199,7 @@ def _fused_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
     else:
         spec, k_bins = torch.fft.fft(signals32), n
     dbank_part, t_part = kernels.fused_cwt_bwd(
-        spec.contiguous(), bank.to(torch.float32).contiguous(),
+        spec.contiguous(), _kernel_bank(bank),
         g.to(torch.float32).contiguous(), k_bins)
     dbank = torch.nn.functional.pad(dbank_part.sum(0) / n, (0, n - k_bins))
     ds = torch.fft.ifft(t_part.sum(0), n=n).real
@@ -321,8 +350,9 @@ def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
                     interpolate: bool = False,
                     precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Epoch-mean power with automatic kernel dispatch (see the module
-    docstring); the same result either way."""
-    if _kernel_takes(signals, bank):
+    docstring; a complex bank takes the kernel too); the same result either
+    way."""
+    if _reduction_takes(signals, bank):
         return fused_mean_power_from_bank(signals, bank, interpolate,
                                           precision)
     return mean_power_from_bank(signals, bank, interpolate)
@@ -331,8 +361,9 @@ def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
 def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
              interpolate: bool = False,
              precision: str = DEFAULT_PRECISION) -> torch.Tensor:
-    """Inter-trial coherence with automatic kernel dispatch."""
-    if _kernel_takes(signals, bank):
+    """Inter-trial coherence with automatic kernel dispatch (a complex bank
+    takes the kernel too)."""
+    if _reduction_takes(signals, bank):
         return fused_itc_from_bank(signals, bank, interpolate, precision)
     return itc_from_bank(signals, bank, interpolate)
 
@@ -341,8 +372,9 @@ def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
                    interpolate: bool = False,
                    precision: str = DEFAULT_PRECISION):
     """(power, itc) with automatic kernel dispatch: one fused pass where the
-    kernel takes the workload, the two plain reductions otherwise."""
-    if _kernel_takes(signals, bank):
+    kernel takes the workload (a complex bank included), the two plain
+    reductions otherwise."""
+    if _reduction_takes(signals, bank):
         return fused_power_itc_from_bank(signals, bank, interpolate,
                                          precision)
     return (mean_power_from_bank(signals, bank, interpolate),

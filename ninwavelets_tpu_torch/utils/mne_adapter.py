@@ -4,7 +4,11 @@ continuous recordings.
 
 For epochs the whole (epochs, channels, time) block moves to the wavelet's
 device once; the epoch reductions run through ``ops.fused`` (the CUDA kernel
-on the card, the plain path on the CPU).  The pair connectivity methods
+on the card, the plain path on the CPU), for real banks and for the complex
+banks of the Normal-mode families (MexicanHat, Haar).  The power variants
+(``superlet_power``, ``multitaper_power``, ``induced_power``,
+``evoked_power``, ``single_trial_power(_all)``) ride the same kernels
+through ``mean_power_auto`` and ``power_auto``.  The pair connectivity methods
 (``plv``, ``coherence``, ``phase_lag`` ...) hand one channel pair to the
 ``*_auto`` entry points as (E, N) signals, which run the plain sums, as in
 the JAX package; the all-pairs ``*_matrix`` methods stream the bank rows
@@ -26,10 +30,12 @@ from ..ops import connectivity as _conn
 from ..ops import extensions as _ext
 from ..ops.baseline import baseline_tf
 from ..ops.cwt import cwt_from_bank
-from ..ops.fused import itc_auto, mean_power_auto, power_itc_auto
+from ..ops.fused import itc_auto, mean_power_auto, power_auto, power_itc_auto
+from ..ops.multitaper import multitaper_coherence_matrix, multitaper_mean_power
 from ..ops.signal_utils import pad_to
 from ..ops.reassign import reassigned_mean_power
 from ..ops.sst import ssq_mean_power
+from ..ops.superlets import superlet_mean_power
 from ..parallel.streaming import StreamingCWT
 
 
@@ -172,6 +178,82 @@ class EpochsWavelet:
         bank = self._bank_for(waves, freqs)
         return power_itc_auto(waves, bank,
                               interpolate=self.wavelet.interpolate)
+
+    # -- power variants -------------------------------------------------------
+
+    def superlet_power(self, ch_name: str, freqs: Numbers,
+                       sigma: float = 3.0, order_min: int = 1,
+                       order_max: int = 8,
+                       adaptive: bool = True) -> torch.Tensor:
+        """(F, N) epoch-mean superlet power of one channel
+        (``ops.superlets``), with its own growing-cycle Morlet member banks:
+        the wavelet contributes only ``sfreq`` and ``interpolate``."""
+        waves = self._channel_data(ch_name)
+        return superlet_mean_power(
+            waves[:, None, :], np.asarray(freqs, np.float32),
+            self.wavelet.sfreq, base_sigma=sigma, order_min=order_min,
+            order_max=order_max, adaptive=adaptive,
+            interpolate=self.wavelet.interpolate)[0]
+
+    def multitaper_power(self, ch_name: str, freqs: Numbers,
+                         n_tapers: int = 3, b=None, r=None) -> torch.Tensor:
+        """(F, N) epoch-mean multitaper Morse power of one channel
+        (``ops.multitaper``).  ``b`` / ``r`` default to the wavelet's Morse
+        parameters when it has them (taper 0 then matches ``power``)."""
+        waves = self._channel_data(ch_name)
+        return multitaper_mean_power(
+            waves[:, None, :], np.asarray(freqs, np.float32),
+            self.wavelet.sfreq,
+            b=float(getattr(self.wavelet, "b", 17.5) if b is None else b),
+            r=float(getattr(self.wavelet, "r", 3.0) if r is None else r),
+            n_tapers=n_tapers, interpolate=self.wavelet.interpolate)[0]
+
+    def induced_power(self, ch_name: str, freqs: Numbers,
+                      baseline=None, baseline_method: str = "zscore",
+                      decim: int = 1) -> torch.Tensor:
+        """(F, N) induced power: the evoked (epoch-mean) response is
+        subtracted from every epoch before the epoch-mean power."""
+        waves = self._channel_data(ch_name)
+        waves = waves - waves.mean(0, keepdim=True)
+        bank = self._bank_for(waves, freqs)
+        tf = mean_power_auto(waves[:, None, :], bank,
+                             interpolate=self.wavelet.interpolate)[0]
+        return self._post(tf, self.wavelet.sfreq, baseline,
+                          baseline_method, decim)
+
+    def evoked_power(self, ch_name: str, freqs: Numbers,
+                     baseline=None, baseline_method: str = "zscore",
+                     decim: int = 1) -> torch.Tensor:
+        """(F, N) evoked power: the power of the epoch-mean response."""
+        waves = self._channel_data(ch_name).mean(0)
+        bank = self._bank_for(waves, freqs)
+        tf = mean_power_auto(waves[None, None, :], bank,
+                             interpolate=self.wavelet.interpolate)[0]
+        return self._post(tf, self.wavelet.sfreq, baseline,
+                          baseline_method, decim)
+
+    def single_trial_power(self, ch_name: str, freqs: Numbers,
+                           baseline=None, baseline_method: str = "zscore",
+                           decim: int = 1) -> torch.Tensor:
+        """(E, F, N) per-epoch power planes of one channel
+        (``ops.fused.power_auto``)."""
+        waves = self._channel_data(ch_name)
+        bank = self._bank_for(waves, freqs)
+        tf = power_auto(waves[:, None, :], bank,
+                        interpolate=self.wavelet.interpolate)[:, 0]
+        return self._post(tf, self.wavelet.sfreq, baseline,
+                          baseline_method, decim)
+
+    def single_trial_power_all(self, freqs: Numbers, baseline=None,
+                               baseline_method: str = "zscore",
+                               decim: int = 1) -> torch.Tensor:
+        """(E, C, F, N) per-epoch power planes of every channel
+        (``ops.fused.power_auto``)."""
+        waves = self._all_data()
+        bank = self._bank_for(waves, freqs)
+        tf = power_auto(waves, bank, interpolate=self.wavelet.interpolate)
+        return self._post(tf, self.wavelet.sfreq, baseline,
+                          baseline_method, decim)
 
     # -- synchrosqueezing ---------------------------------------------------
 
@@ -356,6 +438,18 @@ class EpochsWavelet:
                                       interpolate=self.wavelet.interpolate,
                                       eps=eps,
                                       time_range=self._samples(time_range))
+
+    def multitaper_coherence_matrix(self, freqs: Numbers, n_tapers: int = 3,
+                                    time_range=None) -> torch.Tensor:
+        """(F, C, C) all-pairs multitaper coherence
+        (``ops.multitaper.multitaper_coherence_matrix``): the K Morse tapers
+        fold into the epoch axis, so even one epoch gives a usable matrix.
+        ``time_range=(start_s, stop_s)`` windows the sums in seconds."""
+        return multitaper_coherence_matrix(
+            self._all_data(), np.asarray(list(freqs), np.float64),
+            self.wavelet.sfreq, n_tapers=n_tapers,
+            interpolate=self.wavelet.interpolate,
+            time_range=self._samples(time_range))
 
     def _samples(self, time_range):
         """(start_s, stop_s) -> integer sample window, or None."""

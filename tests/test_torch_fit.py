@@ -316,16 +316,20 @@ def test_training_entry_points_default_to_the_card():
 
 def emulated_fused_cwt_bwd(spec, bank, g, k_bins, rows=4):
     """The contract of ``kernels.fused_cwt_bwd`` in plain torch: the
-    per-channel dbank partials and the per-row-group t partials."""
+    per-channel dbank partials and the per-row-group t partials.  For a
+    complex bank: dbank_part = sum_e u conj(S), complex, and t sums
+    conj(bank) u."""
     e, c, _ = spec.shape
     f, n = bank.shape
     s = spec[..., :k_bins]
     x = torch.fft.ifft(torch.nn.functional.pad(s, (0, n - k_bins))[:, :, None]
                        * bank, norm="forward")           # unnormalised iDFT
     u = torch.fft.fft(2.0 / (e * n) * g * x)[..., :k_bins]   # (E, C, F, K)
-    dbank_part = (u * s[:, :, None].conj()).real.sum(0)
+    prod = u * s[:, :, None].conj()
+    dbank_part = prod.sum(0) if bank.is_complex() else prod.real.sum(0)
     groups = -(-f // rows)
-    bu = torch.nn.functional.pad(bank[:, :k_bins] * u,
+    cbank = bank.conj() if bank.is_complex() else bank
+    bu = torch.nn.functional.pad(cbank[:, :k_bins] * u,
                                  (0, 0, 0, groups * rows - f))
     t_part = bu.reshape(e, c, groups, rows, k_bins).sum(3)
     return dbank_part, t_part.permute(2, 0, 1, 3).contiguous()
