@@ -11,7 +11,16 @@ What it does, failing (non-zero exit, no result line) if any check fails:
    banks, ``csrc/fused_ssq.cu``,
    synchrosqueezing, and ``csrc/fused_pair.cu``, the cross-pair sums) for
    sm_90a, one nvcc process a source, all started together, into one
-   library, and prints each kernel's registers and spills.
+   library, and prints each kernel's registers and spills (``ptxas -v``):
+   the epoch reductions (``fused_cwt_kernel<EPI, LOG2N, CX>``) and the
+   cross-pair sums (``fused_pair_kernel<EPI, LOG2N>``) run on the
+   register-resident FFT core of ``csrc/fft_regs.cuh``, one instantiation
+   per N, and none of them may spill at N <= 8192; the rest run on the
+   radix-2 passes of ``csrc/inverse_row.cuh``.  At every N the core's
+   plan and exchange indices as the library computes them
+   (``csrc/core_plan.cu``) must equal the host's model that the CPU tests
+   emulate (``kernels.core_plan``, ``core_r``, ``core_twiddles``,
+   ``core_exchange_positions``, ``core_pad``).
 
 Slice 1, serving:
 
@@ -32,12 +41,22 @@ Slice 1, serving:
    time and its window std is round-off, in both paths alike);
    ITC max|d| <= 2e-3 overall and <= 1e-4 where the power is at least 1e-6
    of its channel's plane maximum (the unit phase of a near-zero
-   coefficient is round-off); NaN masks equal.
+   coefficient is round-off); NaN masks equal.  The full-width ITC planes
+   are also held, as slice 6's complex banks are, against a float64
+   witness of the plain path's math (``itc_witness``): the kernel within
+   the coefficient tolerance carried through the unit phases of the plain
+   path, and each float32 path within it of the float64 ITC, printing
+   which is nearer.
 5. Checks a small known answer through the kernel: phase-locked 60 Hz
-   epochs peak at the 60 Hz row with ITC ~ 1 there.
+   epochs peak at the 60 Hz row with ITC ~ 1 there.  Then holds every
+   reduction against the plain path at every N from 256 to 16384 (the
+   core's plan changes with N) on both ``interpolate`` settings, at E = 1
+   and E = 19 (3 channels x 13 rows), at the gates of 4.
 6. Times each epilogue and its plain version at the headline shape: median
    of 5 repetitions after warm-up, fresh input values each repetition,
-   ``torch.cuda.synchronize()`` before each stop of the clock.
+   ``torch.cuda.synchronize()`` before each stop of the clock; prints
+   each redesigned row's time on a text line beside the radix-2 core's
+   recorded time (``RADIX2_MS``, from PERF.md, not measured here).
 
 Slice 2, training (at the JAX package's grad workload, ``bench.py:306-309``:
 64 epochs x 64 channels x 2048 samples, 100 Morse rows, interpolate=True):
@@ -221,8 +240,8 @@ banks) and the rest of the zoo, on the serving data:
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
-H100 SXM's published fp32 peaks.  The last line is
-``{"ok": true, "device": {...}}``.
+H100 SXM's published fp32 peaks; every other number in it is measured in
+this run.  The last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -263,6 +282,20 @@ PAIR_REPLACES = {"coherence": "ninwavelets_tpu/ops/fused.py:311",
 E_MATRIX = 16
 SIGN_ROUNDOFF, SIGN_CELLS = 1e-5, 1e-4
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
+#: The radix-2 kernels' times of the rows now on the register-resident core
+#: (PERF.md section 6, from this script's runs on an NVIDIA H100 80GB HBM3
+#: at 700 W: the real and K6 rows before slice 6, the cx rows in it; cx at
+#: interpolate=False).  Recorded, not measured here: printed on a text line
+#: beside this run's time, never in the kernels' JSON record.
+RADIX2_MS = {"fused_cwt[power]": 56.0220340000015,
+             "fused_cwt[itc]": 56.072407000002045,
+             "fused_cwt[power_itc]": 56.29238400000247,
+             "fused_cwt_cx[power]": 57.067306000021745,
+             "fused_cwt_cx[itc]": 57.414926999996396,
+             "fused_cwt_cx[power_itc]": 57.43015999999557,
+             "fused_pair[coherence]": 116.39304599999889,
+             "fused_pair[phaselag]": 115.99573400000907,
+             "fused_pair[plv]": 113.98615299999904}
 
 
 class SmokeFailure(Exception):
@@ -348,20 +381,30 @@ def bound(flops, nbytes):
 
 
 def print_ptxas(lib):
-    """Registers, shared memory and spills per kernel from ``ptxas -v``."""
-    name = "?"
+    """Registers, shared memory and spills per kernel from ``ptxas -v``;
+    returns the instantiations on the register-resident core
+    (``fused_cwt_kernel<EPI,LOG2N,CX>``, ``fused_pair_kernel<EPI,LOG2N>``)
+    at N <= 8192 that spill."""
+    name, args, spilling = "?", [], []
     with open(lib[:-3] + ".log") as fh:
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(fused_(?:cwt|cwt_bwd|cwt_each|ssq|pair)"
-                              r"_kernel)I(.*?)EEv", m.group(1))
-                name = (f"{k.group(1)}<"
-                        + ",".join(re.findall(r"L[ib](\d+)E",
-                                              k.group(2) + "E"))
-                        + ">") if k else m.group(1)
+                k = re.search(r"(fused_(?:cwt|cwt_bwd|cwt_each|amax|ssq|"
+                              r"pair)_kernel)I(.*?)EEv", m.group(1))
+                args = (re.findall(r"L[ib](\d+)E", k.group(2) + "E")
+                        if k else [])
+                name = (f"{k.group(1)}<" + ",".join(args) + ">" if k
+                        else m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+                stores = re.search(r"(\d+) bytes spill stores", line)
+                if (stores and int(stores.group(1))
+                        and name.startswith(("fused_cwt_kernel<",
+                                             "fused_pair_kernel<"))
+                        and int(args[1]) <= 13):
+                    spilling.append(name)
+    return spilling
 
 
 def event_ms(fn):
@@ -440,6 +483,72 @@ def fused_grads(fn, x, bank, w, interpolate):
     bs = bank.detach().requires_grad_(True)
     loss = (w * fn(xs, bs, interpolate)).sum()
     return torch.autograd.grad(loss, (xs, bs))
+
+
+def core_sweep():
+    """Real-bank K1/K2 against the plain path at every N from 256 to 16384
+    (the register-resident core's plan changes with N), both
+    ``interpolate`` settings, E = 1 and E = E_RAGGED, 3 channels x
+    F_RAGGED rows: power max|d| / max|ref| <= 1e-5, ITC at slice 1's
+    gates."""
+    import torch
+    from ninwavelets_tpu_torch.ops import cwt, fused
+    freqs = np.arange(1.0, F_RAGGED + 1.0)
+    gen = np.random.default_rng(12)
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        for interp in (True, False):
+            bank = morse_bank(freqs, n, interp)
+            for e in (1, E_RAGGED):
+                xs = torch.from_numpy(gen.standard_normal(
+                    (e, 3, n), dtype=np.float32)).cuda()
+                tag = f"N={n} interpolate={interp} ({e}, 3) x {F_RAGGED}"
+                rp = cwt.mean_power_from_bank(xs, bank, interp)
+                ri = cwt.itc_from_bank(xs, bank, interp)
+                rel_err(f"K1 power {tag}",
+                        fused.fused_mean_power_from_bank(xs, bank, interp), rp)
+                itc_err(f"K2 itc {tag}",
+                        fused.fused_itc_from_bank(xs, bank, interp), ri, rp)
+                gp, gi = fused.fused_power_itc_from_bank(xs, bank, interp)
+                rel_err(f"K2 power_itc power {tag}", gp, rp)
+                itc_err(f"K2 power_itc itc {tag}", gi, ri, rp)
+
+
+def print_radix2_ms(record):
+    """Print the time this run measured for ``record``'s row beside the
+    radix-2 kernel's recorded time of the same row (``RADIX2_MS``)."""
+    before = RADIX2_MS[record["name"]]
+    print(f"time {record['name']}: {record['ms']} ms on the register-resident"
+          f" core (this run); {before} ms on the radix-2 core (recorded, "
+          f"PERF.md section 6, not measured here); ratio "
+          f"{record['ms'] / before}")
+
+
+def core_layout_check():
+    """The host's model of the register-resident core (``kernels.core_*``,
+    which ``tests/test_torch_fft_plan.py`` emulates) against the plan and
+    exchange indices the built library computes with the kernels' own
+    functions (``kernels.built_core_layout``), at every N."""
+    from ninwavelets_tpu_torch import kernels
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        got = kernels.built_core_layout(n)
+        r = kernels.core_r(n)
+        t_count = n // r
+        plan = kernels.core_plan(n)
+        same = (got["r"] == r and got["threads"] == t_count
+                and got["plan"] == plan
+                and got["twiddles"] == len(kernels.core_twiddles(n))
+                and got["buf_len"] > kernels.core_pad(n - 1))
+        reads = kernels.core_pad(kernels.core_output_map(n))
+        for s in range(len(plan) - 1):
+            same = (same and np.array_equal(
+                got["writes"][s], kernels.core_exchange_positions(n, s))
+                and np.array_equal(got["reads"][s], reads))
+        print(f"check core layout N={n}: library R={got['r']} T="
+              f"{got['threads']} plan {got['plan']} buffer {got['buf_len']} "
+              f"table {got['twiddles']}; equals the host's model: {same}")
+        check(same, f"the core's layout at N={n} differs from kernels.core_*")
 
 
 def training_phase():
@@ -1436,13 +1545,13 @@ def pair_phase(data):
             E * C * (fft + 2 * F * fft),
             4 * (2 * E * C * N + F * N
                  + kernels.PAIR_PLANES[epilogue] * C * F * N))
-        records.append({"name": f"fused_pair[{epilogue}]", "route": "cuda",
-                        "source": PAIR_SOURCE,
-                        "replaces": PAIR_REPLACES[epilogue],
-                        "launches": main_counts[epilogue],
-                        "max_abs_err": errs[epilogue], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+        records.append({
+            "name": f"fused_pair[{epilogue}]", "route": "cuda",
+            "source": PAIR_SOURCE, "replaces": PAIR_REPLACES[epilogue],
+            "launches": main_counts[epilogue],
+            "max_abs_err": errs[epilogue], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        print_radix2_ms(records[-1])
     del spec_a, spec_b, x, a, b
     torch.cuda.empty_cache()
     return records
@@ -1498,13 +1607,26 @@ def cx_itc_err(name, got, ref, witness, interpolate, ref_power):
     round-off, in either float32 path: there slice 1's gates cannot hold,
     and are printed, not gated; the float64 witness shows which path is
     off and by how much."""
-    import torch
-    itc64, sound, carried = witness
     if interpolate:
         itc_err(name, got, ref, ref_power)
     else:
         strong_err(f"{name} (printed, not gated: power rule)", got, ref,
                    above(ref_power), float("inf"))
+    witness_err(name, got, ref, witness, ref_power)
+    return strong_err(name, got, ref, witness[1], ITC_ATOL_STRONG,
+                      where="every epoch's |c| >= 1e-2 of its row max")
+
+
+def witness_err(name, got, ref, witness, ref_power):
+    """An ITC plane against the plain path and both against the float64
+    ITC, with ``witness = itc_witness(...)`` of the same signals and bank:
+    on every cell the kernel within the tolerance carried through the unit
+    phases of the plain path, and the kernel and the plain float32 path
+    each within it of the float64 ITC.  Prints each path's max|d| from the
+    float64 ITC overall and where the power is at least STRONG_POWER of its
+    plane max: which float32 path is nearer the true value."""
+    import torch
+    itc64, _, carried = witness
     d = torch.where(ref.isnan() | got.isnan(), torch.zeros_like(ref),
                     (got - ref).abs())
     ratio = torch.where(d > 0, d / carried, torch.zeros_like(carried))
@@ -1528,8 +1650,6 @@ def cx_itc_err(name, got, ref, witness, interpolate, ref_power):
               f"tolerance {r64} (gate 1); NaN cells {int(bad.sum())}")
         check(r64 <= 1.0, f"{name}: {path} ITC outside the carried "
               f"tolerance of the float64 ITC ({r64})")
-    return strong_err(name, got, ref, sound, ITC_ATOL_STRONG,
-                      where="every epoch's |c| >= 1e-2 of its row max")
 
 
 def cx_bank(family, freqs, n, interpolate):
@@ -1714,15 +1834,15 @@ def complex_bank_phase(data):
     for epilogue in ("power", "itc", "power_itc"):
         ms, plain_ms, bound_ms, bound_by = times[epilogue, False]
         ms_a, plain_a, bound_a, _ = times[epilogue, True]
-        records.append({"name": f"fused_cwt_cx[{epilogue}]", "route": "cuda",
-                        "source": KERNEL_SOURCE, "replaces": CX_REPLACES,
-                        "launches": counts[f"{epilogue}_cx"],
-                        "max_abs_err": err[epilogue], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None,
-                        "interpolate": False, "ms_analytic": ms_a,
-                        "plain_ms_analytic": plain_a,
-                        "bound_ms_analytic": bound_a})
+        records.append({
+            "name": f"fused_cwt_cx[{epilogue}]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": CX_REPLACES,
+            "launches": counts[f"{epilogue}_cx"],
+            "max_abs_err": err[epilogue], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "interpolate": False, "ms_analytic": ms_a,
+            "plain_ms_analytic": plain_a, "bound_ms_analytic": bound_a})
+        print_radix2_ms(records[-1])
     del x, bank, bank_a
     torch.cuda.empty_cache()
     records.append(complex_training())
@@ -2013,7 +2133,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernels.build()
     print(f"kernel build {time.perf_counter() - t0} s: {lib}")
-    print_ptxas(lib)
+    spilling = print_ptxas(lib)
+    check(not spilling, f"core kernels spill at N <= 8192: {spilling}")
+    core_layout_check()
 
     data = np.random.default_rng(0).standard_normal((E, C, N),
                                                     dtype=np.float32)
@@ -2054,7 +2176,10 @@ def main() -> int:
     err["power_itc"] = max(
         rel_err("power_itc_all power", pi_power, ref_power),
         itc_err("power_itc_all itc", pi_itc, ref_itc, ref_power))
-    del ref_itc
+    wit = itc_witness(x, bank, True)
+    witness_err("itc_all", itc, ref_itc, wit, ref_power)
+    witness_err("power_itc_all itc", pi_itc, ref_itc, wit, ref_power)
+    del ref_itc, wit
     xf, bank_f = ew_full._all_data(), morse_full.fft_wavelets
     err["power"] = max(err["power"], rel_err(
         "power_all interpolate=False", power_full,
@@ -2079,6 +2204,7 @@ def main() -> int:
     print(f"check 60 Hz tone: power peak at {peak} Hz, min ITC at 60 Hz {itc60}")
     check(peak == 60, f"60 Hz tone peaks at {peak} Hz")
     check(itc60 > 0.99, f"60 Hz tone ITC {itc60} <= 0.99")
+    core_sweep()
 
     # -- timing: kernel vs plain at the headline shape ----------------------
     x = x.clone()
@@ -2100,12 +2226,13 @@ def main() -> int:
         bound_ms, bound_by = bound(
             E * C * (fft_flops(N) / 2 + F * fft_flops(N)),
             4 * (E * C * N + F * N + n_out * C * F * N))
-        records.append({"name": f"fused_cwt[{epilogue}]", "route": "cuda",
-                        "source": KERNEL_SOURCE, "replaces": REPLACES,
-                        "launches": counts[epilogue],
-                        "max_abs_err": err[epilogue], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+        records.append({
+            "name": f"fused_cwt[{epilogue}]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": counts[epilogue], "max_abs_err": err[epilogue],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+        print_radix2_ms(records[-1])
     del x, pairs, power_bl, itc, pi_power, pi_itc, ref_power
     torch.cuda.empty_cache()
 

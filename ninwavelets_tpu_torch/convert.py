@@ -19,15 +19,19 @@ from .models import zoo
 from .ops.bank import WaveletMode
 
 _CLASSES = {cls.__name__: cls for cls in
-            (zoo.Morse, zoo.Morlet, zoo.MexicanHat, zoo.Shannon, zoo.Haar)}
-_PARAMS = ("b", "r", "sigma", "gabor")
+            (zoo.Morse, zoo.Morlet, zoo.MexicanHat, zoo.Shannon, zoo.Haar,
+             zoo.Paul, zoo.DOG, zoo.Bump)}
+# The shape parameters a class takes: Morse's b and r, Morlet's sigma and
+# gabor, MexicanHat's, Shannon's and Bump's sigma, Paul's and DOG's order m.
+_PARAMS = ("b", "r", "sigma", "gabor", "m")
 
 
 def wavelet_from_jax(w, device=None):
     """The port's wavelet of the same class as ``w`` (a JAX-package wavelet),
-    with the same ``sfreq``, ``b``, ``r``, ``sigma``, ``gabor``,
+    with the same ``sfreq``, ``b``, ``r``, ``sigma``, ``gabor``, ``m``,
     ``real_wave_length``, ``interpolate`` and ``mode``, on ``device`` (the
-    card when None)."""
+    card when None).  Superlets and multitaper Morse, families of banks,
+    have no single-wavelet counterpart here and raise ``TypeError``."""
     name = type(w).__name__
     if name not in _CLASSES:
         raise TypeError(f"no port of wavelet class {name!r}; one of "

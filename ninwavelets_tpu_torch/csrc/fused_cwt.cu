@@ -3,12 +3,12 @@
 // or, per signal with no reduction, -> |.|^2.
 //
 // Replaces the Pallas TPU kernel ninwavelets_tpu/ops/fused.py:_kernel with
-// its "power", "itc", "power_itc" and "amax" epilogues (fused_cwt_kernel)
-// and its "power_each" epilogue (fused_cwt_each_kernel), for a real (F, N)
-// bank; and its complex-bank stage 0 (complex_bank=True) for the "power",
-// "itc" and "power_itc" epilogues (fused_cwt_kernel<..., CX = true>), the
-// only ones the reference sends a complex (Normal/Twice-mode: MexicanHat,
-// Haar) bank to.
+// its "power", "itc" and "power_itc" epilogues (fused_cwt_kernel), its
+// "amax" epilogue (fused_amax_kernel) and its "power_each" epilogue
+// (fused_cwt_each_kernel), for a real (F, N) bank; and its complex-bank
+// stage 0 (complex_bank=True) for the "power", "itc" and "power_itc"
+// epilogues (fused_cwt_kernel<..., CX = true>), the only ones the reference
+// sends a complex (Normal/Twice-mode: MexicanHat, Haar) bank to.
 //
 // What it computes, for every signal (e, c), bank row f and sample n:
 //     x_e[n]  = sum_{k < K} bank[f, k] * spec[e, c, k] * exp(+2 pi i k n / N)
@@ -16,38 +16,56 @@
 //     itc     = (1 / E) * | sum_e x_e[n] / |x_e[n]| |      (mean unit phase)
 //     each    = (1 / N^2) * |x_e[n]|^2, for every (e, c)  (|cwt|^2 per signal)
 //     amax    = max_n (1 / N^2) |x_e[n]|^2, out[c, f, e]   (per-row peak)
-// "amax" gives the synchrosqueezing noise gate (fused_ssq.cu) each epoch's
-// peak power: torch finishes the max over f.  It folds the 1/N into the
-// bank before the transform, as fused_ssq.cu does, so both kernels compute
-// the same |x|^2 through the same code (inverse_row.cuh); a block's
-// per-epoch max is a warp-shuffle reduction, then one over the warps in
-// shared memory, written by one thread: deterministic, no atomics.
 // K = N/2 on the analytic (interpolate=True) path: the upper bins are zero.
 // K = N otherwise.  The signal FFT runs outside the kernel (as it does for
 // the TPU kernel); this kernel starts at the bank x spectrum product.
 //
-// What bounds the reductions on this card: each (c, f) block runs E
-// in-place radix-2 inverse FFTs in shared memory, log2(N) passes of N/2
-// butterflies each, with a barrier between passes, so the shared-memory FFT
-// passes bound it.  The spectra are read F times (once per bank row), which
-// is the second bound: at 64 channels x 200 epochs x 2048 samples they are
-// 105 MB, more than the 50 MB L2.
-//
-// What the design does about that:
-//  * blockIdx.x walks the bank rows f and blockIdx.y the channels c, so the
-//    blocks in flight share one channel's spectra and the F-fold re-read is
-//    served from L2; device memory sees the spectra about once.
-//  * The bank row is loaded once per block into registers and reused for
-//    every epoch; the twiddle table (computed on the host in float64, stored
-//    as float32) is staged once per block in shared memory.
-//  * Each thread owns fixed sample positions and accumulates the epoch
-//    reduction in registers, so the (C, F, N) output is written exactly
-//    once, in its natural layout, with the 1/N and 1/E scales applied at the
-//    write.  No coefficient ever reaches device memory.
+// The epoch reductions (fused_cwt_kernel) run on the register-resident FFT
+// core of fft_regs.cuh.  What bounds them on this card is the transform:
+// E inverse FFTs per (c, f) block, 1.28 M of 2048 points at the serving
+// shape (200 epochs x 64 channels x 100 rows), about 2.2 ms of fp32
+// arithmetic at the card's peak against 0.04 GB of compulsory traffic.
+// The radix-2 passes that carried them before moved every sample through
+// shared memory 11 times per transform, with a barrier each.  The design:
+//  * One block of T = N/16 threads (N/32 at N = 8192) per (bank row f,
+//    channel c); blockIdx.x walks f, so the blocks in flight share one
+//    channel's spectra in L2 and device memory sees them about once (the
+//    F-fold re-read of 105 MB at the serving shape would not fit the 50 MB
+//    L2 otherwise).
+//  * Stage 0 goes straight into registers: thread t loads bins t + T i
+//    (coalesced), multiplies by the bank and transforms in registers;
+//    shared memory sees each sample twice per exchange, in passes - 1
+//    exchanges (2 at N = 2048).
+//  * Up to N = 4096 each epoch's spectrum bins are loaded into registers
+//    while the epoch before is transformed, so the loads wait on no
+//    transform.
+//  * The core leaves sample t + T i in slot i, the layout of the loads, so
+//    each thread owns fixed samples in every epoch, the epilogue folds each
+//    epoch into its epoch sums, and the (C, F, N) planes are written once,
+//    coalesced, with the 1/N^2 and 1/E scales applied at the write.  No
+//    coefficient ever reaches device memory.
 //  * All E epochs run inside the block, so a ragged epoch count needs no
 //    chunking and no epoch is ever padded in.
+//  * __launch_bounds__(T) lets each thread keep its epoch sums in
+//    registers up to N = 4096; at N = 8192 they sit in shared memory at
+//    the thread's own samples (fft_regs.cuh, kAccSmem).  ptxas -v in the
+//    build log reports any spill.
 // Everything runs in float32.  The unit phase is x * rsqrtf(|x|^2) with no
 // guard: |x| = 0 yields NaN, as the reference's 0/0 does.
+//
+// A complex bank (CX) arrives as contiguous complex64 (F, N), read as
+// float2 through the read-only cache in each epoch's stage 0 (8 N bytes a
+// row, 16 KB at N = 2048: L1-resident across the epochs); the real bank
+// row sits in registers.  Stage 0 is then the complex product s * b, and
+// everything after it is the real kernel's.
+//
+// "amax" gives the synchrosqueezing noise gate (fused_ssq.cu) each epoch's
+// peak power: torch finishes the max over f.  It stays on the radix-2 core
+// of inverse_row.cuh, which fused_ssq.cu shares, so that both compute p
+// through the same code bit for bit.  It folds the inverse DFT's 1/N into
+// the bank before the transform, as fused_ssq.cu does; a block's per-epoch
+// max is a warp-shuffle reduction, then one over the warps in shared
+// memory, written by one thread: deterministic, no atomics.
 //
 // "power_each" (the long-recording paths: one signal is one window of one
 // channel) has no reduction, so every (signal, row) pair is independent and
@@ -56,23 +74,13 @@
 // e * C + c rides blockIdx.y and blockIdx.z, so no grid axis passes its
 // 65535 limit.  Its output, E*C*F*N floats written once, is its compulsory
 // traffic (3.4 GB at 512 windows x channels of 16384 samples, 100 rows);
-// its radix-2 passes through shared memory are what bound it in practice,
-// as for the reductions.  Offsets into the spectra and the output are
-// size_t: E*C*F*N passes 2^31 at large batches.
-//
-// A complex bank (CX) arrives as contiguous complex64 (F, N), read as
-// float2; stage 0 is the complex product s * b (inverse_row.cuh), and
-// everything after it, scales and output included, is the real kernel's.
-// The real kernel keeps its bank row in registers (PER floats); a complex
-// row would be 2 PER, and under the 64-register cap that
-// __launch_bounds__(1024) sets, on top of "power_itc"'s 3 PER accumulators,
-// it would spill.  So the CX instantiations read the row through the
-// read-only cache in each epoch's stage 0 instead (8 N bytes a row, 16 KB
-// at N = 2048: L1-resident across the epochs), next to the spectrum load
-// stage 0 makes anyway.  The real instantiations compile as before.
+// its radix-2 passes through shared memory (inverse_row.cuh) are what bound
+// it in practice.  Offsets into the spectra and the output are size_t:
+// E*C*F*N passes 2^31 at large batches.
 
 #include <cuda_runtime.h>
 
+#include "fft_regs.cuh"
 #include "inverse_row.cuh"
 
 namespace {
@@ -80,8 +88,98 @@ namespace {
 enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kPowerEach = 3, kAmax = 4 };
 
 constexpr int kMinLog2N = 8;    // N = 256
-constexpr int kMaxLog2N = 14;   // N = 16384: 12 N bytes = 192 KB of shared memory
+constexpr int kMaxLog2N = 14;   // N = 16384
 constexpr int kMaxWarps = 32;   // 1024 threads
+
+// The epoch reductions on the register-resident core.  EPI is one of
+// kPower, kItc, kPowerItc.
+template <int EPI, int LOG2N, bool CX>
+__global__ void __launch_bounds__(fft_regs::Plan<LOG2N>::kThreads)
+fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
+                 const float* __restrict__ bank,      // (F, N); CX: (F, N) float2
+                 const float2* __restrict__ twiddle,  // core table (fft_regs.cuh)
+                 float* __restrict__ out0,            // (C, F, N)
+                 float* __restrict__ out1,            // (C, F, N), power_itc only
+                 int n_epochs, int n_channels, int n_freqs, int k_bins,
+                 int row_len, float power_scale, float itc_scale) {
+  using PL = fft_regs::Plan<LOG2N>;
+  constexpr int kR = PL::kR;
+  constexpr int T = PL::kThreads;
+  constexpr int N = PL::kN;
+  // The epoch sums a sample: |x|^2 (power), Re and Im of x / |x| (itc).
+  constexpr int kSums = EPI == kPowerItc ? 3 : EPI == kItc ? 2 : 1;
+  constexpr int kP = 0, kRe = EPI == kItc ? 0 : 1, kIm = kRe + 1;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;   // the exchange buffer(s)
+
+  const int f = blockIdx.x;
+  const int c = blockIdx.y;
+  const int tid = threadIdx.x;
+  const float2* tw = fft_regs::stage_twiddles<LOG2N, kSums>(smem, twiddle, tid);
+
+  float bank_reg[kR];
+  const float* bank_row = bank + static_cast<size_t>(f) * N;
+  // CX: row f of the float2 bank, read in every epoch's stage 0.
+  const float2* cbank_row = reinterpret_cast<const float2*>(bank) +
+                            static_cast<size_t>(f) * N;
+  if constexpr (!CX) {
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int k = tid + i * T;
+      bank_reg[i] = k < k_bins ? bank_row[k] : 0.f;
+    }
+  }
+
+  fft_regs::EpochSums<LOG2N, kSums> acc(smem, tid);
+
+  const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
+  const float2* sp = spec + static_cast<size_t>(c) * row_len;
+  float2 bins[kR];   // kAhead: epoch e + 1's bins, loaded during epoch e
+  if constexpr (PL::kAhead) fft_regs::load_bins<LOG2N>(bins, sp, k_bins, tid);
+  for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
+    if constexpr (!PL::kAhead) fft_regs::load_bins<LOG2N>(bins, sp, k_bins, tid);
+    float2 x[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int k = tid + i * T;
+      if constexpr (CX) {
+        x[i] = k < k_bins ? fft_regs::bank_times_rn(bins[i], __ldg(cbank_row + k))
+                          : make_float2(0.f, 0.f);
+      } else {
+        x[i] = fft_regs::bank_times_rn(bins[i], bank_reg[i]);
+      }
+    }
+    if constexpr (PL::kAhead) {
+      if (e + 1 < n_epochs) {
+        fft_regs::load_bins<LOG2N>(bins, sp + epoch_stride, k_bins, tid);
+      }
+    }
+    fft_regs::inverse_fft<LOG2N>(x, buf, tw, tid);
+
+    // Epilogue: fold this epoch into the accumulators.
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const float p = x[i].x * x[i].x + x[i].y * x[i].y;
+      if (EPI != kItc) acc(kP, i) += p;
+      if (EPI != kPower) {
+        const float inv = rsqrtf(p);
+        acc(kRe, i) += x[i].x * inv;
+        acc(kIm, i) += x[i].y * inv;
+      }
+    }
+  }
+
+  const size_t base = (static_cast<size_t>(c) * n_freqs + f) * N;
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int idx = tid + i * T;
+    if (EPI != kItc) out0[base + idx] = acc(kP, i) * power_scale;
+    if (EPI != kPower) {
+      const float re = acc(kRe, i), im = acc(kIm, i);
+      (EPI == kItc ? out0 : out1)[base + idx] = sqrtf(re * re + im * im) * itc_scale;
+    }
+  }
+}
 
 // The max of v over the block, in thread 0 (v >= 0 everywhere).  `red`
 // holds one float a warp; the caller's next barrier orders its reuse.
@@ -97,21 +195,22 @@ __device__ __forceinline__ float block_max(float v, float* red, int tid,
   return v;
 }
 
-template <int EPI, int PER, bool CX>
+// "amax": the per-(channel, row, epoch) peak of |x|^2 / N^2, on the
+// radix-2 core that fused_ssq.cu shares.
+template <int PER>
 __global__ void __launch_bounds__(1024)
-fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
-                 const float* __restrict__ bank,      // (F, N); CX: (F, N) float2
-                 const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
-                 float* __restrict__ out0,            // (C, F, N); amax: (C, F, E)
-                 float* __restrict__ out1,            // (C, F, N), power_itc only
-                 int n_epochs, int n_channels, int n_freqs, int log2n,
-                 int k_bins, int row_len, float power_scale, float itc_scale) {
+fused_amax_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
+                  const float* __restrict__ bank,      // (F, N)
+                  const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
+                  float* __restrict__ out,             // (C, F, E)
+                  int n_epochs, int n_channels, int n_freqs, int log2n,
+                  int k_bins, int row_len) {
   extern __shared__ float2 smem[];
   const int n = 1 << log2n;
   const int half_n = n >> 1;
   float2* buf = smem;        // n complex samples
   float2* tw = smem + n;     // n/2 twiddles
-  float* red = reinterpret_cast<float*>(tw + half_n);   // amax: one float a warp
+  float* red = reinterpret_cast<float*>(tw + half_n);   // one float a warp
 
   const int f = blockIdx.x;
   const int c = blockIdx.y;
@@ -120,79 +219,35 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
 
   for (int m = tid; m < half_n; m += threads) tw[m] = twiddle[m];
 
-  // "amax" folds the inverse DFT's 1/N into the bank (exact: N = 2^log2n).
-  const float bank_scale = EPI == kAmax ? 1.f / static_cast<float>(n) : 1.f;
+  // The inverse DFT's 1/N folds into the bank (exact: N = 2^log2n).
+  const float bank_scale = 1.f / static_cast<float>(n);
   float bank_reg[PER];
   const float* bank_row = bank + static_cast<size_t>(f) * n;
-  // CX: row f of the float2 bank, read in every epoch's stage 0.
-  const float2* cbank_row = reinterpret_cast<const float2*>(bank) +
-                            static_cast<size_t>(f) * n;
-  if constexpr (!CX) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int k = tid + i * threads;
-      bank_reg[i] = k < k_bins ? bank_row[k] * bank_scale : 0.f;
-    }
+  for (int i = 0; i < PER; ++i) {
+    const int k = tid + i * threads;
+    bank_reg[i] = k < k_bins ? bank_row[k] * bank_scale : 0.f;
   }
-
-  float acc_p[PER], acc_r[PER], acc_i[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc_p[i] = acc_r[i] = acc_i[i] = 0.f;
 
   const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
   const float2* sp = spec + static_cast<size_t>(c) * row_len;
 
   for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
     inverse_row<PER>(
-        buf, tw,
-        [&](int i, int k) {
-          if constexpr (CX) {
-            return bank_times(sp[k], __ldg(cbank_row + k));
-          } else {
-            return bank_times(sp[k], bank_reg[i]);
-          }
-        },
+        buf, tw, [&](int i, int k) { return bank_times(sp[k], bank_reg[i]); },
         k_bins, log2n, tid, threads);
-
-    // Epilogue: fold this epoch into the register accumulators.
     float peak = 0.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const float2 x = buf[tid + i * threads];
       const float p = x.x * x.x + x.y * x.y;
-      if (EPI == kAmax) {
-        peak = fmaxf(peak, p);
-      } else {
-        if (EPI != kItc) acc_p[i] += p;
-        if (EPI != kPower) {
-          const float inv = rsqrtf(p);
-          acc_r[i] += x.x * inv;
-          acc_i[i] += x.y * inv;
-        }
-      }
+      peak = fmaxf(peak, p);
     }
-    if (EPI == kAmax) {
-      peak = block_max(peak, red, tid, threads);
-      if (tid == 0) {
-        out0[(static_cast<size_t>(c) * n_freqs + f) * n_epochs + e] = peak;
-      }
+    peak = block_max(peak, red, tid, threads);
+    if (tid == 0) {
+      out[(static_cast<size_t>(c) * n_freqs + f) * n_epochs + e] = peak;
     }
     __syncthreads();   // the next epoch's stage 0 overwrites buf (and red)
-  }
-  if (EPI == kAmax) return;
-
-  const size_t base = (static_cast<size_t>(c) * n_freqs + f) * n;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = tid + i * threads;
-    if (EPI == kPower) {
-      out0[base + idx] = acc_p[i] * power_scale;
-    } else if (EPI == kItc) {
-      out0[base + idx] = sqrtf(acc_r[i] * acc_r[i] + acc_i[i] * acc_i[i]) * itc_scale;
-    } else {
-      out0[base + idx] = acc_p[i] * power_scale;
-      out1[base + idx] = sqrtf(acc_r[i] * acc_r[i] + acc_i[i] * acc_i[i]) * itc_scale;
-    }
   }
 }
 
@@ -257,8 +312,9 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int EPI, int PER, bool CX>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+// "amax" and "power_each" on the radix-2 core.
+template <int EPI, int PER>
+cudaError_t launch_radix2(const Args& a, cudaStream_t stream) {
   const int n = 1 << a.log2n;
   const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2 +
                       (EPI == kAmax ? kMaxWarps * sizeof(float) : 0);
@@ -272,24 +328,61 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     kernel<<<grid, n / PER, smem, stream>>>(
         a.spec, a.bank, a.twiddle, a.out0, n_signals, a.n_freqs, a.log2n,
         a.k_bins, a.row_len, a.power_scale);
-    return cudaGetLastError();
   } else {
-    auto kernel = fused_cwt_kernel<EPI, PER, CX>;
+    auto kernel = fused_amax_kernel<PER>;
     const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(a.n_freqs, a.n_channels);
     kernel<<<grid, n / PER, smem, stream>>>(
-        a.spec, a.bank, a.twiddle, a.out0, a.out1, a.n_epochs, a.n_channels,
-        a.n_freqs, a.log2n, a.k_bins, a.row_len, a.power_scale, a.itc_scale);
-    return cudaGetLastError();
+        a.spec, a.bank, a.twiddle, a.out0, a.n_epochs, a.n_channels,
+        a.n_freqs, a.log2n, a.k_bins, a.row_len);
+  }
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t launch_radix2_per(const Args& a, cudaStream_t stream) {
+  // 8 samples a thread up to N = 8192 (1024 threads); N = 16384 takes 16.
+  return a.log2n <= 13 ? launch_radix2<EPI, 8>(a, stream)
+                       : launch_radix2<EPI, 16>(a, stream);
+}
+
+// The epoch reductions on the register-resident core.
+template <int EPI, int LOG2N, bool CX>
+cudaError_t launch_reduce(const Args& a, cudaStream_t stream) {
+  using PL = fft_regs::Plan<LOG2N>;
+  constexpr size_t smem =
+      fft_regs::SmemLayout<LOG2N, EPI == kPowerItc ? 3 : EPI == kItc ? 2 : 1>::kBytes;
+  auto kernel = fused_cwt_kernel<EPI, LOG2N, CX>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_freqs, a.n_channels);
+  kernel<<<grid, PL::kThreads, smem, stream>>>(
+      a.spec, a.bank, a.twiddle, a.out0, a.out1, a.n_epochs, a.n_channels,
+      a.n_freqs, a.k_bins, a.row_len, a.power_scale, a.itc_scale);
+  return cudaGetLastError();
+}
+
+template <int EPI, bool CX>
+cudaError_t launch_reduce_n(const Args& a, cudaStream_t s) {
+  switch (a.log2n) {
+    case 8: return launch_reduce<EPI, 8, CX>(a, s);
+    case 9: return launch_reduce<EPI, 9, CX>(a, s);
+    case 10: return launch_reduce<EPI, 10, CX>(a, s);
+    case 11: return launch_reduce<EPI, 11, CX>(a, s);
+    case 12: return launch_reduce<EPI, 12, CX>(a, s);
+    case 13: return launch_reduce<EPI, 13, CX>(a, s);
+    default: return launch_reduce<EPI, 14, CX>(a, s);
   }
 }
 
-template <int EPI, bool CX = false>
-cudaError_t launch_per(const Args& a, cudaStream_t stream) {
-  // 8 samples a thread up to N = 8192 (1024 threads); N = 16384 takes 16.
-  return a.log2n <= 13 ? launch<EPI, 8, CX>(a, stream)
-                       : launch<EPI, 16, CX>(a, stream);
+template <bool CX>
+cudaError_t launch_reduce_epi(int epilogue, const Args& a, cudaStream_t s) {
+  switch (epilogue) {
+    case kPower: return launch_reduce_n<kPower, CX>(a, s);
+    case kItc: return launch_reduce_n<kItc, CX>(a, s);
+    default: return launch_reduce_n<kPowerItc, CX>(a, s);
+  }
 }
 
 }  // namespace
@@ -300,7 +393,9 @@ cudaError_t launch_per(const Args& a, cudaStream_t stream) {
 // launching.  The reductions put C on a grid axis (C <= 65535);
 // "power_each" flattens E * C onto two (E * C < 2^31).  complex_bank != 0
 // reads `bank` as complex64 (F, N), for "power", "itc" and "power_itc"
-// only.
+// only.  `twiddle` is the core's table (kernels/__init__.py: core_twiddles)
+// for "power", "itc" and "power_itc", and the N/2 radix-2 twiddles
+// exp(+2 pi i m / N) for "power_each" and "amax".
 extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
                               const void* twiddle, void* out0, void* out1,
                               int n_epochs, int n_channels, int n_freqs, int n,
@@ -335,18 +430,11 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n * power_epochs));
   a.itc_scale = static_cast<float>(1.0 / n_epochs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (complex_bank) {
-    switch (epilogue) {
-      case kPower: return static_cast<int>(launch_per<kPower, true>(a, s));
-      case kItc: return static_cast<int>(launch_per<kItc, true>(a, s));
-      default: return static_cast<int>(launch_per<kPowerItc, true>(a, s));
-    }
-  }
   switch (epilogue) {
-    case kPower: return static_cast<int>(launch_per<kPower>(a, s));
-    case kItc: return static_cast<int>(launch_per<kItc>(a, s));
-    case kPowerItc: return static_cast<int>(launch_per<kPowerItc>(a, s));
-    case kAmax: return static_cast<int>(launch_per<kAmax>(a, s));
-    default: return static_cast<int>(launch_per<kPowerEach>(a, s));
+    case kPowerEach: return static_cast<int>(launch_radix2_per<kPowerEach>(a, s));
+    case kAmax: return static_cast<int>(launch_radix2_per<kAmax>(a, s));
+    default:
+      return static_cast<int>(complex_bank ? launch_reduce_epi<true>(epilogue, a, s)
+                                           : launch_reduce_epi<false>(epilogue, a, s));
   }
 }

@@ -14,6 +14,17 @@ source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
 published with an atomic rename so concurrent builds race safely.  A failed
 build raises; there is no fallback.
 
+The epoch reductions ("power", "itc", "power_itc", real and complex bank)
+and the cross-pair sums run on the register-resident FFT core of
+``csrc/fft_regs.cuh``; "amax", "power_each", the backward and the
+synchrosqueezing kernel keep the radix-2 passes of ``csrc/inverse_row.cuh``.
+The core's plan, its twiddle table and where each thread's samples go are
+described here too (``core_plan``, ``core_twiddles``,
+``core_exchange_positions``, ``core_output_map``), so the CPU tests can
+emulate it; ``built_core_layout`` reads the same facts from the built
+library (``csrc/core_plan.cu``), and ``chip_smoke.py`` holds the two
+against each other.
+
 Each launcher validates its tensors (device, dtype, shape, contiguity),
 allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
 synchrosqueezing plane, which the kernel adds into), launches on the current
@@ -47,8 +58,13 @@ EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3, "amax": 4}
 #: The epilogues that take a complex64 bank (the reference's complex stage
 #: 0): the three epoch reductions.
 COMPLEX_EPILOGUES = ("power", "itc", "power_itc")
-#: Signal lengths the fused kernel takes: powers of two in this range (the
-#: block's shared memory holds N samples and N/2 twiddles, 12*N bytes).
+#: The forward epilogues on the register-resident core (``fft_regs.cuh``),
+#: which take its twiddle table; "power_each" and "amax" take the radix-2
+#: one.
+CORE_EPILOGUES = ("power", "itc", "power_itc")
+#: Signal lengths the fused kernels take: powers of two in this range (the
+#: radix-2 kernels' shared memory holds N samples and N/2 twiddles, 12*N
+#: bytes).
 MIN_N, MAX_N = 256, 16384
 
 #: Epilogues of the cross-pair kernel, by the code its C launcher takes, and
@@ -86,31 +102,32 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile every ``csrc/*.cu`` for sm_90a, one ``nvcc`` process a
-    source, all at once, and link the objects into one library, unless a
-    library built from the same sources (headers included), flags and
-    compiler exists; return its path.  The compiler's report (registers,
-    shared memory, spills per kernel) is kept beside the library as
-    ``<name>.log``."""
+def build(defines: tuple = (), csrc: str = CSRC) -> str:
+    """Compile every ``*.cu`` of ``csrc`` for sm_90a, one ``nvcc`` process
+    a source, all at once, with ``-D<d>`` for each of ``defines``, and link
+    the objects into one library, unless a library built from the same
+    sources (headers included), flags and compiler exists; return its path.
+    The compiler's report (registers, shared memory, spills per kernel) is
+    kept beside the library as ``<name>.log``."""
     nvcc = _nvcc()
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     version = subprocess.run([nvcc, "--version"], check=True,
                              capture_output=True).stdout
     key = hashlib.sha256()
-    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+    for path in sorted(glob.glob(os.path.join(csrc, "*"))):
         with open(path, "rb") as fh:
             key.update(os.path.basename(path).encode() + b"\0" + fh.read())
-    key.update(b"\0".join([" ".join(NVCC_FLAGS).encode(), version]))
+    key.update(b"\0".join([" ".join(flags).encode(), version]))
     lib = os.path.join(BUILD_DIR, "libninw_kernels-%s.so"
                        % key.hexdigest()[:16])
     if os.path.exists(lib):
         return lib
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    sources = sorted(glob.glob(os.path.join(csrc, "*.cu")))
     tmp = "%s.tmp%d" % (lib, os.getpid())
     os.makedirs(tmp + ".d", exist_ok=True)
     objs = [os.path.join(tmp + ".d", os.path.basename(src) + ".o")
             for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, src],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for src, obj in zip(sources, objs)]
@@ -137,40 +154,151 @@ def build() -> str:
     return lib
 
 
+#: The argument types of each C entry point of the library (all return a
+#: C int).
+SIGNATURES = {
+    "ninw_fused_cwt": ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    "ninw_fused_cwt_bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p]),
+    "ninw_fused_cwt_bwd_rows": [ctypes.c_int, ctypes.c_int],
+    "ninw_fused_ssq": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p]),
+    "ninw_fused_pair": ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    "ninw_core_plan": [ctypes.c_int, ctypes.c_void_p],
+    "ninw_core_exchange": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p],
+}
+
+
+def open_library(path: str, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a library that ``build`` made, its entry points ``names``
+    bound to their ``SIGNATURES``."""
+    lib = ctypes.CDLL(path)
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = SIGNATURES[name]
+    return lib
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.ninw_fused_cwt
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            fn = lib.ninw_fused_cwt_bwd
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p])
-            fn = lib.ninw_fused_cwt_bwd_rows
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int, ctypes.c_int]
-            fn = lib.ninw_fused_ssq
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-            fn = lib.ninw_fused_pair
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-            _lib = lib
+            _lib = open_library(build())
         return _lib
 
 
 @functools.lru_cache(maxsize=None)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(+2 pi i m / n) for m < n/2, computed in float64, stored complex64."""
+    """exp(+2 pi i m / n) for m < n/2, computed in float64, stored complex64:
+    the table of the radix-2 passes."""
     m = np.arange(n // 2, dtype=np.float64)
     tw = np.exp(2j * np.pi * m / n).astype(np.complex64)
     return torch.from_numpy(tw).to(device)
+
+
+def core_plan(n: int) -> tuple:
+    """The radices of the core's passes at signal length ``n``: 16 while
+    16 divides what is left, then the remaining 2, 4 or 8
+    (``csrc/fft_regs.cuh``, ``Plan::log2_radix``)."""
+    log2n = n.bit_length() - 1
+    if n < MIN_N or n > MAX_N or n != 1 << log2n:
+        raise ValueError(f"N={n} is not a power of two in [{MIN_N}, {MAX_N}]")
+    return (16,) * (log2n // 4) + ((1 << log2n % 4,) if log2n % 4 else ())
+
+
+def core_r(n: int) -> int:
+    """The complex samples each thread of the core holds at signal length
+    ``n``: 16, and 32 at N = 8192 (``Plan::kR``); a block has N / R
+    threads."""
+    core_plan(n)
+    return 32 if n == 8192 else 16
+
+
+def core_twiddles(n: int) -> np.ndarray:
+    """The core's twiddle table, complex64: for each pass s >= 1 of radix P
+    after sub-transforms of Ns = 16^s points, exp(+2 pi i r k / (Ns P)) for
+    r in [1, P), k in [0, Ns), at offset Ns - 16 + (r - 1) Ns + k; computed
+    in float64."""
+    parts, ns = [], 1
+    for s, p in enumerate(core_plan(n)):
+        if s:
+            r = np.arange(1, p, dtype=np.float64)[:, None]
+            k = np.arange(ns, dtype=np.float64)[None, :]
+            parts.append(np.exp(2j * np.pi * r * k / (ns * p)).ravel())
+        ns *= p
+    return np.concatenate(parts).astype(np.complex64)
+
+
+def core_exchange_positions(n: int, s: int) -> np.ndarray:
+    """Where pass ``s`` (not the last) of the core puts its outputs:
+    (T, R) int array (R = ``core_r(n)``, T = N / R), entry [t, m + Q q] the
+    padded exchange-buffer index of output q of thread t's DFT m (Q = R / P
+    DFTs of P points a thread).  After the barrier thread t reads its slot i
+    from ``core_pad(t + T i)``."""
+    plan = core_plan(n)
+    if not 0 <= s < len(plan) - 1:
+        raise ValueError(f"pass {s} of {len(plan)} has no exchange")
+    r = core_r(n)
+    p, ns, t_count = plan[s], 16 ** s, n // r
+    q_count = r // p
+    pos = np.empty((t_count, r), dtype=np.int64)
+    t = np.arange(t_count)
+    for m in range(q_count):
+        j = t + m * t_count
+        base = (j // ns) * ns * p + (j % ns)
+        for q in range(p):
+            pos[:, m + q_count * q] = core_pad(base + q * ns)
+    return pos
+
+
+def core_pad(o):
+    """The exchange buffer's padding: position o sits at o + o // 16."""
+    return o + (o >> 4)
+
+
+def core_output_map(n: int) -> np.ndarray:
+    """(T, R) int array: the sample n(t, i) = t + T i that thread t holds in
+    slot i after the core, in every epoch (R = ``core_r(n)``, T = N / R)."""
+    r = core_r(n)
+    t_count = n // r
+    return np.arange(t_count)[:, None] + t_count * np.arange(r)[None, :]
+
+
+def built_core_layout(n: int) -> dict:
+    """The core's plan and exchange indices at signal length ``n`` as the
+    built library computes them, with the functions its kernels call
+    (``csrc/core_plan.cu``): "r", "threads", "plan" (the radices),
+    "buf_len", "twiddles" (the table's length), and for each pass but the
+    last its (T, R) "writes" and "reads", the counterparts of
+    ``core_exchange_positions(n, s)`` and ``core_pad(t + T i)``.  Builds
+    the library (needs ``nvcc``)."""
+    lib = _load()
+    head = np.zeros(9, dtype=np.int32)
+    if lib.ninw_core_plan(n.bit_length() - 1, head.ctypes.data) != 0:
+        raise ValueError(f"the core does not take N={n}")
+    r, t_count, passes, buf_len, twiddles = (int(v) for v in head[:5])
+    layout = {"r": r, "threads": t_count,
+              "plan": tuple(int(p) for p in head[5:5 + passes]),
+              "buf_len": buf_len, "twiddles": twiddles,
+              "writes": [], "reads": []}
+    for s in range(passes - 1):
+        writes = np.zeros((t_count, r), dtype=np.int32)
+        reads = np.zeros((t_count, r), dtype=np.int32)
+        if lib.ninw_core_exchange(n.bit_length() - 1, s, writes.ctypes.data,
+                                  reads.ctypes.data) != 0:
+            raise ValueError(f"pass {s} at N={n} has no exchange")
+        layout["writes"].append(writes)
+        layout["reads"].append(reads)
+    return layout
+
+
+@functools.lru_cache(maxsize=None)
+def _core_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(core_twiddles(n)).to(device)
 
 
 def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
@@ -249,7 +377,8 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     with torch.cuda.device(spec.device):
         err = lib.ninw_fused_cwt(
             EPILOGUES[epilogue], spec.data_ptr(), bank.data_ptr(),
-            _twiddles(n, spec.device).data_ptr(), outs[0].data_ptr(),
+            (_core_twiddles if epilogue in CORE_EPILOGUES
+             else _twiddles)(n, spec.device).data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr() if len(outs) > 1 else None,
             e, c, f, n, k_bins, row_len, int(cx), _stream(spec.device))
     key = f"{epilogue}_cx" if cx else epilogue
@@ -383,7 +512,7 @@ def fused_cwt_pair(epilogue: str, spec_a: torch.Tensor, spec_b: torch.Tensor,
     with torch.cuda.device(spec_a.device):
         err = lib.ninw_fused_pair(
             PAIR_EPILOGUES[epilogue], spec_a.data_ptr(), spec_b.data_ptr(),
-            bank.data_ptr(), _twiddles(n, spec_a.device).data_ptr(),
+            bank.data_ptr(), _core_twiddles(n, spec_a.device).data_ptr(),
             out.data_ptr(), e, c, f, n, k_bins, row_len,
             _stream(spec_a.device))
     if err != 0:

@@ -288,13 +288,19 @@ def wpli_matrix_from_bank(sigs: torch.Tensor, bank: torch.Tensor,
     product (|Im S_e| is needed per epoch), so each row accumulates the
     four ``phase_lag_sums`` planes over epochs as (C, C, n) outer products,
     pinned like ``phase_lag_sums``: the diagonal is 0/0 -> NaN at
-    ``eps = 0``."""
+    ``eps = 0``.  A ``time_range`` (start, stop) outside 0 <= start <= stop
+    <= N raises ``ValueError``."""
     if method not in PHASE_LAG_METHODS:
         raise ValueError(f"method must be one of {PHASE_LAG_METHODS}, "
                          f"got {method!r}")
-    e = sigs.shape[0]
+    e, n = sigs.shape[0], sigs.shape[-1]
+    n0, n1 = time_range if time_range is not None else (0, n)
+    if not 0 <= n0 <= n1 <= n:
+        # The reference's (C, C, n1 - n0) epoch sums cannot take a window
+        # that leaves the signal either.
+        raise ValueError(f"time_range {(n0, n1)} is not a window of the "
+                         f"{n} samples")
     spec = analytic_spectrum(sigs, interpolate)
-    n0, n1 = time_range if time_range is not None else (0, sigs.shape[-1])
     rows = []
     for bank_row in bank:
         w = torch.fft.ifft(spec * bank_row)[..., n0:n1]      # (E, C, n)

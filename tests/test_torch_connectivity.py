@@ -252,6 +252,20 @@ def test_matrices_match_jax(interpolate, time_range):
         tconn.wpli_matrix(ts, tk, "nope")
 
 
+@pytest.mark.parametrize("time_range", [(100, 600), (-5, 10), (300, 200)])
+def test_wpli_matrix_refuses_a_window_outside_the_signal(time_range):
+    # JAX's (C, C, stop - start) epoch sums fail to broadcast against the
+    # sliced coefficients; the port says why, before any transform.
+    rng = np.random.default_rng(4)
+    sig = rng.standard_normal((3, 4, 512)).astype(np.float32)
+    bank = _bank(FREQS[:2], 512, True)
+    ts, tk = _t(sig, bank)
+    with pytest.raises(TypeError):
+        jconn.wpli_matrix(sig, bank, interpolate=True, time_range=time_range)
+    with pytest.raises(ValueError, match="time_range"):
+        tconn.wpli_matrix(ts, tk, interpolate=True, time_range=time_range)
+
+
 @pytest.mark.parametrize("unit", [False, True])
 def test_pair_sums_and_scan_match_jax(unit):
     rng = np.random.default_rng(5)

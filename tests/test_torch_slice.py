@@ -280,9 +280,28 @@ def test_convert_round_trip(family):
     assert _rel(bank.numpy(), tw.fft_wavelets.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("n", [512, 2048])
+@pytest.mark.parametrize("family, params", [("Paul", {"m": 6.0}),
+                                            ("DOG", {"m": 4.0}),
+                                            ("Bump", {"sigma": 0.8})])
+def test_convert_zoo_family(family, params, n):
+    jw = getattr(nw, family)(SFREQ, interpolate=True, **params)
+    tw = convert.wavelet_from_jax(jw, device="cpu")
+    assert type(tw).__name__ == family and tw.mode.name == jw.mode.name
+    for key in ("sfreq", "real_wave_length", "interpolate", *params):
+        assert getattr(tw, key) == getattr(jw, key), key
+    freqs = jnp.arange(5.0, 45.0, 10.0)
+    br, bi = jbank.make_fft_bank_ri(jw._wdef(), freqs, n, SFREQ, True)
+    assert bi is None
+    tw.make_fft_wavelets(np.asarray(freqs), n / SFREQ)
+    assert _rel(tw.fft_wavelets.numpy(), np.asarray(br)) <= 1e-5
+
+
 def test_convert_rejects_unported_class():
+    # A superlet is a family of Morlet banks, not one wavelet: convert has
+    # no class for it.
     with pytest.raises(TypeError):
-        convert.wavelet_from_jax(nw.Paul(SFREQ))
+        convert.wavelet_from_jax(nw.Superlet(SFREQ))
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():
