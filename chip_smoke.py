@@ -12,15 +12,19 @@ What it does, failing (non-zero exit, no result line) if any check fails:
    synchrosqueezing, and ``csrc/fused_pair.cu``, the cross-pair sums) for
    sm_90a, one nvcc process a source, all started together, into one
    library, and prints each kernel's registers and spills (``ptxas -v``):
-   the epoch reductions (``fused_cwt_kernel<EPI, LOG2N, CX>``) and the
-   cross-pair sums (``fused_pair_kernel<EPI, LOG2N>``) run on the
-   register-resident FFT core of ``csrc/fft_regs.cuh``, one instantiation
-   per N, and none of them may spill at N <= 8192; the rest run on the
-   radix-2 passes of ``csrc/inverse_row.cuh``.  At every N the core's
-   plan and exchange indices as the library computes them
-   (``csrc/core_plan.cu``) must equal the host's model that the CPU tests
-   emulate (``kernels.core_plan``, ``core_r``, ``core_twiddles``,
-   ``core_exchange_positions``, ``core_pad``).
+   the epoch reductions (``fused_cwt_kernel<EPI, LOG2N, CX>``), the
+   backward (``fused_cwt_bwd_kernel<LOG2N, CX>``), the per-signal power
+   (``fused_each_kernel<LOG2N>``) and the cross-pair sums
+   (``fused_pair_kernel<EPI, LOG2N>``) run on the register-resident FFT
+   core of ``csrc/fft_regs.cuh``, one instantiation per N; none of them
+   may spill at N <= 8192, nor "power_each" at N = 16384.  "amax" and
+   synchrosqueezing run on the radix-2 passes of
+   ``csrc/inverse_row.cuh``.  At every N the core's plan, exchange
+   indices and the backward's row groups as the library computes them
+   (``csrc/core_plan.cu``, ``ninw_fused_cwt_bwd_rows``) must equal the
+   host's model that the CPU tests emulate (``kernels.core_plan``,
+   ``core_r``, ``core_twiddles``, ``core_exchange_positions``,
+   ``core_pad``, ``bwd_rows``).
 
 Slice 1, serving:
 
@@ -79,7 +83,8 @@ Slice 2, training (at the JAX package's grad workload, ``bench.py:306-309``:
    tone from [40, 75] Hz to within 1 Hz.
 10. Times the fused backward (rFFT + kernel + sums + iFFT) against
    ``mean_power_bwd``, and one loss-and-gradient step on both paths; then
-   breaks both down by CUDA events.
+   breaks both down by CUDA events; prints the backward's time beside the
+   radix-2 kernel's recorded one (``RADIX2_MS``).
 
 Slice 3, long recordings (the JAX package's streaming bench geometry,
 ``bench.py:58-77``: 10 min at 1 kHz, 100 Morse rows over 2-100 Hz,
@@ -89,13 +94,16 @@ window batch 8; here with 64 channels riding the batch):
 11. Drives ``RawWavelet(raw, Morse(interpolate=True), window=11524,
    batch=8).power`` on a duck-typed 64 x 600,000 raw (seeded noise, a
    60 Hz tone on channel 0), the counters zeroed just before: "power_each"
-   (K4) must launch once per window batch (7), and the (64, 100, 600000)
+   (K4) must launch once per window batch (7), each launch writing its
+   windows' interiors straight into the plane, and the (64, 100, 600000)
    plane must be finite.
 12. Holds K4 against its plain version (``ops.cwt.power_from_bank``) on
    the same tensors, max|d| / max|ref| <= 1e-5: the first and the ragged
-   last window batch at all 64 channels; the whole plane of 4 channels
-   against ``StreamingCWT(use_fused=False)``; a small batch at every N
-   from 256 to 16384 at both ``interpolate`` settings.  Known answers:
+   last window batch at all 64 channels, as whole windows and as the
+   interiors written into a NaN-filled plane (every cell must be written);
+   the whole plane of 4 channels against
+   ``StreamingCWT(use_fused=False)``; a small batch at every N from 256
+   to 16384 at both ``interpolate`` settings.  Known answers:
    channel 0's interior matches one whole-signal 600,000-point transform
    to 1e-3 of the max (the JAX package's gate); its strongest row is the
    one nearest 60 Hz.
@@ -106,7 +114,9 @@ window batch 8; here with 64 channels riding the batch):
    ``benchmarks/extensions_bench.py:88-103``) runs both modulus layers
    through K4 and matches ``use_fused=False``, S1 and S2 rel <= 1e-5.
 15. Times (median of 5 after warm-up, fresh values each run): one
-   64-channel window batch through K4 and through the plain path; the
+   64-channel window batch into the plane through K4 (interiors in
+   place), through the plain path (crop + paste) and through K4 writing
+   whole windows, beside the radix-2 kernel's recorded time; the
    single-channel ``StreamingCWT.power_device`` at the bench geometry,
    fused and plain, in signal-seconds/s; the 64-channel ``RawWavelet.power``;
    and a CUDA-event breakdown of one 64-channel batch.
@@ -285,7 +295,8 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 #: The radix-2 kernels' times of the rows now on the register-resident core
 #: (PERF.md section 6, from this script's runs on an NVIDIA H100 80GB HBM3
 #: at 700 W: the real and K6 rows before slice 6, the cx rows in it; cx at
-#: interpolate=False).  Recorded, not measured here: printed on a text line
+#: interpolate=False; K3 and K4 with their wrappers' FFTs, K4 writing the
+#: whole window).  Recorded, not measured here: printed on a text line
 #: beside this run's time, never in the kernels' JSON record.
 RADIX2_MS = {"fused_cwt[power]": 56.0220340000015,
              "fused_cwt[itc]": 56.072407000002045,
@@ -295,7 +306,10 @@ RADIX2_MS = {"fused_cwt[power]": 56.0220340000015,
              "fused_cwt_cx[power_itc]": 57.43015999999557,
              "fused_pair[coherence]": 116.39304599999889,
              "fused_pair[phaselag]": 115.99573400000907,
-             "fused_pair[plv]": 113.98615299999904}
+             "fused_pair[plv]": 113.98615299999904,
+             "fused_cwt_bwd[power]": 36.94156099999901,
+             "fused_cwt_bwd_cx[power]": 35.81185200002324,
+             "fused_cwt[power_each]": 25.219659000001116}
 
 
 class SmokeFailure(Exception):
@@ -382,15 +396,17 @@ def bound(flops, nbytes):
 
 def print_ptxas(lib):
     """Registers, shared memory and spills per kernel from ``ptxas -v``;
-    returns the instantiations on the register-resident core
+    returns the instantiations on the register-resident core that spill
+    where none may: the reductions and the cross-pair sums
     (``fused_cwt_kernel<EPI,LOG2N,CX>``, ``fused_pair_kernel<EPI,LOG2N>``)
-    at N <= 8192 that spill."""
+    and the backward (``fused_cwt_bwd_kernel<LOG2N,CX>``) at N <= 8192,
+    "power_each" (``fused_each_kernel<LOG2N>``) at every N."""
     name, args, spilling = "?", [], []
     with open(lib[:-3] + ".log") as fh:
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(fused_(?:cwt|cwt_bwd|cwt_each|amax|ssq|"
+                k = re.search(r"(fused_(?:cwt|cwt_bwd|each|amax|ssq|"
                               r"pair)_kernel)I(.*?)EEv", m.group(1))
                 args = (re.findall(r"L[ib](\d+)E", k.group(2) + "E")
                         if k else [])
@@ -399,12 +415,18 @@ def print_ptxas(lib):
             elif "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
                 stores = re.search(r"(\d+) bytes spill stores", line)
-                if (stores and int(stores.group(1))
-                        and name.startswith(("fused_cwt_kernel<",
-                                             "fused_pair_kernel<"))
-                        and int(args[1]) <= 13):
+                if stores and int(stores.group(1)) and no_spill(name, args):
                     spilling.append(name)
     return spilling
+
+
+def no_spill(name, args):
+    """True for the instantiations that must not spill (``print_ptxas``)."""
+    if name.startswith(("fused_cwt_kernel<", "fused_pair_kernel<")):
+        return int(args[1]) <= 13
+    if name.startswith("fused_cwt_bwd_kernel<"):
+        return int(args[0]) <= 13
+    return name.startswith("fused_each_kernel<")
 
 
 def event_ms(fn):
@@ -525,10 +547,11 @@ def print_radix2_ms(record):
 
 
 def core_layout_check():
-    """The host's model of the register-resident core (``kernels.core_*``,
-    which ``tests/test_torch_fft_plan.py`` emulates) against the plan and
-    exchange indices the built library computes with the kernels' own
-    functions (``kernels.built_core_layout``), at every N."""
+    """The host's model of the register-resident core (``kernels.core_*``
+    and ``kernels.bwd_rows``, which ``tests/test_torch_fft_plan.py``
+    emulates) against the plan, exchange indices and backward row groups
+    the built library computes with the kernels' own functions
+    (``kernels.built_core_layout``), at every N."""
     from ninwavelets_tpu_torch import kernels
     for log2n in range(8, 15):
         n = 1 << log2n
@@ -538,6 +561,8 @@ def core_layout_check():
         plan = kernels.core_plan(n)
         same = (got["r"] == r and got["threads"] == t_count
                 and got["plan"] == plan
+                and got["bwd_rows"] == (kernels.bwd_rows(n, False),
+                                        kernels.bwd_rows(n, True))
                 and got["twiddles"] == len(kernels.core_twiddles(n))
                 and got["buf_len"] > kernels.core_pad(n - 1))
         reads = kernels.core_pad(kernels.core_output_map(n))
@@ -547,7 +572,8 @@ def core_layout_check():
                 and np.array_equal(got["reads"][s], reads))
         print(f"check core layout N={n}: library R={got['r']} T="
               f"{got['threads']} plan {got['plan']} buffer {got['buf_len']} "
-              f"table {got['twiddles']}; equals the host's model: {same}")
+              f"table {got['twiddles']} backward rows {got['bwd_rows']}; "
+              f"equals the host's model: {same}")
         check(same, f"the core's layout at N={n} differs from kernels.core_*")
 
 
@@ -708,11 +734,13 @@ def training_phase():
     bound_ms, bound_by = bound(
         E_GRAD * C * (fft / 2 + 2 * F * fft + fft),
         4 * (2 * E_GRAD * C * N + 2 * F * N + C * F * N))
-    return {"name": "fused_cwt_bwd[power]", "route": "cuda",
-            "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-            "launches": counts["power_bwd"], "max_abs_err": err_bwd,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    record = {"name": "fused_cwt_bwd[power]", "route": "cuda",
+              "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+              "launches": counts["power_bwd"], "max_abs_err": err_bwd,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None}
+    print_radix2_ms(record)
+    return record
 
 
 class ArrayRaw:
@@ -799,14 +827,23 @@ def long_recording_phase():
     # -- K4 against its plain version, same tensors ---------------------------
     bank = stream._bank
     groups = list(stream._ext_batches(data))
+    keep = (h, h + REC_WINDOW)
     err_each = 0.0
     for name, ext in (("first", groups[0][1]), ("ragged last", groups[-1][1])):
         xs = torch.from_numpy(ext).cuda()
+        ref = cwt.power_from_bank(xs, bank, True)
         err_each = max(err_each, rel_err(
             f"K4 {name} window batch {tuple(xs.shape)}",
-            fused.fused_power_from_bank(xs, bank, True),
-            cwt.power_from_bank(xs, bank, True)))
-        del xs
+            fused.fused_power_from_bank(xs, bank, True), ref))
+        kept = torch.full((REC_C, REC_F, REC_BATCH, REC_WINDOW), math.nan,
+                          device="cuda")
+        fused._power_each_into(xs, bank, True, kept.permute(2, 0, 1, 3),
+                               keep)
+        err_each = max(err_each, rel_err(
+            f"K4 {name} window batch, interiors written into a (C, F, "
+            f"batch x window) plane", kept.permute(2, 0, 1, 3),
+            ref[..., keep[0]:keep[1]]))
+        del xs, ref, kept
         torch.cuda.empty_cache()
     plain_stream = StreamingCWT(morse._wdef(), freqs, SFREQ,
                                 window=REC_WINDOW, interpolate=True,
@@ -872,11 +909,22 @@ def long_recording_phase():
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
     x = torch.from_numpy(groups[0][1]).cuda()
-    ms, plain_ms = median_ms(x, [
-        lambda: fused.fused_power_from_bank(x, bank, True),
-        lambda: cwt.power_from_bank(x, bank, True)])
-    print(f"time one window batch {tuple(x.shape)} x {REC_F} rows: K4 path "
-          f"(rFFT + kernel) {ms} ms, plain torch.fft {plain_ms} ms")
+    span = REC_BATCH * REC_WINDOW
+    buf = torch.empty((REC_C, REC_F, span), device="cuda")
+    dst = buf.unflatten(-1, (REC_BATCH, REC_WINDOW)).permute(2, 0, 1, 3)
+
+    def plain_into():
+        dst.copy_(cwt.power_from_bank(x, bank, True)[..., keep[0]:keep[1]])
+
+    ms, plain_ms, whole_ms = median_ms(x, [
+        lambda: fused._power_each_into(x, bank, True, dst, keep),
+        plain_into, lambda: fused.fused_power_from_bank(x, bank, True)])
+    print(f"time one window batch {tuple(x.shape)} x {REC_F} rows into the "
+          f"plane: K4 path (rFFT + kernel writing the interiors in place) "
+          f"{ms} ms, plain (torch.fft, crop + paste) {plain_ms} ms; K4 "
+          f"writing whole windows (fused_power_from_bank) {whole_ms} ms "
+          f"(this run), the radix-2 kernel's {RADIX2_MS['fused_cwt[power_each]']}"
+          f" ms (recorded, PERF.md section 6, not measured here)")
     torch.cuda.empty_cache()
 
     def one_channel():
@@ -902,32 +950,31 @@ def long_recording_phase():
     # -- breakdown of one 64-channel batch by CUDA events ---------------------
     host = groups[0][1]
     spec = torch.fft.rfft(x.reshape(-1, 1, REC_EXT)).contiguous()
-    each = kernels.fused_cwt("power_each", spec, bank, REC_EXT // 2,
-                             "fast3")[0].reshape(REC_BATCH, REC_C, REC_F,
-                                                 REC_EXT)
-    span = REC_BATCH * REC_WINDOW
-    buf = torch.empty((REC_C, REC_F, span), device="cuda")
+    whole = torch.empty((spec.shape[0], 1, REC_F, REC_EXT), device="cuda")
     parts = {
         "host-to-device copy of the batch (pageable)": lambda:
             torch.from_numpy(host).cuda(),
         "rFFT of the batch": lambda: torch.fft.rfft(
             x.reshape(-1, 1, REC_EXT)),
-        "K4 alone": lambda: kernels.fused_cwt(
-            "power_each", spec, bank, REC_EXT // 2, "fast3"),
-        "crop + paste into the plane": lambda: buf.unflatten(
-            -1, (REC_BATCH, REC_WINDOW)).copy_(
-                each[..., h:REC_EXT - h].movedim(0, -2)),
+        "K4 writing each window's interior into the plane (the fused "
+        "path's launch; no crop + paste follows)": lambda:
+            kernels.fused_power_each(spec, bank, REC_EXT // 2, dst, keep),
+        "K4 writing whole windows (for comparison)": lambda:
+            kernels.fused_power_each(spec, bank, REC_EXT // 2, whole,
+                                     (0, REC_EXT)),
     }
     for name, fn in parts.items():
         print(f"breakdown {name}: {event_ms(fn)} ms (CUDA events, mean of "
               f"{REPS})")
-    del spec, each, buf, x
+    del spec, whole, buf, dst, x
     torch.cuda.empty_cache()
 
+    # The bound of the kept-range launch: the signals and the bank read
+    # once, the interiors written once.
     b = REC_BATCH * REC_C
     bound_ms, bound_by = bound(
         b * (fft_flops(REC_EXT) / 2 + REC_F * fft_flops(REC_EXT)),
-        4 * (b * REC_EXT + REC_F * REC_EXT + b * REC_F * REC_EXT))
+        4 * (b * REC_EXT + REC_F * REC_EXT + b * REC_F * REC_WINDOW))
     return {"name": "fused_cwt[power_each]", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": EACH_REPLACES,
             "launches": counts["power_each"], "max_abs_err": err_each,
@@ -1961,11 +2008,13 @@ def complex_training():
     bound_ms, bound_by = bound(
         E_GRAD * C * (fft / 2 + 2 * F * fft + fft),
         4 * (2 * E_GRAD * C * N + 2 * 2 * F * N + C * F * N))
-    return {"name": "fused_cwt_bwd_cx[power]", "route": "cuda",
-            "source": BWD_SOURCE, "replaces": BWD_CX_REPLACES,
-            "launches": counts["power_bwd_cx"], "max_abs_err": err_bwd,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    record = {"name": "fused_cwt_bwd_cx[power]", "route": "cuda",
+              "source": BWD_SOURCE, "replaces": BWD_CX_REPLACES,
+              "launches": counts["power_bwd_cx"], "max_abs_err": err_bwd,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None}
+    print_radix2_ms(record)
+    return record
 
 
 def plain_multitaper(x, freqs, n_tapers=3):
@@ -2134,7 +2183,7 @@ def main() -> int:
     lib = kernels.build()
     print(f"kernel build {time.perf_counter() - t0} s: {lib}")
     spilling = print_ptxas(lib)
-    check(not spilling, f"core kernels spill at N <= 8192: {spilling}")
+    check(not spilling, f"core kernels spill where they may not: {spilling}")
     core_layout_check()
 
     data = np.random.default_rng(0).standard_normal((E, C, N),

@@ -1,8 +1,12 @@
-// The register-resident mixed-radix inverse FFT of the epoch reductions
-// (fused_cwt.cu: "power", "itc", "power_itc", real and complex bank) and of
-// the cross-pair sums (fused_pair.cu).  The other kernels ("amax",
-// "power_each", the backward, synchrosqueezing) keep the radix-2 passes of
-// inverse_row.cuh / radix2.cuh.
+// The register-resident mixed-radix FFT core of every kernel but
+// synchrosqueezing's: the epoch reductions (fused_cwt.cu: "power", "itc",
+// "power_itc", real and complex bank), the per-signal power ("power_each",
+// fused_cwt.cu), the power backward (fused_cwt_bwd.cu, real and complex
+// bank) and the cross-pair sums (fused_pair.cu).  "amax" and the
+// synchrosqueezing kernel keep the radix-2 passes of inverse_row.cuh /
+// radix2.cuh, since fused_ssq.cu reads "amax"'s power bit for bit.
+// The core is an inverse DFT (inverse_fft); the backward's forward DFT is
+// the same transform between two conjugations (forward_fft).
 //
 // The transform is a Stockham (self-sorting) decimation in time over
 // N = 2^LOG2N samples.  Each of T = N/R threads holds R complex samples
@@ -256,6 +260,20 @@ __device__ __forceinline__ void inverse_fft(float2 (&x)[Plan<LOG2N>::kR], float2
   pass<LOG2N, 0>(x, buf, tw, tid);
 }
 
+// The unnormalised forward DFT of one row, in the same layout and under the
+// same conditions: FFT(y) = conj(IFFT(conj(y))), the same passes, the same
+// twiddle table.  On entry x[i] holds sample tid + T i; on return bin
+// tid + T i.  The conjugations are exact.
+template <int LOG2N>
+__device__ __forceinline__ void forward_fft(float2 (&x)[Plan<LOG2N>::kR], float2* buf,
+                                            const float2* tw, int tid) {
+#pragma unroll
+  for (int i = 0; i < Plan<LOG2N>::kR; ++i) x[i].y = -x[i].y;
+  inverse_fft<LOG2N>(x, buf, tw, tid);
+#pragma unroll
+  for (int i = 0; i < Plan<LOG2N>::kR; ++i) x[i].y = -x[i].y;
+}
+
 // Shared memory of a kernel on this core, in float2: the exchange buffer
 // (two with kPingPong), then the twiddle table (kTwSmem), then (kAccSmem)
 // SUMS planes of N float epoch sums.
@@ -297,32 +315,48 @@ __device__ __forceinline__ void load_bins(float2 (&x)[Plan<LOG2N>::kR],
   }
 }
 
-// SUMS epoch sums a sample, sum(j, i) for the thread's sample tid + T i:
-// in registers, or (kAccSmem) in shared memory at SmemLayout::kSumsOffset,
-// each thread at its own samples.  Starts at zero.
-template <int LOG2N, int SUMS>
-struct EpochSums {
+// PLANES values of type V a thread keeps at its own samples, plane(j, i)
+// for sample tid + T i: in registers, or (SMEM) in shared memory at
+// `planes` (PLANES x N values), each thread at its own samples, so that no
+// barrier orders them.
+template <typename V, int PLANES, int LOG2N, bool SMEM>
+struct ThreadPlanes {
   using PL = Plan<LOG2N>;
-  float reg[SUMS][PL::kR];
-  float* smem;
+  V reg[SMEM ? 1 : PLANES][PL::kR];
+  V* smem;
   int tid;
 
-  __device__ __forceinline__ EpochSums(float2* block_smem, int thread)
-      : smem(reinterpret_cast<float*>(block_smem + SmemLayout<LOG2N, SUMS>::kSumsOffset)),
-        tid(thread) {
-#pragma unroll
-    for (int j = 0; j < SUMS; ++j) {
-#pragma unroll
-      for (int i = 0; i < PL::kR; ++i) (*this)(j, i) = 0.f;
-    }
-  }
+  __device__ __forceinline__ ThreadPlanes(V* planes, int thread)
+      : smem(planes), tid(thread) {}
 
-  __device__ __forceinline__ float& operator()(int j, int i) {
-    if constexpr (PL::kAccSmem) {
+  __device__ __forceinline__ V& operator()(int j, int i) {
+    if constexpr (SMEM) {
       return smem[j * PL::kN + tid + i * PL::kThreads];
     } else {
       return reg[j][i];
     }
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < PLANES; ++j) {
+#pragma unroll
+      for (int i = 0; i < PL::kR; ++i) (*this)(j, i) = V{};
+    }
+  }
+};
+
+// SUMS epoch sums a sample, sum(j, i) for the thread's sample tid + T i:
+// in registers, or (kAccSmem) in shared memory at SmemLayout::kSumsOffset.
+// Starts at zero.
+template <int LOG2N, int SUMS>
+struct EpochSums : ThreadPlanes<float, SUMS, LOG2N, Plan<LOG2N>::kAccSmem> {
+  __device__ __forceinline__ EpochSums(float2* block_smem, int thread)
+      : ThreadPlanes<float, SUMS, LOG2N, Plan<LOG2N>::kAccSmem>(
+            reinterpret_cast<float*>(block_smem +
+                                     SmemLayout<LOG2N, SUMS>::kSumsOffset),
+            thread) {
+    this->zero();
   }
 };
 

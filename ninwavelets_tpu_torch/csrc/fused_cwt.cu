@@ -4,8 +4,9 @@
 //
 // Replaces the Pallas TPU kernel ninwavelets_tpu/ops/fused.py:_kernel with
 // its "power", "itc" and "power_itc" epilogues (fused_cwt_kernel), its
-// "amax" epilogue (fused_amax_kernel) and its "power_each" epilogue
-// (fused_cwt_each_kernel), for a real (F, N) bank; and its complex-bank
+// "amax" epilogue (fused_amax_kernel), launched by ninw_fused_cwt, and its
+// "power_each" epilogue (fused_each_kernel), launched by
+// ninw_fused_power_each, for a real (F, N) bank; and its complex-bank
 // stage 0 (complex_bank=True) for the "power", "itc" and "power_itc"
 // epilogues (fused_cwt_kernel<..., CX = true>), the only ones the reference
 // sends a complex (Normal/Twice-mode: MexicanHat, Haar) bank to.
@@ -68,15 +69,31 @@
 // memory, written by one thread: deterministic, no atomics.
 //
 // "power_each" (the long-recording paths: one signal is one window of one
-// channel) has no reduction, so every (signal, row) pair is independent and
-// gets a block of its own: blockIdx.x walks f, as above, so the blocks in
-// flight share one signal's spectrum in L2, and the flattened signal index
-// e * C + c rides blockIdx.y and blockIdx.z, so no grid axis passes its
-// 65535 limit.  Its output, E*C*F*N floats written once, is its compulsory
-// traffic (3.4 GB at 512 windows x channels of 16384 samples, 100 rows);
-// its radix-2 passes through shared memory (inverse_row.cuh) are what bound
-// it in practice.  Offsets into the spectra and the output are size_t:
-// E*C*F*N passes 2^31 at large batches.
+// channel; superlets, single-trial power, scattering) has no reduction.
+// What bounds it is its output, written once: E*C*F*N floats at most (3.4
+// GB at 512 windows x channels of 16384 samples, 100 rows; 2.4 GB of it
+// is what the streaming caller keeps), against 51,200 transforms of 16384
+// points there (about 1.1 ms of fp32 arithmetic at the card's peak).  It
+// runs on the register-resident core too (fused_each_kernel):
+//  * One block per (bank row f, slice of signals); blockIdx.x walks f, so
+//    the blocks in flight share a signal's spectrum in L2.  A block loops
+//    over its signals (up to kEachSignals, more where the signal count
+//    passes the grid's 65535 slices) as the reductions loop over epochs,
+//    so its bank row and staged twiddles are loaded once, not once per
+//    transform; up to N = 4096 the next signal's bins are loaded while the
+//    signal before is transformed.
+//  * The bank row sits in registers, and at N = 16384 (1024 threads of 64
+//    registers) in shared memory beside the exchange buffer, each thread
+//    reading its own bins.
+//  * Only what the caller keeps is written: the columns [keep_lo, keep_hi)
+//    of each signal's rows, at out + (b / group) stride_group +
+//    (b % group) stride_signal + f stride_row + (n - keep_lo) for signal b.
+//    The whole-window (E*C, F, N) plane is the case group = 1,
+//    stride_group = F N, stride_row = N, [0, N); the long-recording path
+//    writes each window's interior straight into its place in the
+//    (channels, F, span) plane, with no crop-and-paste pass after it.
+// Offsets into the spectra and the output are size_t / long long: E*C*F*N
+// passes 2^31 at large batches.
 
 #include <cuda_runtime.h>
 
@@ -85,7 +102,7 @@
 
 namespace {
 
-enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kPowerEach = 3, kAmax = 4 };
+enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kAmax = 3 };
 
 constexpr int kMinLog2N = 8;    // N = 256
 constexpr int kMaxLog2N = 14;   // N = 16384
@@ -251,47 +268,98 @@ fused_amax_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   }
 }
 
-// "power_each": |x|^2 / N^2 of every (signal, bank row) pair, one block
-// each.  Signal b = e * C + c (the row of the contiguous (E, C, L) spectra)
-// is blockIdx.z * gridDim.y + blockIdx.y; the last z-slice may be ragged.
-template <int PER>
-__global__ void __launch_bounds__(1024)
-fused_cwt_each_kernel(const float2* __restrict__ spec,     // (E*C, L), L >= K
-                      const float* __restrict__ bank,      // (F, N)
-                      const float2* __restrict__ twiddle,  // (N/2,)
-                      float* __restrict__ out,             // (E*C, F, N)
-                      int n_signals, int n_freqs, int log2n, int k_bins,
-                      int row_len, float power_scale) {
-  const int b = blockIdx.z * gridDim.y + blockIdx.y;
-  if (b >= n_signals) return;   // uniform over the block: no barrier skipped
+// Signals a "power_each" block transforms with one load of its bank row.
+constexpr int kEachSignals = 8;
+constexpr int kMaxSlices = 65535;   // grid y
+
+// "power_each" on the register-resident core: the bank row in registers,
+// or (kBankSmem, N = 16384) in shared memory after the exchange buffer.
+template <int LOG2N>
+struct EachPlan {
+  using PL = fft_regs::Plan<LOG2N>;
+  static constexpr bool kBankSmem = LOG2N == 14;
+  static constexpr int kBankOffset = fft_regs::SmemLayout<LOG2N, 0>::kSumsOffset;
+  static constexpr size_t kBytes =
+      sizeof(float2) * kBankOffset + (kBankSmem ? sizeof(float) * PL::kN : 0);
+  static_assert(kBytes <= 232448, "shared memory per block");
+};
+
+// |x|^2 / N^2 of every (signal, bank row) pair, columns [keep_lo, keep_hi)
+// (see the header).  Block (f, slice) takes signals slice, slice + slices,
+// ... of the contiguous (E*C, L) spectra.
+template <int LOG2N>
+__global__ void __launch_bounds__(fft_regs::Plan<LOG2N>::kThreads)
+fused_each_kernel(const float2* __restrict__ spec,     // (E*C, L), L >= K
+                  const float* __restrict__ bank,      // (F, N)
+                  const float2* __restrict__ twiddle,  // core table (fft_regs.cuh)
+                  float* __restrict__ out,
+                  int n_signals, int k_bins, int row_len, int group,
+                  long long stride_group, long long stride_signal,
+                  long long stride_row, int keep_lo, int keep_hi,
+                  float power_scale) {
+  using PL = fft_regs::Plan<LOG2N>;
+  using EP = EachPlan<LOG2N>;
+  constexpr int kR = PL::kR;
+  constexpr int T = PL::kThreads;
+  constexpr int N = PL::kN;
   extern __shared__ float2 smem[];
-  const int n = 1 << log2n;
-  float2* buf = smem;        // n complex samples
-  float2* tw = smem + n;     // n/2 twiddles
+  float2* buf = smem;   // the exchange buffer(s)
+
   const int f = blockIdx.x;
   const int tid = threadIdx.x;
-  const int threads = blockDim.x;   // threads * PER == n
+  const float2* tw = fft_regs::stage_twiddles<LOG2N, 0>(smem, twiddle, tid);
 
-  for (int m = tid; m < (n >> 1); m += threads) tw[m] = twiddle[m];
-  float bank_reg[PER];
-  const float* bank_row = bank + static_cast<size_t>(f) * n;
+  // Bin tid + T i of the bank row; kBankSmem: staged by the thread that
+  // reads it, so no barrier orders it.
+  float bank_reg[EP::kBankSmem ? 1 : kR];
+  float* bank_smem = reinterpret_cast<float*>(smem + EP::kBankOffset);
+  const float* bank_row = bank + static_cast<size_t>(f) * N;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int k = tid + i * threads;
-    bank_reg[i] = k < k_bins ? bank_row[k] : 0.f;
+  for (int i = 0; i < kR; ++i) {
+    const int k = tid + i * T;
+    const float b = k < k_bins ? bank_row[k] : 0.f;
+    if constexpr (EP::kBankSmem) {
+      bank_smem[k] = b;
+    } else {
+      bank_reg[i] = b;
+    }
   }
 
-  const float2* sp = spec + static_cast<size_t>(b) * row_len;
-  inverse_row<PER>(
-      buf, tw, [&](int i, int k) { return bank_times(sp[k], bank_reg[i]); },
-      k_bins, log2n, tid, threads);
-
-  float* dst = out + ((static_cast<size_t>(b) * n_freqs + f) << log2n);
+  const int slices = gridDim.y;
+  int b = blockIdx.y;
+  float2 bins[kR];   // kAhead: the next signal's bins, loaded meanwhile
+  if constexpr (PL::kAhead) {
+    fft_regs::load_bins<LOG2N>(bins, spec + static_cast<size_t>(b) * row_len,
+                               k_bins, tid);
+  }
+  for (; b < n_signals; b += slices) {   // b is the same over the block
+    if constexpr (!PL::kAhead) {
+      fft_regs::load_bins<LOG2N>(bins, spec + static_cast<size_t>(b) * row_len,
+                                 k_bins, tid);
+    }
+    float2 x[kR];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = tid + i * threads;
-    const float2 x = buf[idx];
-    dst[idx] = (x.x * x.x + x.y * x.y) * power_scale;
+    for (int i = 0; i < kR; ++i) {
+      const float bk = EP::kBankSmem ? bank_smem[tid + i * T] : bank_reg[i];
+      x[i] = fft_regs::bank_times_rn(bins[i], bk);
+    }
+    if constexpr (PL::kAhead) {
+      if (b + slices < n_signals) {
+        fft_regs::load_bins<LOG2N>(
+            bins, spec + static_cast<size_t>(b + slices) * row_len, k_bins, tid);
+      }
+    }
+    fft_regs::inverse_fft<LOG2N>(x, buf, tw, tid);
+
+    const long long base = (b / group) * stride_group +
+                           (b % group) * stride_signal + f * stride_row - keep_lo;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int n = tid + i * T;
+      if (n >= keep_lo && n < keep_hi) {
+        out[base + n] = (x[i].x * x[i].x + x[i].y * x[i].y) * power_scale;
+      }
+    }
   }
 }
 
@@ -312,39 +380,63 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// "amax" and "power_each" on the radix-2 core.
-template <int EPI, int PER>
-cudaError_t launch_radix2(const Args& a, cudaStream_t stream) {
+// "amax" on the radix-2 core: 8 samples a thread up to N = 8192 (1024
+// threads); N = 16384 takes 16.
+template <int PER>
+cudaError_t launch_amax(const Args& a, cudaStream_t stream) {
   const int n = 1 << a.log2n;
   const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2 +
-                      (EPI == kAmax ? kMaxWarps * sizeof(float) : 0);
-  if constexpr (EPI == kPowerEach) {
-    auto kernel = fused_cwt_each_kernel<PER>;
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const int n_signals = a.n_epochs * a.n_channels;   // checked by the caller
-    const int rows_y = n_signals < 65535 ? n_signals : 65535;
-    const dim3 grid(a.n_freqs, rows_y, (n_signals + rows_y - 1) / rows_y);
-    kernel<<<grid, n / PER, smem, stream>>>(
-        a.spec, a.bank, a.twiddle, a.out0, n_signals, a.n_freqs, a.log2n,
-        a.k_bins, a.row_len, a.power_scale);
-  } else {
-    auto kernel = fused_amax_kernel<PER>;
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(a.n_freqs, a.n_channels);
-    kernel<<<grid, n / PER, smem, stream>>>(
-        a.spec, a.bank, a.twiddle, a.out0, a.n_epochs, a.n_channels,
-        a.n_freqs, a.log2n, a.k_bins, a.row_len);
-  }
+                      kMaxWarps * sizeof(float);
+  auto kernel = fused_amax_kernel<PER>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_freqs, a.n_channels);
+  kernel<<<grid, n / PER, smem, stream>>>(
+      a.spec, a.bank, a.twiddle, a.out0, a.n_epochs, a.n_channels,
+      a.n_freqs, a.log2n, a.k_bins, a.row_len);
   return cudaGetLastError();
 }
 
-template <int EPI>
-cudaError_t launch_radix2_per(const Args& a, cudaStream_t stream) {
-  // 8 samples a thread up to N = 8192 (1024 threads); N = 16384 takes 16.
-  return a.log2n <= 13 ? launch_radix2<EPI, 8>(a, stream)
-                       : launch_radix2<EPI, 16>(a, stream);
+// Where "power_each" writes: see the header.
+struct EachLayout {
+  int group;
+  long long stride_group, stride_signal, stride_row;
+  int keep_lo, keep_hi;
+};
+
+template <int LOG2N>
+cudaError_t launch_each(const Args& a, int n_signals, const EachLayout& o,
+                        cudaStream_t stream) {
+  constexpr size_t smem = EachPlan<LOG2N>::kBytes;
+  auto kernel = fused_each_kernel<LOG2N>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int want = (n_signals + kEachSignals - 1) / kEachSignals;
+  const dim3 grid(a.n_freqs, want < kMaxSlices ? want : kMaxSlices);
+  kernel<<<grid, fft_regs::Plan<LOG2N>::kThreads, smem, stream>>>(
+      a.spec, a.bank, a.twiddle, a.out0, n_signals, a.k_bins, a.row_len,
+      o.group, o.stride_group, o.stride_signal, o.stride_row, o.keep_lo,
+      o.keep_hi, a.power_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_each_n(const Args& a, int n_signals, const EachLayout& o,
+                          cudaStream_t s) {
+  switch (a.log2n) {
+    case 8: return launch_each<8>(a, n_signals, o, s);
+    case 9: return launch_each<9>(a, n_signals, o, s);
+    case 10: return launch_each<10>(a, n_signals, o, s);
+    case 11: return launch_each<11>(a, n_signals, o, s);
+    case 12: return launch_each<12>(a, n_signals, o, s);
+    case 13: return launch_each<13>(a, n_signals, o, s);
+    default: return launch_each<14>(a, n_signals, o, s);
+  }
+}
+
+int log2_of(int n) {
+  int log2n = 0;
+  while ((1 << log2n) < n) ++log2n;
+  return (1 << log2n) == n && log2n >= kMinLog2N && log2n <= kMaxLog2N ? log2n : -1;
 }
 
 // The epoch reductions on the register-resident core.
@@ -387,28 +479,56 @@ cudaError_t launch_reduce_epi(int epilogue, const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// Launch one fused reduction (or, for "power_each", the per-signal power)
-// on `stream`.  Returns the cudaError_t of the launch (0 on success);
-// arguments the kernel does not take return cudaErrorInvalidValue without
-// launching.  The reductions put C on a grid axis (C <= 65535);
-// "power_each" flattens E * C onto two (E * C < 2^31).  complex_bank != 0
-// reads `bank` as complex64 (F, N), for "power", "itc" and "power_itc"
-// only.  `twiddle` is the core's table (kernels/__init__.py: core_twiddles)
-// for "power", "itc" and "power_itc", and the N/2 radix-2 twiddles
-// exp(+2 pi i m / N) for "power_each" and "amax".
+// Launch "power_each" on `stream`: |cwt|^2 / N^2 of each of the n_signals
+// rows of the contiguous (n_signals, row_len) spectra against each bank
+// row, columns [keep_lo, keep_hi) of signal b and row f written at
+// out + (b / group) stride_group + (b % group) stride_signal + f stride_row
+// + (n - keep_lo) (strides in floats).  `twiddle` is the core's table.
+// Returns the cudaError_t of the launch (0 on success); arguments the
+// kernel does not take return cudaErrorInvalidValue without launching.
+extern "C" int ninw_fused_power_each(const void* spec, const void* bank,
+                                     const void* twiddle, void* out,
+                                     int n_signals, int n_freqs, int n,
+                                     int k_bins, int row_len, int group,
+                                     long long stride_group,
+                                     long long stride_signal,
+                                     long long stride_row, int keep_lo,
+                                     int keep_hi, void* stream) {
+  const int log2n = log2_of(n);
+  if (log2n < 0 || k_bins < 1 || k_bins > n || row_len < k_bins ||
+      n_signals < 1 || n_freqs < 1 || group < 1 || keep_lo < 0 ||
+      keep_hi > n || keep_lo >= keep_hi) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{};
+  a.spec = static_cast<const float2*>(spec);
+  a.bank = static_cast<const float*>(bank);
+  a.twiddle = static_cast<const float2*>(twiddle);
+  a.out0 = static_cast<float*>(out);
+  a.n_freqs = n_freqs;
+  a.log2n = log2n;
+  a.k_bins = k_bins;
+  a.row_len = row_len;
+  a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n));
+  const EachLayout o{group, stride_group, stride_signal, stride_row, keep_lo, keep_hi};
+  return static_cast<int>(launch_each_n(a, n_signals, o, static_cast<cudaStream_t>(stream)));
+}
+
+// Launch one fused reduction or "amax" on `stream`.  Returns the
+// cudaError_t of the launch (0 on success); arguments the kernel does not
+// take return cudaErrorInvalidValue without launching.  C is a grid axis
+// (C <= 65535).  complex_bank != 0 reads `bank` as complex64 (F, N), for
+// "power", "itc" and "power_itc" only.  `twiddle` is the core's table
+// (kernels/__init__.py: core_twiddles), and for "amax" the N/2 radix-2
+// twiddles exp(+2 pi i m / N).
 extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
                               const void* twiddle, void* out0, void* out1,
                               int n_epochs, int n_channels, int n_freqs, int n,
                               int k_bins, int row_len, int complex_bank,
                               void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
-  if ((1 << log2n) != n || log2n < kMinLog2N || log2n > kMaxLog2N ||
-      k_bins < 1 || k_bins > n || row_len < k_bins || n_epochs < 1 ||
-      n_channels < 1 || n_freqs < 1 ||
-      (epilogue != kPowerEach && n_channels > 65535) ||
-      (epilogue == kPowerEach &&
-       static_cast<long long>(n_epochs) * n_channels > 2147483647LL) ||
+  const int log2n = log2_of(n);
+  if (log2n < 0 || k_bins < 1 || k_bins > n || row_len < k_bins ||
+      n_epochs < 1 || n_channels < 1 || n_channels > 65535 || n_freqs < 1 ||
       epilogue < kPower || epilogue > kAmax ||
       (complex_bank && epilogue > kPowerItc) ||
       (epilogue == kPowerItc && out1 == nullptr)) {
@@ -431,8 +551,8 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   a.itc_scale = static_cast<float>(1.0 / n_epochs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
-    case kPowerEach: return static_cast<int>(launch_radix2_per<kPowerEach>(a, s));
-    case kAmax: return static_cast<int>(launch_radix2_per<kAmax>(a, s));
+    case kAmax:
+      return static_cast<int>(log2n <= 13 ? launch_amax<8>(a, s) : launch_amax<16>(a, s));
     default:
       return static_cast<int>(complex_bank ? launch_reduce_epi<true>(epilogue, a, s)
                                            : launch_reduce_epi<false>(epilogue, a, s));

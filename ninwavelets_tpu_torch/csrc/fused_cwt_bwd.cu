@@ -28,202 +28,187 @@
 // dbank_part over c (and its 1/N, as the reference applies it), the zero
 // upper bins of dbank, the sum of t_part over row groups, ds = Re(iFFT(t)).
 //
-// What bounds it on this card: per (e, c, f) it runs two N-point FFTs
-// through shared memory (the recompute and the adjoint), log2(N) passes each
-// with a barrier between passes.  At 64 epochs x 64 channels x 100 rows x
-// 2048 samples that is 9.2e10 flops at 5 N log2 N per FFT (1.4 ms at the
-// fp32 peak) against ~0.12 GB of compulsory device traffic (0.04 ms), so
-// the shared-memory passes and their barriers bound it, as in the forward.
+// What bounds it on this card: two N-point transforms per (e, c, f), 0.82 M
+// of 2048 points at 64 epochs x 64 channels x 100 rows, about 1.4 ms of
+// fp32 arithmetic at the card's peak, against about 0.12 GB of compulsory
+// traffic and ceil(F / G) E C K complex t partials written and read back
+// (0.84 GB at G = 4).
 //
-// What the design does about that:
+// The design, on the register-resident core of fft_regs.cuh (T = N/16
+// threads of 16 samples, 32 at N = 8192):
 //  * One block per (group of G bank rows, channel c); blockIdx.x walks the
 //    groups, so the blocks in flight share one channel's spectra in L2.
-//  * Occupancy first: the passes wait on shared memory and barriers, and
-//    only other warps hide that.  So each thread owns 4 samples (to
-//    N = 4096), and registers hold only what must live across epochs: the
-//    G dbank accumulators, plus the epoch's spectrum and t sums.  The bank
-//    and cotangent rows, the same for every epoch, are re-read through the
-//    read-only cache (a block's G rows are 12 KB a row, L1/L2-resident).
-//    The launch bounds ask for 1024 threads (32 warps) an SM, a
-//    64-register cap, as the forward kernel runs.
-//  * Each epoch's spectrum is loaded once into registers and serves the G
-//    rows' stage 0 and their epilogues.
-//  * The last inverse pass, the multiply by g and the first forward pass
-//    touch the same butterfly pairs (j, j + N/2) with the same twiddle, so
-//    they run fused in registers: two shared-memory passes and two barriers
-//    fewer per row and epoch.
-//  * The forward DFT is the decimation-in-frequency form with conjugated
-//    twiddles from the forward's float64-computed table: natural-order
-//    input straight from the inverse pass, bit-reversed output read back
-//    only on the first K bins.
+//    All E epochs run inside the block: no epoch is padded in.
+//  * The forward DFT is the core's inverse between two conjugations
+//    (fft_regs::forward_fft).  The inverse leaves sample t + T i in slot i,
+//    which is where g is loaded (coalesced) and where the forward transform
+//    takes its input; it returns bin t + T i in slot i, the layout of the
+//    spectrum's bins.  So a row is stage 0 in registers, the inverse, the
+//    product by scale g, the forward, and the epilogue on the thread's own
+//    bins: no bit reversal, no radix-2 pass, one twiddle table.
+//  * Registers hold the row's samples and, at the thread's own bins
+//    (fft_regs.cuh: ThreadPlanes), the epoch's t sums and the G dbank
+//    sums: to N = 4096 in registers; at N = 8192, where 32 samples a
+//    thread leave no room, in shared memory (at N = 16384, 1024 threads of
+//    64 registers, they stay in registers and spill).
+//  * The epoch's spectrum bins, which serve the G rows' stage 0 and
+//    epilogues, are re-read at each use (8 KB a row at N = 2048,
+//    L1-resident across the G rows): held in registers for a complex bank
+//    they gained nothing measurable.  So are the bank and cotangent rows,
+//    the same for every epoch (a block's G rows: 12 KB a row at N = 2048,
+//    L1-resident); holding g would take G x 16 more registers a thread.
+//  * Those loads are plain loads through pointers that are not
+//    __restrict__.  With __ldg on __restrict__ pointers the compiler
+//    hoisted them across the transforms' barriers and held them there:
+//    255 registers and spills at most N for a real bank, and a slower
+//    kernel (PERF.md).
+//  * G rows a block: 4 to N = 4096, 2 at 8192, 1 at 16384; a complex bank
+//    doubles the dbank sums (float2), so CX halves G.  G trades the t
+//    partials' bytes (1/G) against registers and the grid's size.  G = 2
+//    to N = 4096, and the sums in shared memory at every N, were slower on
+//    the card (PERF.md).
 //  * Each block writes its t partial for (e, c, group) once; torch sums the
 //    groups.  The reduction over f is deterministic, with no atomics.
-//  * G = 4 rows to N = 4096, 2 at 8192 and 1 at 16384, where a thread owns
-//    8 and 16 samples (1024 threads a block); N = 16384 spills (ptxas -v).
-//  * A complex bank doubles the dbank accumulators (G x PER float2), so CX
-//    halves G (2 rows to N = 4096, 1 above) to stay within the same
-//    64-register cap; t_part then has twice the row groups.  Its bank row
-//    is a float2 read through the read-only cache, as the real row is.
 // Everything runs in float32.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
-#include "radix2.cuh"
+#include "fft_regs.cuh"
 
 namespace {
 
 constexpr int kMinLog2N = 8;    // N = 256
-constexpr int kMaxLog2N = 14;   // N = 16384: 12 N bytes = 192 KB of shared memory
-
-template <int LOG2N, bool CX = false>
-struct BwdShape {
-  static constexpr int kN = 1 << LOG2N;
-  static constexpr int kPer = LOG2N <= 12 ? 4 : (LOG2N == 13 ? 8 : 16);
-  static constexpr int kThreads = kN / kPer;     // samples a thread: kPer
-  static constexpr int kRealRows = LOG2N <= 12 ? 4 : (LOG2N == 13 ? 2 : 1);
-  static constexpr int kRows = CX && kRealRows > 1 ? kRealRows / 2 : kRealRows;
-  // Blocks an SM should hold: 1024 threads at 64 registers each.
-  static constexpr int kMinBlocks = 1024 / kThreads;
-};
+constexpr int kMaxLog2N = 14;   // N = 16384
 
 template <int LOG2N, bool CX>
-__global__ void __launch_bounds__(BwdShape<LOG2N, CX>::kThreads,
-                                  BwdShape<LOG2N, CX>::kMinBlocks)
-fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
-                     const float* __restrict__ bank,      // (F, N); CX: float2
-                     const float* __restrict__ cot,       // (C, F, N): g
-                     const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
+struct BwdPlan {
+  using PL = fft_regs::Plan<LOG2N>;
+  using Acc = std::conditional_t<CX, float2, float>;
+  static constexpr int kRealRows = LOG2N <= 12 ? 4 : (LOG2N == 13 ? 2 : 1);
+  static constexpr int kRows = CX && kRealRows > 1 ? kRealRows / 2 : kRealRows;
+  // The t sums and the dbank sums in shared memory.
+  static constexpr bool kSumsSmem = LOG2N == 13;
+  // Shared memory in float2: the exchange buffer(s), the staged twiddles
+  // (fft_regs::SmemLayout), then (kSumsSmem) N t sums and G N dbank sums.
+  static constexpr int kSumsOffset = fft_regs::SmemLayout<LOG2N, 0>::kSumsOffset;
+  static constexpr size_t kBytes =
+      sizeof(float2) * kSumsOffset +
+      (kSumsSmem ? (sizeof(float2) + sizeof(Acc) * kRows) * PL::kN : 0);
+  static_assert(kBytes <= 232448, "shared memory per block");
+};
+
+// spec, bank and cot are read by plain loads and are not __restrict__: see
+// the header.
+template <int LOG2N, bool CX>
+__global__ void __launch_bounds__(fft_regs::Plan<LOG2N>::kThreads)
+fused_cwt_bwd_kernel(const float2* spec,                  // (E, C, L), L >= K
+                     const float* bank,                   // (F, N); CX: float2
+                     const float* cot,                    // (C, F, N): g
+                     const float2* __restrict__ twiddle,  // core table (fft_regs.cuh)
                      float* __restrict__ dbank_part,      // (C, F, K); CX: float2
                      float2* __restrict__ t_part,         // (groups, E, C, K)
                      int n_epochs, int n_channels, int n_freqs, int k_bins,
                      int row_len, float scale) {
-  using S = BwdShape<LOG2N, CX>;
-  using Acc = std::conditional_t<CX, float2, float>;
-  constexpr int N = S::kN;
-  constexpr int PER = S::kPer;
-  constexpr int T = S::kThreads;
-  constexpr int G = S::kRows;
-  constexpr int HALF = N / 2;
-  constexpr int REV = 32 - LOG2N;
-
+  using PL = fft_regs::Plan<LOG2N>;
+  using BP = BwdPlan<LOG2N, CX>;
+  using Acc = typename BP::Acc;
+  constexpr int kR = PL::kR;
+  constexpr int T = PL::kThreads;
+  constexpr int N = PL::kN;
+  constexpr int G = BP::kRows;
   extern __shared__ float2 smem[];
-  float2* buf = smem;        // N complex samples
-  float2* tw = smem + N;     // N/2 twiddles
+  float2* buf = smem;   // the exchange buffer(s)
 
   const int grp = blockIdx.x;
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   const int f0 = grp * G;
   const int rows = min(G, n_freqs - f0);
+  const float2* tw = fft_regs::stage_twiddles<LOG2N, 0>(smem, twiddle, tid);
 
-  for (int m = tid; m < HALF; m += T) tw[m] = twiddle[m];
+  float2* sums = smem + BP::kSumsOffset;
+  fft_regs::ThreadPlanes<float2, 1, LOG2N, BP::kSumsSmem> t_acc(sums, tid);
+  fft_regs::ThreadPlanes<Acc, G, LOG2N, BP::kSumsSmem> acc(
+      reinterpret_cast<Acc*>(sums + N), tid);
+  acc.zero();
 
-  // Thread-owned positions: sample / bin tid + i * T, i < PER.
-  Acc acc[G][PER];
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[j][i] = Acc{};
-  }
-
+  const float* bank_rows = bank + static_cast<size_t>(f0) * N;
+  const float2* cbank_rows = reinterpret_cast<const float2*>(bank) +
+                             static_cast<size_t>(f0) * N;
+  const float* g_rows = cot + (static_cast<size_t>(c) * n_freqs + f0) * N;
   const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
   const float2* sp = spec + static_cast<size_t>(c) * row_len;
   for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
-    float2 s_reg[PER], t_acc[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
+    // bin(i): bin tid + T i of this epoch's spectrum (0 at k >= K).
+    auto bin = [&](int i) {
       const int k = tid + i * T;
-      s_reg[i] = k < k_bins ? sp[k] : make_float2(0.f, 0.f);
-      t_acc[i] = make_float2(0.f, 0.f);
-    }
+      return k < k_bins ? sp[k] : make_float2(0.f, 0.f);
+    };
+    t_acc.zero();
 
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (j >= rows) break;   // block-uniform: the ragged last group
-      const float* bank_row = bank + static_cast<size_t>(f0 + j) * N;
-      const float2* cbank_row = reinterpret_cast<const float2*>(bank) +
-                                static_cast<size_t>(f0 + j) * N;
-      const float* g_row = cot + (static_cast<size_t>(c) * n_freqs + f0 + j) * N;
+      const float* bank_row = bank_rows + static_cast<size_t>(j) * N;
+      const float2* cbank_row = cbank_rows + static_cast<size_t>(j) * N;
+      const float* g_row = g_rows + static_cast<size_t>(j) * N;
 
-      // Stage 0: bank x spectrum, stored bit-reversed for the DIT passes.
+      float2 x[kR];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
+      for (int i = 0; i < kR; ++i) {
         const int k = tid + i * T;
         if constexpr (CX) {
-          const float2 b = k < k_bins ? __ldg(cbank_row + k) : make_float2(0.f, 0.f);
-          buf[__brev(k) >> REV] = cmul(s_reg[i], b);
+          x[i] = k < k_bins ? fft_regs::bank_times_rn(bin(i), cbank_row[k])
+                            : make_float2(0.f, 0.f);
         } else {
-          const float b = k < k_bins ? __ldg(bank_row + k) : 0.f;
-          buf[__brev(k) >> REV] = make_float2(s_reg[i].x * b, s_reg[i].y * b);
+          x[i] = k < k_bins ? fft_regs::bank_times_rn(bin(i), bank_row[k])
+                            : make_float2(0.f, 0.f);
         }
       }
-      __syncthreads();
-
-      // Inverse DFT, all passes but the last.
+      fft_regs::inverse_fft<LOG2N>(x, buf, tw, tid);
+      // Slot i holds sample tid + T i: weigh it by scale g there.
 #pragma unroll
-      for (int s = 1; s < LOG2N; ++s) {
-        radix2_dit_pass(buf, tw, s, LOG2N, tid, T);
-        __syncthreads();
+      for (int i = 0; i < kR; ++i) {
+        const float w = __fmul_rn(g_row[tid + i * T], scale);
+        x[i] = make_float2(__fmul_rn(x[i].x, w), __fmul_rn(x[i].y, w));
       }
+      fft_regs::forward_fft<LOG2N>(x, buf, tw, tid);
 
-      // Last inverse pass, x g scale, first forward pass, in registers:
-      // the pairs (i0, i0 + N/2) with twiddle tw[i0].
+      // Epilogue on the first K bins (slot i: bin tid + T i): dbank +=
+      // Re(u conj S), t += bank u; CX: dbank += u conj S, t += conj(bank) u.
 #pragma unroll
-      for (int m = 0; m < PER / 2; ++m) {
-        const int i0 = tid + m * T;
-        const int i1 = i0 + HALF;
-        const float2 w = tw[i0];
-        const float2 a = buf[i0];
-        const float2 t = cmul(buf[i1], w);
-        const float g0 = __ldg(g_row + i0) * scale;
-        const float g1 = __ldg(g_row + i1) * scale;
-        const float2 y0 = make_float2((a.x + t.x) * g0, (a.y + t.y) * g0);
-        const float2 y1 = make_float2((a.x - t.x) * g1, (a.y - t.y) * g1);
-        buf[i0] = make_float2(y0.x + y1.x, y0.y + y1.y);
-        buf[i1] = cmul_conj(make_float2(y0.x - y1.x, y0.y - y1.y), w);
-      }
-      __syncthreads();
-
-      // Forward DFT, the remaining passes: bit-reversed output.
-#pragma unroll
-      for (int s = LOG2N - 1; s >= 1; --s) {
-        radix2_dif_pass(buf, tw, s, LOG2N, tid, T);
-        __syncthreads();
-      }
-
-      // Epilogue on the first K bins: dbank += Re(u conj S), t += bank u;
-      // CX: dbank += u conj S, t += conj(bank) u.
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
+      for (int i = 0; i < kR; ++i) {
         const int k = tid + i * T;
         if (k < k_bins) {
-          const float2 u = buf[__brev(k) >> REV];
+          const float2 u = x[i];
+          const float2 sk = bin(i);
           if constexpr (CX) {
-            const float2 us = cmul_conj(u, s_reg[i]);
-            const float2 bu = cmul_conj(u, __ldg(cbank_row + k));
-            acc[j][i].x += us.x;
-            acc[j][i].y += us.y;
-            t_acc[i].x += bu.x;
-            t_acc[i].y += bu.y;
+            const float2 b = cbank_row[k];
+            Acc& a = acc(j, i);
+            a.x += u.x * sk.x + u.y * sk.y;
+            a.y += u.y * sk.x - u.x * sk.y;
+            float2& t = t_acc(0, i);
+            t.x += b.x * u.x + b.y * u.y;
+            t.y += b.x * u.y - b.y * u.x;
           } else {
-            const float b = __ldg(bank_row + k);
-            acc[j][i] += u.x * s_reg[i].x + u.y * s_reg[i].y;
-            t_acc[i].x += b * u.x;
-            t_acc[i].y += b * u.y;
+            const float b = bank_row[k];
+            acc(j, i) += u.x * sk.x + u.y * sk.y;
+            float2& t = t_acc(0, i);
+            t.x += b * u.x;
+            t.y += b * u.y;
           }
         }
       }
-      __syncthreads();   // the next row's stage 0 overwrites buf
     }
 
     float2* tp = t_part + ((static_cast<size_t>(grp) * n_epochs + e)
                            * n_channels + c) * k_bins;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
+    for (int i = 0; i < kR; ++i) {
       const int k = tid + i * T;
-      if (k < k_bins) tp[k] = t_acc[i];
+      if (k < k_bins) tp[k] = t_acc(0, i);
     }
   }
 
@@ -233,9 +218,9 @@ fused_cwt_bwd_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
     Acc* dp = reinterpret_cast<Acc*>(dbank_part) +
               (static_cast<size_t>(c) * n_freqs + f0 + j) * k_bins;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
+    for (int i = 0; i < kR; ++i) {
       const int k = tid + i * T;
-      if (k < k_bins) dp[k] = acc[j][i];
+      if (k < k_bins) dp[k] = acc(j, i);
     }
   }
 }
@@ -253,16 +238,16 @@ struct BwdArgs {
 
 template <int LOG2N, bool CX>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  using S = BwdShape<LOG2N, CX>;
-  const size_t smem = static_cast<size_t>(S::kN) * sizeof(float2) * 3 / 2;
+  using BP = BwdPlan<LOG2N, CX>;
+  constexpr size_t smem = BP::kBytes;
   auto kernel = fused_cwt_bwd_kernel<LOG2N, CX>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((a.n_freqs + S::kRows - 1) / S::kRows, a.n_channels);
-  kernel<<<grid, S::kThreads, smem, stream>>>(
+  const dim3 grid((a.n_freqs + BP::kRows - 1) / BP::kRows, a.n_channels);
+  kernel<<<grid, fft_regs::Plan<LOG2N>::kThreads, smem, stream>>>(
       a.spec, a.bank, a.cot, a.twiddle, a.dbank_part, a.t_part, a.n_epochs,
       a.n_channels, a.n_freqs, a.k_bins, a.row_len, a.scale);
   return cudaGetLastError();
@@ -277,13 +262,13 @@ int log2_of(int n) {
 template <bool CX>
 int rows_of(int log2n) {
   switch (log2n) {
-    case 8: return BwdShape<8, CX>::kRows;
-    case 9: return BwdShape<9, CX>::kRows;
-    case 10: return BwdShape<10, CX>::kRows;
-    case 11: return BwdShape<11, CX>::kRows;
-    case 12: return BwdShape<12, CX>::kRows;
-    case 13: return BwdShape<13, CX>::kRows;
-    case 14: return BwdShape<14, CX>::kRows;
+    case 8: return BwdPlan<8, CX>::kRows;
+    case 9: return BwdPlan<9, CX>::kRows;
+    case 10: return BwdPlan<10, CX>::kRows;
+    case 11: return BwdPlan<11, CX>::kRows;
+    case 12: return BwdPlan<12, CX>::kRows;
+    case 13: return BwdPlan<13, CX>::kRows;
+    case 14: return BwdPlan<14, CX>::kRows;
     default: return 0;
   }
 }
@@ -314,6 +299,7 @@ extern "C" int ninw_fused_cwt_bwd_rows(int n, int complex_bank) {
 // launch (0 on success); arguments the kernel does not take return
 // cudaErrorInvalidValue without launching.  complex_bank != 0 reads `bank`
 // as complex64 (F, N) and writes `dbank_part` as complex64 (C, F, K).
+// `twiddle` is the core's table (kernels/__init__.py: core_twiddles).
 extern "C" int ninw_fused_cwt_bwd(const void* spec, const void* bank,
                                   const void* cot, const void* twiddle,
                                   void* dbank_part, void* t_part, int n_epochs,

@@ -14,16 +14,17 @@ source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
 published with an atomic rename so concurrent builds race safely.  A failed
 build raises; there is no fallback.
 
-The epoch reductions ("power", "itc", "power_itc", real and complex bank)
+The epoch reductions ("power", "itc", "power_itc", real and complex bank),
+the per-signal power ("power_each"), the backward (real and complex bank)
 and the cross-pair sums run on the register-resident FFT core of
-``csrc/fft_regs.cuh``; "amax", "power_each", the backward and the
-synchrosqueezing kernel keep the radix-2 passes of ``csrc/inverse_row.cuh``.
-The core's plan, its twiddle table and where each thread's samples go are
-described here too (``core_plan``, ``core_twiddles``,
-``core_exchange_positions``, ``core_output_map``), so the CPU tests can
-emulate it; ``built_core_layout`` reads the same facts from the built
-library (``csrc/core_plan.cu``), and ``chip_smoke.py`` holds the two
-against each other.
+``csrc/fft_regs.cuh``; "amax" and the synchrosqueezing kernel keep the
+radix-2 passes of ``csrc/inverse_row.cuh``.  The core's plan, its twiddle
+table and where each thread's samples go are described here too
+(``core_plan``, ``core_twiddles``, ``core_exchange_positions``,
+``core_output_map``, and the backward's row groups, ``bwd_rows``), so the
+CPU tests can emulate it; ``built_core_layout`` reads the same facts from
+the built library (``csrc/core_plan.cu``, ``ninw_fused_cwt_bwd_rows``),
+and ``chip_smoke.py`` holds the two against each other.
 
 Each launcher validates its tensors (device, dtype, shape, contiguity),
 allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
@@ -51,16 +52,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: Epilogues of the fused forward kernel, by the code the C launcher takes.
-#: The first three reduce over epochs; "power_each" keeps every signal;
-#: "amax" gives each (channel, row, epoch) its peak power.
-EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "power_each": 3, "amax": 4}
+#: Epilogues of ``ninw_fused_cwt``, by the code it takes.  The first three
+#: reduce over epochs; "amax" gives each (channel, row, epoch) its peak
+#: power.  The per-signal power, "power_each", has its own entry point
+#: (``ninw_fused_power_each``, ``fused_power_each``).
+EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "amax": 3}
 #: The epilogues that take a complex64 bank (the reference's complex stage
 #: 0): the three epoch reductions.
 COMPLEX_EPILOGUES = ("power", "itc", "power_itc")
 #: The forward epilogues on the register-resident core (``fft_regs.cuh``),
-#: which take its twiddle table; "power_each" and "amax" take the radix-2
-#: one.
+#: which take its twiddle table; "amax" takes the radix-2 one.
 CORE_EPILOGUES = ("power", "itc", "power_itc")
 #: Signal lengths the fused kernels take: powers of two in this range (the
 #: radix-2 kernels' shared memory holds N samples and N/2 twiddles, 12*N
@@ -73,12 +74,14 @@ PAIR_EPILOGUES = {"coherence": 0, "phaselag": 1, "plv": 2}
 PAIR_PLANES = {"coherence": 4, "phaselag": 4, "plv": 2}
 
 #: Kernel launches since the last ``reset_launches()``: one key per epilogue
-#: of the forward kernel, "power_bwd" for the power backward, "ssq" for the
-#: synchrosqueezing kernel, one key per epilogue of the cross-pair kernel,
-#: and the complex-bank launches under their own keys ("power_cx",
-#: "itc_cx", "power_itc_cx", "power_bwd_cx"), so a run of a real-bank
-#: kernel is never read as a run of its complex-bank form.
-launches = dict.fromkeys((*EPILOGUES, "power_bwd", "ssq", *PAIR_EPILOGUES,
+#: of the forward kernel, "power_each" for the per-signal power,
+#: "power_bwd" for the power backward, "ssq" for the synchrosqueezing
+#: kernel, one key per epilogue of the cross-pair kernel, and the
+#: complex-bank launches under their own keys ("power_cx", "itc_cx",
+#: "power_itc_cx", "power_bwd_cx"), so a run of a real-bank kernel is never
+#: read as a run of its complex-bank form.
+launches = dict.fromkeys((*EPILOGUES, "power_each", "power_bwd", "ssq",
+                          *PAIR_EPILOGUES,
                           *(f"{e}_cx" for e in COMPLEX_EPILOGUES),
                           "power_bwd_cx"), 0)
 
@@ -159,6 +162,9 @@ def build(defines: tuple = (), csrc: str = CSRC) -> str:
 SIGNATURES = {
     "ninw_fused_cwt": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    "ninw_fused_power_each": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                              + [ctypes.c_void_p]),
     "ninw_fused_cwt_bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p]),
     "ninw_fused_cwt_bwd_rows": [ctypes.c_int, ctypes.c_int],
@@ -268,14 +274,26 @@ def core_output_map(n: int) -> np.ndarray:
     return np.arange(t_count)[:, None] + t_count * np.arange(r)[None, :]
 
 
+def bwd_rows(n: int, complex_bank: bool) -> int:
+    """The bank rows G a block of the backward kernel takes at signal
+    length ``n`` (``csrc/fused_cwt_bwd.cu``, ``BwdPlan::kRows``): 4 to
+    N = 4096, 2 at 8192, 1 at 16384; a complex bank halves it.  t_part has
+    ceil(F / G) row groups."""
+    core_plan(n)
+    rows = 4 if n <= 4096 else 2 if n == 8192 else 1
+    return max(rows // 2, 1) if complex_bank else rows
+
+
 def built_core_layout(n: int) -> dict:
     """The core's plan and exchange indices at signal length ``n`` as the
     built library computes them, with the functions its kernels call
     (``csrc/core_plan.cu``): "r", "threads", "plan" (the radices),
-    "buf_len", "twiddles" (the table's length), and for each pass but the
+    "buf_len", "twiddles" (the table's length), for each pass but the
     last its (T, R) "writes" and "reads", the counterparts of
-    ``core_exchange_positions(n, s)`` and ``core_pad(t + T i)``.  Builds
-    the library (needs ``nvcc``)."""
+    ``core_exchange_positions(n, s)`` and ``core_pad(t + T i)``, and
+    "bwd_rows", the backward's row groups for a real and a complex bank
+    (``ninw_fused_cwt_bwd_rows``), the counterparts of ``bwd_rows``.
+    Builds the library (needs ``nvcc``)."""
     lib = _load()
     head = np.zeros(9, dtype=np.int32)
     if lib.ninw_core_plan(n.bit_length() - 1, head.ctypes.data) != 0:
@@ -284,6 +302,8 @@ def built_core_layout(n: int) -> dict:
     layout = {"r": r, "threads": t_count,
               "plan": tuple(int(p) for p in head[5:5 + passes]),
               "buf_len": buf_len, "twiddles": twiddles,
+              "bwd_rows": tuple(lib.ninw_fused_cwt_bwd_rows(n, cx)
+                                for cx in (0, 1)),
               "writes": [], "reads": []}
     for s in range(passes - 1):
         writes = np.zeros((t_count, r), dtype=np.int32)
@@ -348,9 +368,7 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     Args:
       epilogue: "power" -> [mean power]; "itc" -> [itc];
         "power_itc" -> [mean power, itc], each (C, F, N) float32;
-        "power_each" -> [|cwt|^2 of every signal], (E, C, F, N) float32,
-        scaled 1/N^2 with no 1/E; "amax" -> [max over N of |cwt|^2 / N^2],
-        (C, F, E) float32.
+        "amax" -> [max over N of |cwt|^2 / N^2], (C, F, E) float32.
       spec: (E, C, L) complex64 CUDA tensor, contiguous: the signal spectra,
         of which the first ``k_bins`` bins of each row are used (L may exceed
         ``k_bins``, e.g. a whole rFFT row of N/2 + 1 bins).
@@ -370,8 +388,7 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
                          f"epilogues, not {epilogue!r}")
     e, c, row_len, f, n = _check(spec, bank, k_bins, complex_bank=cx)
     lib = _load()
-    shape = {"power_each": (e, c, f, n), "amax": (c, f, e)}.get(epilogue,
-                                                                (c, f, n))
+    shape = (c, f, e) if epilogue == "amax" else (c, f, n)
     outs = [torch.empty(shape, dtype=torch.float32, device=spec.device)
             for _ in range(2 if epilogue == "power_itc" else 1)]
     with torch.cuda.device(spec.device):
@@ -387,6 +404,72 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
     launches[key] += 1
     return outs
+
+
+def each_layout(dst: torch.Tensor, n_signals: int, n_freqs: int,
+                keep) -> tuple:
+    """What ``fused_power_each`` passes the kernel for ``dst``: (group,
+    stride_group, stride_signal, stride_row, keep_lo, keep_hi), in floats.
+    The kernel writes column n of signal b's row f at
+    ``dst.data_ptr() + (b // group) stride_group + (b % group)
+    stride_signal + f stride_row + (n - keep_lo)``: element
+    [b // group, b % group, f, n - keep_lo] of the (B / group, group, F,
+    keep_hi - keep_lo) view ``dst``.  Raises where ``dst`` is not such a
+    view or has a last stride other than 1."""
+    lo, hi = (int(v) for v in keep)
+    if dst.dtype != torch.float32 or dst.ndim != 4:
+        raise ValueError(f"dst must be a 4-D float32 view, got "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    outer, group, f, width = dst.shape
+    n_freqs = int(n_freqs)
+    if (outer * group != n_signals or f != n_freqs or width != hi - lo
+            or lo < 0 or hi <= lo):
+        raise ValueError(f"dst {tuple(dst.shape)} is not (B / group, group, "
+                         f"F, keep) for B={n_signals}, F={n_freqs}, "
+                         f"keep=[{lo}, {hi})")
+    strides = dst.stride()
+    if strides[3] != 1:
+        raise ValueError(f"dst strides {strides} must end in 1")
+    return group, strides[0], strides[1], strides[2], lo, hi
+
+
+def fused_power_each(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
+                     dst: torch.Tensor, keep) -> torch.Tensor:
+    """Launch "power_each" (``csrc/fused_cwt.cu``) writing only the columns
+    ``keep = (lo, hi)`` of every signal's rows, in place, into ``dst``.
+
+    Args:
+      spec: (E, C, L) complex64 CUDA tensor, contiguous, as for
+        ``fused_cwt``: B = E C signals.
+      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      k_bins: N/2 on the analytic path, N otherwise.
+      dst: a float32 CUDA view (B / group, group, F, hi - lo), last stride
+        1 (``each_layout``): element [b // group, b % group, f, n - lo]
+        receives |cwt|^2 / N^2 of signal b, row f, column n, for
+        lo <= n < hi.  Other elements of its storage are left as they are.
+      keep: (lo, hi), 0 <= lo < hi <= N.
+
+    Returns ``dst``.  Counted under "power_each"."""
+    if bank.is_complex():
+        raise ValueError(f"a complex bank takes only the {COMPLEX_EPILOGUES} "
+                         f"epilogues, not 'power_each'")
+    e, c, row_len, f, n = _check(spec, bank, k_bins)
+    layout = each_layout(dst, e * c, f, keep)
+    if layout[-1] > n:
+        raise ValueError(f"keep {tuple(keep)} passes N={n}")
+    if dst.device != spec.device:
+        raise ValueError("the kernel's tensors must be on one device")
+    lib = _load()
+    with torch.cuda.device(spec.device):
+        err = lib.ninw_fused_power_each(
+            spec.data_ptr(), bank.data_ptr(),
+            _core_twiddles(n, spec.device).data_ptr(), dst.data_ptr(),
+            e * c, f, n, k_bins, row_len, *layout, _stream(spec.device))
+    if err != 0:
+        raise RuntimeError(f"fused_power_each launch failed: CUDA error "
+                           f"{err} (B={e * c}, F={f}, N={n}, keep={keep})")
+    launches["power_each"] += 1
+    return dst
 
 
 def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
@@ -420,7 +503,7 @@ def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
     with torch.cuda.device(spec.device):
         err = lib.ninw_fused_cwt_bwd(
             spec.data_ptr(), bank.data_ptr(), g.data_ptr(),
-            _twiddles(n, spec.device).data_ptr(), dbank_part.data_ptr(),
+            _core_twiddles(n, spec.device).data_ptr(), dbank_part.data_ptr(),
             t_part.data_ptr(), e, c, f, n, k_bins, row_len, int(cx),
             _stream(spec.device))
     key = "power_bwd_cx" if cx else "power_bwd"

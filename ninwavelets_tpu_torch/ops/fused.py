@@ -129,8 +129,16 @@ def _kernel_bank(bank: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(epilogue, signals, bank, interpolate, precision):
-    """Spectra outside the kernel, then one kernel launch.  A complex bank
-    is taken for the epilogues of ``kernels.COMPLEX_EPILOGUES``."""
+    """Spectra outside the kernel, then one kernel launch."""
+    spec, k_bins = _kernel_spectrum(epilogue, signals, bank, interpolate)
+    return kernels.fused_cwt(epilogue, spec, _kernel_bank(bank), k_bins,
+                             precision)
+
+
+def _kernel_spectrum(epilogue, signals, bank, interpolate):
+    """``_spectrum`` of (E, C, N) signals the ``epilogue`` kernel takes, or
+    ValueError.  A complex bank is taken for the epilogues of
+    ``kernels.COMPLEX_EPILOGUES``."""
     takes = (_reduction_takes if epilogue in kernels.COMPLEX_EPILOGUES
              else _kernel_takes)
     if not takes(signals, bank):
@@ -138,14 +146,17 @@ def _launch(epilogue, signals, bank, interpolate, precision):
             f"the fused kernel ({epilogue!r}) does not take {signals.dtype} "
             f"signals {tuple(signals.shape)} with bank {tuple(bank.shape)} "
             f"{bank.dtype}; see supports()")
+    return _spectrum(signals, interpolate)
+
+
+def _spectrum(signals: torch.Tensor, interpolate: bool):
+    """(spectra, K) as the kernels read them: the contiguous rFFT rows and
+    K = N/2 on the analytic path, the FFT rows and K = N otherwise."""
     n = signals.shape[-1]
     signals = signals.to(torch.float32)
     if interpolate:
-        spec, k_bins = torch.fft.rfft(signals), n // 2
-    else:
-        spec, k_bins = torch.fft.fft(signals), n
-    return kernels.fused_cwt(epilogue, spec.contiguous(), _kernel_bank(bank),
-                             k_bins, precision)
+        return torch.fft.rfft(signals).contiguous(), n // 2
+    return torch.fft.fft(signals).contiguous(), n
 
 
 def mean_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
@@ -193,14 +204,9 @@ def _fused_power_bwd(signals: torch.Tensor, bank: torch.Tensor,
     ``_fused_power_bwd`` does in XLA.  A complex bank's dbank is PyTorch's
     convention, as ``mean_power_bwd`` gives it."""
     n = signals.shape[-1]
-    signals32 = signals.to(torch.float32)
-    if interpolate:
-        spec, k_bins = torch.fft.rfft(signals32), n // 2
-    else:
-        spec, k_bins = torch.fft.fft(signals32), n
+    spec, k_bins = _spectrum(signals, interpolate)
     dbank_part, t_part = kernels.fused_cwt_bwd(
-        spec.contiguous(), _kernel_bank(bank),
-        g.to(torch.float32).contiguous(), k_bins)
+        spec, _kernel_bank(bank), g.to(torch.float32).contiguous(), k_bins)
     dbank = torch.nn.functional.pad(dbank_part.sum(0) / n, (0, n - k_bins))
     ds = torch.fft.ifft(t_part.sum(0), n=n).real
     return ds.to(signals.dtype), dbank.to(bank.dtype)
@@ -330,9 +336,35 @@ def fused_power_from_bank(signals: torch.Tensor, bank: torch.Tensor,
     _no_grad_on_card("fused_power_from_bank", "ops.cwt.power_from_bank",
                      signals, bank)
     lead, n = signals.shape[:-1], signals.shape[-1]
-    out = _launch("power_each", signals.reshape(-1, 1, n), bank, interpolate,
-                  precision)[0]
+    flat = signals.reshape(-1, 1, n)
+    out = torch.empty((flat.shape[0], 1, bank.shape[0], n),
+                      dtype=torch.float32, device=signals.device)
+    _fused_power_each_into(flat, bank, interpolate, out, (0, n))
     return out.reshape(*lead, bank.shape[0], n)
+
+
+def _power_each_into(signals: torch.Tensor, bank: torch.Tensor,
+                     interpolate: bool, dst: torch.Tensor, keep) -> None:
+    """Columns ``keep = (lo, hi)`` of the per-signal power of (W, ..., N)
+    signals written into ``dst``, a (W, S, F, hi - lo) view (S the
+    signals' middle dims flattened; ``kernels.each_layout``), for
+    ``StreamingCWT``: on the card one "power_each" launch that writes only
+    those columns, straight into place; on the CPU the plain
+    ``power_from_bank``, cropped and copied."""
+    if signals.device.type == "cpu":
+        lo, hi = keep
+        dst.copy_(power_from_bank(signals, bank, interpolate)[..., lo:hi]
+                  .reshape(dst.shape))
+        return
+    _fused_power_each_into(signals, bank, interpolate, dst, keep)
+
+
+def _fused_power_each_into(signals, bank, interpolate, dst, keep) -> None:
+    """``_power_each_into`` through the kernel: the spectra, one launch."""
+    spec, k_bins = _kernel_spectrum(
+        "power_each", signals.reshape(-1, 1, signals.shape[-1]), bank,
+        interpolate)
+    kernels.fused_power_each(spec, _kernel_bank(bank), k_bins, dst, keep)
 
 
 def power_auto(signals: torch.Tensor, bank: torch.Tensor, *,

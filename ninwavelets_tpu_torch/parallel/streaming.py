@@ -10,9 +10,12 @@ global edges are zero-padded (linear convolution).
 
 A batch of windows, with any channel dims riding along, is one call of
 ``ops.fused.fused_power_from_bank`` (the "power_each" kernel on the card)
-or of the plain ``ops.cwt.power_from_bank``.  ``power_device`` pastes each
-batch into a (..., F, N) plane preallocated on the device; ``blocks`` and
-``power`` hand host numpy back, as the JAX package does.
+or of the plain ``ops.cwt.power_from_bank``.  ``power_device`` fills a
+(..., F, N) plane preallocated on the device: on the fused path one
+"power_each" launch a batch writes each window's interior straight into
+its place (``ops.fused._power_each_into``); the plain path crops each
+batch and pastes it in.  ``blocks`` and ``power`` hand host numpy back, as
+the JAX package does.
 ``ssq_power_device`` does the same with synchrosqueezed power: one call of
 ``ops.fused.fused_ssq_power_from_bank`` (the "amax" and synchrosqueezing
 kernels) per batch when the stream is fused and the grid has a single
@@ -30,8 +33,8 @@ from ..device import resolve_device
 from ..io.stream import ArraySource, iter_ext_batches
 from ..ops.bank import WaveletDef, make_fft_bank
 from ..ops.cwt import power_from_bank
-from ..ops.fused import (fused_power_from_bank, fused_ssq_power_from_bank,
-                         supports, supports_ssq)
+from ..ops.fused import (_power_each_into, fused_power_from_bank,
+                         fused_ssq_power_from_bank, supports, supports_ssq)
 from ..ops.sst import ssq_power_from_bank, uniform_grid_hint
 from .chunked import halo_samples, pow2_halo
 
@@ -174,7 +177,14 @@ class StreamingCWT:
         e.g. ``io.EDFSource(path)`` streams a recording straight off the
         file mmap, window batch by window batch; the gather of batch ``i+1``
         runs on a worker thread while the device computes batch ``i``."""
-        return self._assemble(source, self._window_batch)
+        if not self._fused:
+            return self._assemble(source, self._window_batch)
+        keep = (self.halo, self.halo + self.window)
+
+        def write(ext, dst):
+            _power_each_into(ext, self._bank, self.interpolate, dst, keep)
+
+        return self._fill(source, write)
 
     def ssq_power_device(self, signal: np.ndarray,
                          rel_threshold: float = 1e-6) -> torch.Tensor:
@@ -212,21 +222,32 @@ class StreamingCWT:
     def _assemble(self, source, window_fn) -> torch.Tensor:
         """The (..., F, N) plane of ``window_fn`` over the window batches of
         ``source``: ``window_fn`` maps a (W, ..., ext) batch on the device
-        to its (W, ..., F, window) cropped block.
+        to its (W, ..., F, window) cropped block, pasted into place."""
+        def write(ext, dst):
+            dst.copy_(window_fn(ext).reshape(dst.shape))
+
+        return self._fill(source, write)
+
+    def _fill(self, source, write) -> torch.Tensor:
+        """The (..., F, N) plane over the window batches of ``source``:
+        ``write(ext, dst)`` puts the batch's (W, ..., ext) windows'
+        interiors into ``dst``, the (W, S, F, window) view of their place
+        in the plane (S the lead dims flattened).
 
         The plane is preallocated as (..., F, n_batches * batch * window)
-        and returned as the view of its first N samples: the block of each
-        batch lands as one (..., F, W * window) slab, with the crop and the
-        transpose in the one copy."""
+        and returned as the view of its first N samples: the windows of a
+        batch are one (..., F, W * window) slab."""
         n = int(source.n_samples)
         lead = tuple(source.lead)
+        n_freqs = self.freqs.shape[0]
         span = self.batch * self.window
         n_batches = -(-n // span)
-        buf = torch.empty(lead + (self.freqs.shape[0], n_batches * span),
+        buf = torch.empty(lead + (n_freqs, n_batches * span),
                           dtype=torch.float32, device=self.device)
+        rows = buf.view(-1, n_freqs, n_batches * span)
         for batch_starts, ext in self._source_batches(source):
-            block = window_fn(torch.from_numpy(ext).to(self.device))
             start = batch_starts[0]
-            buf[..., start:start + span].unflatten(
-                -1, (self.batch, self.window)).copy_(block.movedim(0, -2))
+            dst = rows[..., start:start + span].unflatten(
+                -1, (self.batch, self.window)).permute(2, 0, 1, 3)
+            write(torch.from_numpy(ext).to(self.device), dst)
         return buf[..., :n]

@@ -207,8 +207,8 @@ def test_launch_with_complex_bank_contract(monkeypatch, epilogue,
 def test_launch_refuses_complex_bank_for_per_signal_power():
     bank = torch.from_numpy(_bank("MexicanHat"))
     with pytest.raises(ValueError, match="power_each"):
-        tfused._launch("power_each", torch.zeros(4, 1, N), bank, True,
-                       "exact")
+        tfused._fused_power_each_into(torch.zeros(4, 1, N), bank, True,
+                                      torch.zeros((4, 1, 5, N)), (0, N))
 
 
 # -- the launchers' validation (no build attempted) ---------------------------
@@ -240,8 +240,8 @@ def test_launcher_takes_complex64_for_the_reductions(no_build, epilogue):
 @pytest.mark.parametrize("call,match", [
     (lambda b: kernels.fused_cwt("power", _spec(), b.to(torch.complex128),
                                  N // 2, "exact"), "complex64"),
-    (lambda b: kernels.fused_cwt("power_each", _spec(), b, N // 2, "exact"),
-     "power_each"),
+    (lambda b: kernels.fused_power_each(_spec(), b, N // 2, torch.zeros(
+        (2, 3, 5, N)), (0, N)), "power_each"),
     (lambda b: kernels.fused_cwt("amax", _spec(), b, N // 2, "exact"),
      "amax"),
     (lambda b: kernels.fused_cwt_bwd(_spec(), b.to(torch.complex128),

@@ -112,12 +112,16 @@ def test_power_auto_sends_complex_banks_to_the_plain_path():
 
 
 def test_power_each_has_an_epilogue_and_a_counter():
-    assert kernels.EPILOGUES["power_each"] == 3
+    """"power_each" has its own launcher and entry point, not a code of
+    ``ninw_fused_cwt``, and its own counter."""
+    assert "power_each" not in kernels.EPILOGUES
+    assert "ninw_fused_power_each" in kernels.SIGNATURES
     assert "power_each" in kernels.launches
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.fused_cwt("power_each",
-                          torch.zeros((4, 1, 513), dtype=torch.complex64),
-                          torch.zeros(3, 1024), 512, "exact")
+        kernels.fused_power_each(
+            torch.zeros((4, 1, 513), dtype=torch.complex64),
+            torch.zeros(3, 1024), 512, torch.zeros((4, 1, 3, 1024)),
+            (0, 1024))
 
 
 # -- halo geometry ------------------------------------------------------------
