@@ -12,14 +12,16 @@ What it does, failing (non-zero exit, no result line) if any check fails:
    synchrosqueezing, and ``csrc/fused_pair.cu``, the cross-pair sums) for
    sm_90a, one nvcc process a source, all started together, into one
    library, and prints each kernel's registers and spills (``ptxas -v``):
-   the epoch reductions (``fused_cwt_kernel<EPI, LOG2N, CX>``), the
-   backward (``fused_cwt_bwd_kernel<LOG2N, CX>``), the per-signal power
-   (``fused_each_kernel<LOG2N>``) and the cross-pair sums
-   (``fused_pair_kernel<EPI, LOG2N>``) run on the register-resident FFT
-   core of ``csrc/fft_regs.cuh``, one instantiation per N; none of them
-   may spill at N <= 8192, nor "power_each" at N = 16384.  "amax" and
-   synchrosqueezing run on the radix-2 passes of
-   ``csrc/inverse_row.cuh``.  At every N the core's plan, exchange
+   every kernel runs on the register-resident FFT core of
+   ``csrc/fft_regs.cuh``, one instantiation per N: the epoch reductions
+   (``fused_cwt_kernel<EPI, LOG2N, CX>``), the backward
+   (``fused_cwt_bwd_kernel<LOG2N, CX>``), the per-signal power
+   (``fused_each_kernel<LOG2N>``), the noise gate's peaks
+   (``fused_amax_kernel<LOG2N>``), synchrosqueezing
+   (``fused_ssq_kernel<LOG2N, LOG>``) and the cross-pair sums
+   (``fused_pair_kernel<EPI, LOG2N>``); none of them may spill at
+   N <= 8192, nor "power_each" and "amax" at N = 16384 (synchrosqueezing's
+   spill there is printed).  At every N the core's plan, exchange
    indices and the backward's row groups as the library computes them
    (``csrc/core_plan.cu``, ``ninw_fused_cwt_bwd_rows``) must equal the
    host's model that the CPU tests emulate (``kernels.core_plan``,
@@ -127,8 +129,11 @@ Slice 4, synchrosqueezing (the serving data; the JAX package's
 16. Drives ``EpochsWavelet.ssq_power_all`` at 200 x 64 x 2048 with
    ``Morse(interpolate=True)`` on ``arange(1, 101)`` Hz (a "lin" row map),
    then on 48 log-spaced rows (``4 * 2^(k/8)``) at a ragged 19 epochs, the
-   counters zeroed just before each: "amax" (K5a) and "ssq" (K5b) must
-   each launch exactly once per call.
+   counters zeroed just before each: "amax" (K5a,
+   ``fused_amax_kernel``) and "ssq" (K5b, ``fused_ssq_kernel``), both on
+   the register-resident core and forming W and its power through the
+   same code (``csrc/ssq_row.cuh``), must each launch exactly once per
+   call.
 17. Holds K5a's (C, E) peaks against the plain max of ``power_from_bank``
    (max|d| / max|ref| <= 1e-5) and the kernel path against the plain
    ``ssq_mean_power_from_bank`` on the same tensors: each time column's
@@ -146,7 +151,10 @@ Slice 4, synchrosqueezing (the serving data; the JAX package's
    at the gates of 17.
 19. Times (median of 5 after warm-up, fresh values each run) the kernel
    path of the 200-epoch call against the plain path, K5a and K5b alone by
-   CUDA events, and the 64-channel ``RawWavelet.ssq_power``; then breaks
+   CUDA events (K5b also with every cell gated to its own row, floors
+   = inf, so that its adds coalesce: the scattered adds' share), and the
+   64-channel ``RawWavelet.ssq_power``; prints K5a's and K5b's times
+   beside the radix-2 kernels' recorded ones (``RADIX2_MS``); then breaks
    one 64-channel recording batch down by CUDA events.
 
 Slice 5, pair connectivity (the serving data as 64 channel pairs: channel
@@ -295,9 +303,9 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 #: The radix-2 kernels' times of the rows now on the register-resident core
 #: (PERF.md section 6, from this script's runs on an NVIDIA H100 80GB HBM3
 #: at 700 W: the real and K6 rows before slice 6, the cx rows in it; cx at
-#: interpolate=False; K3 and K4 with their wrappers' FFTs, K4 writing the
-#: whole window).  Recorded, not measured here: printed on a text line
-#: beside this run's time, never in the kernels' JSON record.
+#: interpolate=False; K3, K4, K5a and K5b with their wrappers' FFTs, K4
+#: writing the whole window).  Recorded, not measured here: printed on a
+#: text line beside this run's time, never in the kernels' JSON record.
 RADIX2_MS = {"fused_cwt[power]": 56.0220340000015,
              "fused_cwt[itc]": 56.072407000002045,
              "fused_cwt[power_itc]": 56.29238400000247,
@@ -309,7 +317,9 @@ RADIX2_MS = {"fused_cwt[power]": 56.0220340000015,
              "fused_pair[plv]": 113.98615299999904,
              "fused_cwt_bwd[power]": 36.94156099999901,
              "fused_cwt_bwd_cx[power]": 35.81185200002324,
-             "fused_cwt[power_each]": 25.219659000001116}
+             "fused_cwt[power_each]": 25.219659000001116,
+             "fused_cwt[amax]": 56.899150999996095,
+             "fused_ssq": 115.54801000001191}
 
 
 class SmokeFailure(Exception):
@@ -396,11 +406,13 @@ def bound(flops, nbytes):
 
 def print_ptxas(lib):
     """Registers, shared memory and spills per kernel from ``ptxas -v``;
-    returns the instantiations on the register-resident core that spill
-    where none may: the reductions and the cross-pair sums
-    (``fused_cwt_kernel<EPI,LOG2N,CX>``, ``fused_pair_kernel<EPI,LOG2N>``)
-    and the backward (``fused_cwt_bwd_kernel<LOG2N,CX>``) at N <= 8192,
-    "power_each" (``fused_each_kernel<LOG2N>``) at every N."""
+    returns the instantiations that spill where none may: the reductions
+    and the cross-pair sums (``fused_cwt_kernel<EPI,LOG2N,CX>``,
+    ``fused_pair_kernel<EPI,LOG2N>``), the backward
+    (``fused_cwt_bwd_kernel<LOG2N,CX>``) and synchrosqueezing
+    (``fused_ssq_kernel<LOG2N,LOG>``) at N <= 8192, "power_each" and
+    "amax" (``fused_each_kernel<LOG2N>``, ``fused_amax_kernel<LOG2N>``) at
+    every N."""
     name, args, spilling = "?", [], []
     with open(lib[:-3] + ".log") as fh:
         for line in fh:
@@ -424,9 +436,9 @@ def no_spill(name, args):
     """True for the instantiations that must not spill (``print_ptxas``)."""
     if name.startswith(("fused_cwt_kernel<", "fused_pair_kernel<")):
         return int(args[1]) <= 13
-    if name.startswith("fused_cwt_bwd_kernel<"):
+    if name.startswith(("fused_cwt_bwd_kernel<", "fused_ssq_kernel<")):
         return int(args[0]) <= 13
-    return name.startswith("fused_each_kernel<")
+    return name.startswith(("fused_each_kernel<", "fused_amax_kernel<"))
 
 
 def event_ms(fn):
@@ -1148,23 +1160,27 @@ def ssq_phase(data):
           f"(rFFT + K5a + K5b) {path_ms} ms, plain torch.fft {plain_ms} ms")
     amax_ms, amax_plain_ms = median_ms(x, [lambda: fused.ssq_peaks(x, bank),
                                            lambda: plain_peaks(x, bank)])
-    print(f"time peaks (C, E): K5a path (rFFT + kernel + max over rows) "
-          f"{amax_ms} ms, plain {amax_plain_ms} ms")
+    print(f"time peaks (C, E): K5a path (rFFT + zero-fill + kernel + max "
+          f"over rows) {amax_ms} ms, plain {amax_plain_ms} ms")
     spec = torch.fft.rfft(x).contiguous()
     floors = (1e-6 * peaks).contiguous()
     ssq_ms = median_ms(x, [lambda: kernels.fused_ssq(
         torch.fft.rfft(x).contiguous(), bank, floors, hint, SFREQ)])[0]
     print(f"time K5b path (rFFT + zero-fill + kernel) {ssq_ms} ms")
-    for name, fn in (("K5a alone", lambda: kernels.fused_cwt(
-                          "amax", spec, bank, N // 2, "fast3")),
+    no_gate = torch.full_like(floors, math.inf)
+    for name, fn in (("K5a alone (zero-fill included)", lambda:
+                      kernels.fused_cwt("amax", spec, bank, N // 2, "fast3")),
                      ("K5b alone (zero-fill included)", lambda:
                       kernels.fused_ssq(spec, bank, floors, hint, SFREQ)),
+                     ("K5b alone, every cell gated to its own row (floors "
+                      "= inf: coalesced adds)", lambda: kernels.fused_ssq(
+                          spec, bank, no_gate, hint, SFREQ)),
                      ("K1 'power' alone, for scale", lambda:
                       kernels.fused_cwt("power", spec, bank, N // 2,
                                         "fast3"))):
         print(f"breakdown {name}: {event_ms(fn)} ms (CUDA events, mean of "
               f"{REPS})")
-    del spec, x
+    del spec, x, no_gate
     torch.cuda.empty_cache()
     rw_ms = host_ms(lambda d: nt.RawWavelet(
         ArrayRaw(d), morse, window=REC_WINDOW,
@@ -1185,10 +1201,14 @@ def ssq_phase(data):
     parts = {
         "rFFT of the batch": lambda: torch.fft.rfft(
             xb.reshape(1, -1, REC_EXT)),
-        "K5a alone": lambda: kernels.fused_cwt(
+        "K5a alone (zero-fill included)": lambda: kernels.fused_cwt(
             "amax", spec_b, stream._bank, REC_EXT // 2, "fast3"),
         "K5b alone (zero-fill included)": lambda: kernels.fused_ssq(
             spec_b, stream._bank, floors_b, rec_hint, SFREQ),
+        "K5b alone, every cell gated to its own row (floors = inf)":
+            lambda: kernels.fused_ssq(spec_b, stream._bank,
+                                      torch.full_like(floors_b, math.inf),
+                                      rec_hint, SFREQ),
         "zero-fill of the (512, 100, 16384) plane": lambda: torch.zeros(
             (REC_BATCH * REC_C, REC_F, REC_EXT), device="cuda"),
     }
@@ -1203,17 +1223,20 @@ def ssq_phase(data):
                        4 * (E * C * N + F * N + C * F * E))
     ssq_bound = bound(E * C * (fft / 2 + 2 * F * fft),
                       4 * (E * C * N + F * N + C * E + C * F * N))
-    return [{"name": "fused_cwt[amax]", "route": "cuda",
-             "source": KERNEL_SOURCE, "replaces": AMAX_REPLACES,
-             "launches": main_counts["amax"], "max_abs_err": err_amax,
-             "ms": amax_ms, "plain_ms": amax_plain_ms,
-             "bound_ms": amax_bound[0], "bound_by": amax_bound[1],
-             "library_ms": None},
-            {"name": "fused_ssq", "route": "cuda", "source": SSQ_SOURCE,
-             "replaces": SSQ_REPLACES, "launches": main_counts["ssq"],
-             "max_abs_err": err_ssq, "ms": ssq_ms, "plain_ms": plain_ms,
-             "bound_ms": ssq_bound[0], "bound_by": ssq_bound[1],
-             "library_ms": None}]
+    records = [{"name": "fused_cwt[amax]", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": AMAX_REPLACES,
+                "launches": main_counts["amax"], "max_abs_err": err_amax,
+                "ms": amax_ms, "plain_ms": amax_plain_ms,
+                "bound_ms": amax_bound[0], "bound_by": amax_bound[1],
+                "library_ms": None},
+               {"name": "fused_ssq", "route": "cuda", "source": SSQ_SOURCE,
+                "replaces": SSQ_REPLACES, "launches": main_counts["ssq"],
+                "max_abs_err": err_ssq, "ms": ssq_ms, "plain_ms": plain_ms,
+                "bound_ms": ssq_bound[0], "bound_by": ssq_bound[1],
+                "library_ms": None}]
+    for record in records:
+        print_radix2_ms(record)
+    return records
 
 
 def pair_b(a):

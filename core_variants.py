@@ -13,13 +13,15 @@ loaded while the row before is transformed) and ``NINW_CORE_PINGPONG=0``
 (one exchange buffer, two barriers an exchange).  A variant is timed only
 on the kernels whose code its switch changes at the shapes timed here
 (``VARIANTS``): both flags act only to N = 4096, so neither changes
-"power_each" at 16384, and the backward has no loads ahead.  ``--parent``
-names the root of another checkout, for example a ``git archive`` of the
-parent commit unpacked into a git-ignored directory, whose epoch
-reductions and cross-pair sums take the core's twiddle table, whose
-backward and "power_each" take the radix-2 table, and whose
-``ninw_fused_cwt`` launches "power_each" as its epilogue 3
-(``PARENT_POWER_EACH``); it is timed on every kernel.  Every library is
+"power_each" or the recording batch of "amax" and synchrosqueezing at
+16384, and the backward, "amax" and synchrosqueezing load no bins ahead.
+``--parent`` names the root of another checkout, for example a ``git
+archive`` of the parent commit unpacked into a git-ignored directory; it
+is timed on every kernel.  Its "amax" and synchrosqueezing kernels take
+the N/2 radix-2 twiddle table (``radix2_twiddles``, this script's own copy
+of the helper the package had) where its ``csrc`` still holds
+``radix2.cuh`` (they ran on radix-2 passes up to commit 1904d03), and
+every other kernel takes the core's table.  Every library is
 built by ``kernels.build`` (the builds run at once) and bound by
 ``kernels.open_library``; for each variant it prints the instantiations
 that spill where ``chip_smoke.print_ptxas`` allows none.
@@ -27,18 +29,21 @@ that spill where ``chip_smoke.print_ptxas`` allows none.
 Each kernel is timed alone by CUDA events (mean of 5 after a warm-up,
 ``chip_smoke.event_ms``) on the same tensors, in ROUNDS rounds, each
 library that times it once a round, in turn and in reverse order on
-alternate rounds: the epoch reductions ("power", "itc", "power_itc", real
-bank) and the cross-pair sums ("coherence", "phaselag", "plv") at 200
-epochs x 64 channels x 2048 samples x 100 Morse rows, the backward (K3,
-real Morse and complex MexicanHat bank) at 64 x 64 x 2048 x 100, alone
-and with the sums of its partials that ``ops.fused._fused_power_bwd``
-runs after it (t over row groups, dbank over channels), all with
-``interpolate=True`` (N/2 bins), and "power_each" (K4, whole windows) at
-the long recording's 512 signals x 16384 samples x 100 rows.  For each
-kernel it prints every library's median and quartiles and, against the
-core, how many rounds each other library lost.  Prints the card's name and
-power limit first and a JSON object of every time last.  Needs a CUDA
-card and ``nvcc``; exits 2 without CUDA.
+alternate rounds: the epoch reductions ("power", "itc", "power_itc",
+real bank), the cross-pair sums ("coherence", "phaselag", "plv"), the
+noise gate's peaks ("amax", K5a) and synchrosqueezing (K5b, "lin" rows
+1-100 Hz, floors 1e-6 of the peaks), each of the last two with its
+output's zero-fill, at 200 epochs x 64 channels x 2048 samples x 100
+Morse rows, the backward (K3, real Morse and complex MexicanHat bank) at
+64 x 64 x 2048 x 100, alone and with the sums of its partials that
+``ops.fused._fused_power_bwd`` runs after it (t over row groups, dbank
+over channels), all with ``interpolate=True`` (N/2 bins), and
+"power_each" (K4, whole windows), "amax" and synchrosqueezing ("lin"
+rows 2-101 Hz) at the long recording's 512 signals x 16384 samples x 100
+rows. For each kernel it prints every library's median and quartiles
+and, against the core, how many rounds each other library lost. Prints
+the card's name and power limit first and a JSON object of every time
+last. Needs a CUDA card and ``nvcc``; exits 2 without CUDA.
 """
 import argparse
 import contextlib
@@ -53,12 +58,21 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Each build of this checkout: its defines and the kernels it is timed on.
-VARIANTS = {"core": ((), ("cwt", "pair", "bwd", "each")),
+VARIANTS = {"core": ((), ("cwt", "pair", "bwd", "each", "ssq", "ssq_rec")),
             "no_ahead": (("NINW_CORE_AHEAD=0",), ("cwt", "pair")),
-            "no_pingpong": (("NINW_CORE_PINGPONG=0",), ("cwt", "pair", "bwd"))}
-#: The other checkout's ``ninw_fused_cwt`` code of "power_each".
-PARENT_POWER_EACH = 3
+            "no_pingpong": (("NINW_CORE_PINGPONG=0",),
+                            ("cwt", "pair", "bwd", "ssq"))}
 ROUNDS = 10
+
+
+def radix2_twiddles(n: int, device):
+    """exp(+2 pi i m / n) for m < n/2, computed in float64, stored complex64:
+    the table of the radix-2 passes that "amax" and synchrosqueezing ran on
+    before they moved to the core."""
+    import torch
+    m = np.arange(n // 2, dtype=np.float64)
+    return torch.from_numpy(np.exp(2j * np.pi * m / n).astype(
+        np.complex64)).to(device)
 
 
 def main() -> int:
@@ -72,23 +86,29 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import sst
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
     builds = {name: {"defines": d} for name, (d, _) in VARIANTS.items()}
     timed = {name: kinds for name, (_, kinds) in VARIANTS.items()}
+    parent_radix2 = False
     if args.parent:
         timed["parent"] = VARIANTS["core"][1]
         builds["parent"] = {"csrc": os.path.join(
             os.path.abspath(args.parent), "ninwavelets_tpu_torch", "csrc")}
+        parent_radix2 = os.path.exists(os.path.join(builds["parent"]["csrc"],
+                                                    "radix2.cuh"))
+        print(f"parent {args.parent}: amax and synchrosqueezing on "
+              f"{'radix-2 passes' if parent_radix2 else 'the core'}")
     with ThreadPoolExecutor(len(builds)) as pool:
         paths = dict(zip(builds, pool.map(lambda kw: kernels.build(**kw),
                                           builds.values())))
     libs = {name: kernels.open_library(path, (
         "ninw_fused_cwt", "ninw_fused_pair", "ninw_fused_cwt_bwd",
-        "ninw_fused_cwt_bwd_rows") + (() if name == "parent" else (
-            "ninw_fused_power_each",))) for name, path in paths.items()}
+        "ninw_fused_cwt_bwd_rows", "ninw_fused_power_each", "ninw_fused_ssq"))
+        for name, path in paths.items()}
     for name in VARIANTS:
         with contextlib.redirect_stdout(io.StringIO()):
             spilling = cs.print_ptxas(paths[name])
@@ -106,22 +126,24 @@ def main() -> int:
     out = torch.empty((4, c, f, n), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     core_tw = {m: kernels._core_twiddles(m, x.device) for m in (n, cs.REC_EXT)}
-    radix2_tw = {m: kernels._twiddles(m, x.device) for m in (n, cs.REC_EXT)}
+    radix2_tw = {m: radix2_twiddles(m, x.device) for m in (n, cs.REC_EXT)}
 
-    def table(name, m, radix2_in_parent):
-        return (radix2_tw if name == "parent" and radix2_in_parent
-                else core_tw)[m].data_ptr()
+    def table(name, m, ssq_kernel=False):
+        """The twiddle table for library ``name`` at N = ``m``; ssq_kernel:
+        for an "amax" or synchrosqueezing launch."""
+        return (radix2_tw if name == "parent" and parent_radix2
+                and ssq_kernel else core_tw)[m].data_ptr()
 
     def reduction(name, code):
         return lambda: libs[name].ninw_fused_cwt(
-            code, spec_a.data_ptr(), bank.data_ptr(), table(name, n, False),
+            code, spec_a.data_ptr(), bank.data_ptr(), table(name, n),
             out[0].data_ptr(), out[1].data_ptr(), e, c, f, n, n // 2,
             n // 2 + 1, 0, stream)
 
     def pair(name, code):
         return lambda: libs[name].ninw_fused_pair(
             code, spec_a.data_ptr(), spec_b.data_ptr(), bank.data_ptr(),
-            table(name, n, False), out.data_ptr(), e, c, f, n, n // 2,
+            table(name, n), out.data_ptr(), e, c, f, n, n // 2,
             n // 2 + 1, stream)
 
     # K3 at the training shape, each library's own t partials.
@@ -146,7 +168,7 @@ def main() -> int:
         def run():
             err = libs[name].ninw_fused_cwt_bwd(
                 spec_g.data_ptr(), bwd_banks[kind].data_ptr(), g.data_ptr(),
-                table(name, n, True), dbank.data_ptr(), t_part.data_ptr(),
+                table(name, n), dbank.data_ptr(), t_part.data_ptr(),
                 e_grad, c, f, n, n // 2, n // 2 + 1, int(kind == "cx"),
                 stream)
             if sums:
@@ -163,16 +185,49 @@ def main() -> int:
     each_out = torch.empty((b_rec, f_rec, ext), device="cuda")
 
     def each(name):
-        if name == "parent":
-            return lambda: libs[name].ninw_fused_cwt(
-                PARENT_POWER_EACH, spec_rec.data_ptr(), bank_rec.data_ptr(),
-                table(name, ext, True), each_out.data_ptr(), None, b_rec, 1,
-                f_rec, ext, ext // 2, ext // 2 + 1, 0, stream)
         return lambda: libs[name].ninw_fused_power_each(
-            spec_rec.data_ptr(), bank_rec.data_ptr(), table(name, ext, True),
+            spec_rec.data_ptr(), bank_rec.data_ptr(), table(name, ext),
             each_out.data_ptr(), b_rec, f_rec, ext, ext // 2, ext // 2 + 1,
             *kernels.each_layout(each_out.view(b_rec, 1, f_rec, ext), b_rec,
                                  f_rec, (0, ext)), stream)
+
+    # K5a and K5b at the serving shape ("lin" rows 1-100 Hz) and on one
+    # recording batch laid out as the streaming path lays it, (1, 512, 16384).
+    rec_freqs = np.arange(2.0, 2.0 + f_rec)
+    ssq_bank_rec = cs.morse_bank(rec_freqs, ext, True)
+    peaks = kernels.fused_cwt("amax", spec_a, bank, n // 2, "fast3")[0]
+    peaks_rec = kernels.fused_cwt("amax", spec_rec.view(1, b_rec, -1),
+                                  ssq_bank_rec, ext // 2, "fast3")[0]
+    ssq_cases = {
+        "ssq": (spec_a, bank, e, c, n, (1e-6 * peaks.amax(1)).contiguous(),
+                sst.uniform_grid_hint(np.float32(freqs)), peaks, out[0]),
+        "ssq_rec": (spec_rec, ssq_bank_rec, 1, b_rec, ext,
+                    (1e-6 * peaks_rec.amax(1)).contiguous(),
+                    sst.uniform_grid_hint(np.float32(rec_freqs)), peaks_rec,
+                    each_out)}
+
+    def amax(name, case):
+        sp, bk, e_, c_, m, _, _, dst, _ = ssq_cases[case]
+
+        def run():
+            dst.zero_()
+            return libs[name].ninw_fused_cwt(
+                kernels.EPILOGUES["amax"], sp.data_ptr(), bk.data_ptr(),
+                table(name, m, ssq_kernel=True), dst.data_ptr(), None, e_,
+                c_, bk.shape[0], m, m // 2, m // 2 + 1, 0, stream)
+        return run
+
+    def ssq(name, case):
+        sp, bk, e_, c_, m, floors, hint, _, dst = ssq_cases[case]
+
+        def run():
+            dst.zero_()
+            return libs[name].ninw_fused_ssq(
+                sp.data_ptr(), bk.data_ptr(), table(name, m, ssq_kernel=True),
+                floors.data_ptr(), dst.data_ptr(), e_, c_, bk.shape[0], m,
+                m // 2 + 1, 0, 2.0 * np.pi * cs.SFREQ / m, hint[1], hint[2],
+                stream)
+        return run
 
     rows = {f"cwt[{epi}]": ("cwt", lambda name, epi=epi: reduction(
                 name, kernels.EPILOGUES[epi]))
@@ -187,6 +242,10 @@ def main() -> int:
         rows[f"{key}[power]+sums"] = ("bwd", lambda name, kind=kind:
                                       backward(name, kind, True))
     rows["each[power_each]"] = ("each", each)
+    for case in ("ssq", "ssq_rec"):
+        rows[f"{case}:cwt[amax]"] = (case, lambda name, case=case: amax(
+            name, case))
+        rows[f"{case}:ssq"] = (case, lambda name, case=case: ssq(name, case))
 
     times = {}
     for key, (kind, make) in rows.items():

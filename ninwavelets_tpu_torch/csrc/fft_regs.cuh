@@ -1,10 +1,10 @@
-// The register-resident mixed-radix FFT core of every kernel but
-// synchrosqueezing's: the epoch reductions (fused_cwt.cu: "power", "itc",
-// "power_itc", real and complex bank), the per-signal power ("power_each",
-// fused_cwt.cu), the power backward (fused_cwt_bwd.cu, real and complex
-// bank) and the cross-pair sums (fused_pair.cu).  "amax" and the
-// synchrosqueezing kernel keep the radix-2 passes of inverse_row.cuh /
-// radix2.cuh, since fused_ssq.cu reads "amax"'s power bit for bit.
+// The register-resident mixed-radix FFT core of every kernel: the epoch
+// reductions (fused_cwt.cu: "power", "itc", "power_itc", real and complex
+// bank), the per-signal power ("power_each") and the noise gate's peaks
+// ("amax", fused_cwt.cu), the power backward (fused_cwt_bwd.cu, real and
+// complex bank), the synchrosqueezing kernel (fused_ssq.cu, which forms
+// "amax"'s W and p bit for bit through ssq_row.cuh) and the cross-pair
+// sums (fused_pair.cu).
 // The core is an inverse DFT (inverse_fft); the backward's forward DFT is
 // the same transform between two conjugations (forward_fft).
 //
@@ -25,8 +25,8 @@
 //
 //  * Registers instead of shared-memory passes.  A 16-point DFT is four
 //    radix-2 stages on registers with constant twiddles.  N = 2048 takes
-//    three passes and two exchanges (4 barriers) instead of eleven radix-2
-//    passes through shared memory (12 barriers).
+//    three passes and two exchanges (4 barriers), where radix-2
+//    passes through shared memory would take eleven (12 barriers).
 //  * Bank conflicts.  An exchange writes position o to buf[o + (o >> 4)]:
 //    the stride-16 writes of pass 0 then fall on 16 distinct 8-byte banks
 //    in every half-warp, and the runs of 16 consecutive positions that the
@@ -189,8 +189,9 @@ __device__ __forceinline__ float2 twiddle_at(const float2* tw, int idx) {
 }
 
 // DFT M of pass S: twiddles, the DFT, and (but for the last pass) the
-// writes of its outputs to the exchange buffer.
-template <int LOG2N, int S, int M>
+// writes of its outputs to the exchange buffer: whole, or (SPLIT) their
+// real parts to a buffer of floats.
+template <int LOG2N, int S, int M, bool SPLIT>
 __device__ __forceinline__ void pass_dft(float2 (&x)[Plan<LOG2N>::kR], float2* buf,
                                          const float2* tw, int tid) {
   using PL = Plan<LOG2N>;
@@ -209,28 +210,65 @@ __device__ __forceinline__ void pass_dft(float2 (&x)[Plan<LOG2N>::kR], float2* b
   if constexpr (S + 1 < PL::kPasses) {
 #pragma unroll
     for (int q = 0; q < P; ++q) {
-      buf[PL::exchange_index(S, j, q)] = x[M + Q * brev(q, LP)];
+      if constexpr (SPLIT) {
+        reinterpret_cast<float*>(buf)[PL::exchange_index(S, j, q)] =
+            x[M + Q * brev(q, LP)].x;
+      } else {
+        buf[PL::exchange_index(S, j, q)] = x[M + Q * brev(q, LP)];
+      }
     }
   }
-  if constexpr (M + 1 < Q) pass_dft<LOG2N, S, M + 1>(x, buf, tw, tid);
+  if constexpr (M + 1 < Q) pass_dft<LOG2N, S, M + 1, SPLIT>(x, buf, tw, tid);
 }
 
+// The second half of a split exchange: the imaginary parts of pass S's
+// outputs, to the same places as their real parts.
 template <int LOG2N, int S>
+__device__ __forceinline__ void write_imag(const float2 (&x)[Plan<LOG2N>::kR],
+                                           float* fbuf, int tid) {
+  using PL = Plan<LOG2N>;
+  constexpr int LP = PL::log2_radix(S);
+  constexpr int P = 1 << LP, Q = PL::kR / P;
+#pragma unroll
+  for (int m = 0; m < Q; ++m) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      fbuf[PL::exchange_index(S, tid + m * PL::kThreads, q)] = x[m + Q * brev(q, LP)].y;
+    }
+  }
+}
+
+template <int LOG2N, int S, bool SPLIT>
 __device__ __forceinline__ void pass(float2 (&x)[Plan<LOG2N>::kR], float2* buf,
                                      const float2* tw, int tid) {
   using PL = Plan<LOG2N>;
+  static_assert(!SPLIT || !PL::kPingPong, "a split exchange uses one buffer");
   // Exchange S's buffer: the second one for odd S (kPingPong).
   float2* xbuf = buf + (PL::kPingPong && (S & 1) ? PL::kBufLen : 0);
-  pass_dft<LOG2N, S, 0>(x, xbuf, tw, tid);
+  pass_dft<LOG2N, S, 0, SPLIT>(x, xbuf, tw, tid);
   if constexpr (S + 1 < PL::kPasses) {
     __syncthreads();
+    if constexpr (SPLIT) {
+      // Real parts in, then the imaginary parts through the same floats:
+      // the outputs' imaginary parts are still in x, untouched by the reads
+      // of the real parts.
+      float* fbuf = reinterpret_cast<float*>(xbuf);
 #pragma unroll
-    for (int i = 0; i < PL::kR; ++i) x[i] = xbuf[PL::read_index(tid, i)];
+      for (int i = 0; i < PL::kR; ++i) x[i].x = fbuf[PL::read_index(tid, i)];
+      __syncthreads();
+      write_imag<LOG2N, S>(x, fbuf, tid);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < PL::kR; ++i) x[i].y = fbuf[PL::read_index(tid, i)];
+    } else {
+#pragma unroll
+      for (int i = 0; i < PL::kR; ++i) x[i] = xbuf[PL::read_index(tid, i)];
+    }
     constexpr bool kLastExchange = S + 2 == PL::kPasses;
     if constexpr (!PL::kPingPong || (kLastExchange && (PL::kPasses - 1) % 2 == 1)) {
       __syncthreads();   // the next write to this buffer follows
     }
-    pass<LOG2N, S + 1>(x, buf, tw, tid);
+    pass<LOG2N, S + 1, SPLIT>(x, buf, tw, tid);
   } else {
     // Output q of DFT m sits in slot m + Q brev(q) and is sample
     // t + T (m + Q q): put it in slot m + Q q.
@@ -254,10 +292,15 @@ __device__ __forceinline__ void pass(float2 (&x)[Plan<LOG2N>::kR], float2* buf,
 // twiddle table, in shared memory (Plan::kTwSmem) or device memory.  Every
 // thread of the block must call it; the first read of `tw` follows the
 // first barrier, which publishes a table the caller staged before.
-template <int LOG2N>
+// SPLIT (without kPingPong) exchanges the real parts, then the imaginary
+// parts, through a buffer of Plan::kBufLen floats, half the bytes, at two
+// more barriers an exchange.  The values moved, and so the result, are the
+// same bits.  Without kPingPong the last exchange ends in a barrier after
+// its reads, so on return no thread reads `buf` any more.
+template <int LOG2N, bool SPLIT = false>
 __device__ __forceinline__ void inverse_fft(float2 (&x)[Plan<LOG2N>::kR], float2* buf,
                                             const float2* tw, int tid) {
-  pass<LOG2N, 0>(x, buf, tw, tid);
+  pass<LOG2N, 0, SPLIT>(x, buf, tw, tid);
 }
 
 // The unnormalised forward DFT of one row, in the same layout and under the

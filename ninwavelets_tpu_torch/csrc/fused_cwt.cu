@@ -21,13 +21,12 @@
 // K = N otherwise.  The signal FFT runs outside the kernel (as it does for
 // the TPU kernel); this kernel starts at the bank x spectrum product.
 //
-// The epoch reductions (fused_cwt_kernel) run on the register-resident FFT
-// core of fft_regs.cuh.  What bounds them on this card is the transform:
-// E inverse FFTs per (c, f) block, 1.28 M of 2048 points at the serving
-// shape (200 epochs x 64 channels x 100 rows), about 2.2 ms of fp32
-// arithmetic at the card's peak against 0.04 GB of compulsory traffic.
-// The radix-2 passes that carried them before moved every sample through
-// shared memory 11 times per transform, with a barrier each.  The design:
+// Every kernel here runs on the register-resident FFT core of
+// fft_regs.cuh.  What bounds the epoch reductions (fused_cwt_kernel) on
+// this card is the transform: E inverse FFTs per (c, f) block, 1.28 M of
+// 2048 points at the serving shape (200 epochs x 64 channels x 100 rows),
+// about 2.2 ms of fp32 arithmetic at the card's peak against 0.04 GB of
+// compulsory traffic.  The design:
 //  * One block of T = N/16 threads (N/32 at N = 8192) per (bank row f,
 //    channel c); blockIdx.x walks f, so the blocks in flight share one
 //    channel's spectra in L2 and device memory sees them about once (the
@@ -61,12 +60,16 @@
 // everything after it is the real kernel's.
 //
 // "amax" gives the synchrosqueezing noise gate (fused_ssq.cu) each epoch's
-// peak power: torch finishes the max over f.  It stays on the radix-2 core
-// of inverse_row.cuh, which fused_ssq.cu shares, so that both compute p
-// through the same code bit for bit.  It folds the inverse DFT's 1/N into
-// the bank before the transform, as fused_ssq.cu does; a block's per-epoch
-// max is a warp-shuffle reduction, then one over the warps in shared
-// memory, written by one thread: deterministic, no atomics.
+// peak power: torch finishes the max over f.  fused_ssq.cu gates each cell
+// on p >= rel_threshold x that peak, so both kernels must form p bit for
+// bit; both take W's stage 0 (spectrum x bank / N: the inverse DFT's 1/N
+// folded into the bank, exact for N = 2^k) and p from ssq_row.cuh, on the
+// same core.  It is "power_each" (below) with a max in place of the write:
+// the same plan, the bank row where "power_each" keeps it, all E epochs in
+// the block.  A thread's max over its samples, then a shuffle over its
+// warp, then one integer atomicMax a warp into the zero-filled (C, F, E)
+// output: no barrier of its own, and a result that does not depend on the
+// order of the warps.
 //
 // "power_each" (the long-recording paths: one signal is one window of one
 // channel; superlets, single-trial power, scattering) has no reduction.
@@ -98,7 +101,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_regs.cuh"
-#include "inverse_row.cuh"
+#include "ssq_row.cuh"
 
 namespace {
 
@@ -106,7 +109,6 @@ enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kAmax = 3 };
 
 constexpr int kMinLog2N = 8;    // N = 256
 constexpr int kMaxLog2N = 14;   // N = 16384
-constexpr int kMaxWarps = 32;   // 1024 threads
 
 // The epoch reductions on the register-resident core.  EPI is one of
 // kPower, kItc, kPowerItc.
@@ -198,82 +200,14 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
   }
 }
 
-// The max of v over the block, in thread 0 (v >= 0 everywhere).  `red`
-// holds one float a warp; the caller's next barrier orders its reuse.
-__device__ __forceinline__ float block_max(float v, float* red, int tid,
-                                           int threads) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((tid & 31) == 0) red[tid >> 5] = v;
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < (threads >> 5); ++w) v = fmaxf(v, red[w]);
-  }
-  return v;
-}
-
-// "amax": the per-(channel, row, epoch) peak of |x|^2 / N^2, on the
-// radix-2 core that fused_ssq.cu shares.
-template <int PER>
-__global__ void __launch_bounds__(1024)
-fused_amax_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
-                  const float* __restrict__ bank,      // (F, N)
-                  const float2* __restrict__ twiddle,  // (N/2,) exp(+2 pi i m / N)
-                  float* __restrict__ out,             // (C, F, E)
-                  int n_epochs, int n_channels, int n_freqs, int log2n,
-                  int k_bins, int row_len) {
-  extern __shared__ float2 smem[];
-  const int n = 1 << log2n;
-  const int half_n = n >> 1;
-  float2* buf = smem;        // n complex samples
-  float2* tw = smem + n;     // n/2 twiddles
-  float* red = reinterpret_cast<float*>(tw + half_n);   // one float a warp
-
-  const int f = blockIdx.x;
-  const int c = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int threads = blockDim.x;   // threads * PER == n
-
-  for (int m = tid; m < half_n; m += threads) tw[m] = twiddle[m];
-
-  // The inverse DFT's 1/N folds into the bank (exact: N = 2^log2n).
-  const float bank_scale = 1.f / static_cast<float>(n);
-  float bank_reg[PER];
-  const float* bank_row = bank + static_cast<size_t>(f) * n;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int k = tid + i * threads;
-    bank_reg[i] = k < k_bins ? bank_row[k] * bank_scale : 0.f;
-  }
-
-  const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
-  const float2* sp = spec + static_cast<size_t>(c) * row_len;
-
-  for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
-    inverse_row<PER>(
-        buf, tw, [&](int i, int k) { return bank_times(sp[k], bank_reg[i]); },
-        k_bins, log2n, tid, threads);
-    float peak = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const float2 x = buf[tid + i * threads];
-      const float p = x.x * x.x + x.y * x.y;
-      peak = fmaxf(peak, p);
-    }
-    peak = block_max(peak, red, tid, threads);
-    if (tid == 0) {
-      out[(static_cast<size_t>(c) * n_freqs + f) * n_epochs + e] = peak;
-    }
-    __syncthreads();   // the next epoch's stage 0 overwrites buf (and red)
-  }
-}
-
 // Signals a "power_each" block transforms with one load of its bank row.
 constexpr int kEachSignals = 8;
 constexpr int kMaxSlices = 65535;   // grid y
 
-// "power_each" on the register-resident core: the bank row in registers,
-// or (kBankSmem, N = 16384) in shared memory after the exchange buffer.
+// "power_each" and "amax" on the register-resident core: the bank row in
+// registers, or (kBankSmem, N = 16384, where a thread has 64 registers) in
+// shared memory after the exchange buffer, each thread staging and
+// reading its own bins, so that no barrier orders them.
 template <int LOG2N>
 struct EachPlan {
   using PL = fft_regs::Plan<LOG2N>;
@@ -283,6 +217,86 @@ struct EachPlan {
       sizeof(float2) * kBankOffset + (kBankSmem ? sizeof(float) * PL::kN : 0);
   static_assert(kBytes <= 232448, "shared memory per block");
 };
+
+// The max of v >= 0 over the T threads of a warp, or over the block where
+// it is narrower than a warp (T = 16 at N = 256): the shuffle's mask and
+// width name only the threads that exist.
+template <int T>
+__device__ __forceinline__ float warp_max(float v) {
+  constexpr int kWidth = T < 32 ? T : 32;
+  constexpr unsigned kMask = T < 32 ? (1u << (T % 32)) - 1u : 0xffffffffu;
+#pragma unroll
+  for (int o = kWidth / 2; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(kMask, v, o, kWidth));
+  }
+  return v;
+}
+
+// "amax": the per-(channel, row, epoch) peak of |x|^2 / N^2, with W and p
+// formed as fused_ssq.cu forms them (ssq_row.cuh).  Each warp's peak goes
+// into the zero-filled output by an integer atomicMax on the float's bits:
+// p >= 0, so the integer order is the float order, and the max is exact
+// and the same whatever order the warps arrive in.
+template <int LOG2N>
+__global__ void __launch_bounds__(fft_regs::Plan<LOG2N>::kThreads)
+fused_amax_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
+                  const float* __restrict__ bank,      // (F, N)
+                  const float2* __restrict__ twiddle,  // core table (fft_regs.cuh)
+                  float* __restrict__ out,             // (C, F, E), zero-filled
+                  int n_epochs, int n_channels, int n_freqs, int k_bins,
+                  int row_len) {
+  using PL = fft_regs::Plan<LOG2N>;
+  using EP = EachPlan<LOG2N>;
+  constexpr int kR = PL::kR;
+  constexpr int T = PL::kThreads;
+  constexpr int N = PL::kN;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;   // the exchange buffer(s)
+
+  const int f = blockIdx.x;
+  const int c = blockIdx.y;
+  const int tid = threadIdx.x;
+  const float2* tw = fft_regs::stage_twiddles<LOG2N, 0>(smem, twiddle, tid);
+
+  const float inv_n = 1.f / static_cast<float>(N);   // exact: N = 2^LOG2N
+  float bank_reg[EP::kBankSmem ? 1 : kR];
+  float* bank_smem = reinterpret_cast<float*>(smem + EP::kBankOffset);
+  const float* bank_row = bank + static_cast<size_t>(f) * N;
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int k = tid + i * T;
+    const float b = ssq::scaled_bank(bank_row, k, k_bins, inv_n);
+    if constexpr (EP::kBankSmem) {
+      bank_smem[k] = b;
+    } else {
+      bank_reg[i] = b;
+    }
+  }
+
+  const size_t epoch_stride = static_cast<size_t>(n_channels) * row_len;
+  const float2* sp = spec + static_cast<size_t>(c) * row_len;
+  int* peaks = reinterpret_cast<int*>(out) +
+               (static_cast<size_t>(c) * n_freqs + f) * n_epochs;
+  // No loads ahead (Plan::kAhead): the next epoch's bins in registers cost
+  // this kernel more in occupancy than they hid (core_variants.py, PERF.md
+  // section 6).
+  for (int e = 0; e < n_epochs; ++e, sp += epoch_stride) {
+    float2 x[kR];
+    fft_regs::load_bins<LOG2N>(x, sp, k_bins, tid);
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      x[i] = ssq::stage0(x[i], EP::kBankSmem ? bank_smem[tid + i * T]
+                                             : bank_reg[i]);
+    }
+    fft_regs::inverse_fft<LOG2N>(x, buf, tw, tid);
+
+    float peak = 0.f;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) peak = fmaxf(peak, ssq::power(x[i]));
+    peak = warp_max<T>(peak);
+    if ((tid & 31) == 0) atomicMax(peaks + e, __float_as_int(peak));
+  }
+}
 
 // |x|^2 / N^2 of every (signal, bank row) pair, columns [keep_lo, keep_hi)
 // (see the header).  Block (f, slice) takes signals slice, slice + slices,
@@ -380,21 +394,30 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// "amax" on the radix-2 core: 8 samples a thread up to N = 8192 (1024
-// threads); N = 16384 takes 16.
-template <int PER>
+// "amax" on the register-resident core; `out0` zero-filled by the caller.
+template <int LOG2N>
 cudaError_t launch_amax(const Args& a, cudaStream_t stream) {
-  const int n = 1 << a.log2n;
-  const size_t smem = static_cast<size_t>(n) * sizeof(float2) * 3 / 2 +
-                      kMaxWarps * sizeof(float);
-  auto kernel = fused_amax_kernel<PER>;
+  constexpr size_t smem = EachPlan<LOG2N>::kBytes;
+  auto kernel = fused_amax_kernel<LOG2N>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_freqs, a.n_channels);
-  kernel<<<grid, n / PER, smem, stream>>>(
+  kernel<<<grid, fft_regs::Plan<LOG2N>::kThreads, smem, stream>>>(
       a.spec, a.bank, a.twiddle, a.out0, a.n_epochs, a.n_channels,
-      a.n_freqs, a.log2n, a.k_bins, a.row_len);
+      a.n_freqs, a.k_bins, a.row_len);
   return cudaGetLastError();
+}
+
+cudaError_t launch_amax_n(const Args& a, cudaStream_t s) {
+  switch (a.log2n) {
+    case 8: return launch_amax<8>(a, s);
+    case 9: return launch_amax<9>(a, s);
+    case 10: return launch_amax<10>(a, s);
+    case 11: return launch_amax<11>(a, s);
+    case 12: return launch_amax<12>(a, s);
+    case 13: return launch_amax<13>(a, s);
+    default: return launch_amax<14>(a, s);
+  }
 }
 
 // Where "power_each" writes: see the header.
@@ -519,8 +542,8 @@ extern "C" int ninw_fused_power_each(const void* spec, const void* bank,
 // take return cudaErrorInvalidValue without launching.  C is a grid axis
 // (C <= 65535).  complex_bank != 0 reads `bank` as complex64 (F, N), for
 // "power", "itc" and "power_itc" only.  `twiddle` is the core's table
-// (kernels/__init__.py: core_twiddles), and for "amax" the N/2 radix-2
-// twiddles exp(+2 pi i m / N).
+// (kernels/__init__.py: core_twiddles).  "amax" adds into `out0` by
+// atomicMax, so the caller zero-fills it.
 extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
                               const void* twiddle, void* out0, void* out1,
                               int n_epochs, int n_channels, int n_freqs, int n,
@@ -552,7 +575,7 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
     case kAmax:
-      return static_cast<int>(log2n <= 13 ? launch_amax<8>(a, s) : launch_amax<16>(a, s));
+      return static_cast<int>(launch_amax_n(a, s));
     default:
       return static_cast<int>(complex_bank ? launch_reduce_epi<true>(epilogue, a, s)
                                            : launch_reduce_epi<false>(epilogue, a, s));

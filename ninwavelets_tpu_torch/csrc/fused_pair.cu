@@ -66,7 +66,6 @@
 #include <cuda_runtime.h>
 
 #include "fft_regs.cuh"
-#include "radix2.cuh"
 
 namespace {
 
@@ -74,6 +73,11 @@ enum PairEpilogue { kCoherence = 0, kPhaseLag = 1, kPlv = 2 };
 
 constexpr int kMinLog2N = 8;    // N = 256
 constexpr int kMaxLog2N = 14;   // N = 16384
+
+// a * conj(b)
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
 
 // Stage 0 of one row, the same for a and b: bins times bank / N.
 template <int LOG2N>

@@ -14,12 +14,13 @@ source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
 published with an atomic rename so concurrent builds race safely.  A failed
 build raises; there is no fallback.
 
-The epoch reductions ("power", "itc", "power_itc", real and complex bank),
-the per-signal power ("power_each"), the backward (real and complex bank)
-and the cross-pair sums run on the register-resident FFT core of
-``csrc/fft_regs.cuh``; "amax" and the synchrosqueezing kernel keep the
-radix-2 passes of ``csrc/inverse_row.cuh``.  The core's plan, its twiddle
-table and where each thread's samples go are described here too
+Every kernel runs on the register-resident FFT core of
+``csrc/fft_regs.cuh`` and takes its twiddle table, ``core_twiddles``: the
+epoch reductions ("power", "itc", "power_itc", real and complex bank), the
+per-signal power ("power_each"), the noise gate's peaks ("amax"), the
+backward (real and complex bank), the synchrosqueezing kernel and the
+cross-pair sums.  The core's plan, its twiddle table and where each
+thread's samples go are described here too
 (``core_plan``, ``core_twiddles``, ``core_exchange_positions``,
 ``core_output_map``, and the backward's row groups, ``bwd_rows``), so the
 CPU tests can emulate it; ``built_core_layout`` reads the same facts from
@@ -28,7 +29,8 @@ and ``chip_smoke.py`` holds the two against each other.
 
 Each launcher validates its tensors (device, dtype, shape, contiguity),
 allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
-synchrosqueezing plane, which the kernel adds into), launches on the current
+synchrosqueezing plane and the "amax" peaks, which the kernels add into),
+launches on the current
 CUDA stream, raises on any non-zero CUDA error, and counts its launches in
 ``launches``.
 """
@@ -60,12 +62,9 @@ EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "amax": 3}
 #: The epilogues that take a complex64 bank (the reference's complex stage
 #: 0): the three epoch reductions.
 COMPLEX_EPILOGUES = ("power", "itc", "power_itc")
-#: The forward epilogues on the register-resident core (``fft_regs.cuh``),
-#: which take its twiddle table; "amax" takes the radix-2 one.
-CORE_EPILOGUES = ("power", "itc", "power_itc")
 #: Signal lengths the fused kernels take: powers of two in this range (the
-#: radix-2 kernels' shared memory holds N samples and N/2 twiddles, 12*N
-#: bytes).
+#: core's plans, ``fft_regs::Plan``: at N = 16384 a block has 1024 threads
+#: and its exchange buffer 136 KB of shared memory).
 MIN_N, MAX_N = 256, 16384
 
 #: Epilogues of the cross-pair kernel, by the code its C launcher takes, and
@@ -195,15 +194,6 @@ def _load():
         if _lib is None:
             _lib = open_library(build())
         return _lib
-
-
-@functools.lru_cache(maxsize=None)
-def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(+2 pi i m / n) for m < n/2, computed in float64, stored complex64:
-    the table of the radix-2 passes."""
-    m = np.arange(n // 2, dtype=np.float64)
-    tw = np.exp(2j * np.pi * m / n).astype(np.complex64)
-    return torch.from_numpy(tw).to(device)
 
 
 def core_plan(n: int) -> tuple:
@@ -368,7 +358,8 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     Args:
       epilogue: "power" -> [mean power]; "itc" -> [itc];
         "power_itc" -> [mean power, itc], each (C, F, N) float32;
-        "amax" -> [max over N of |cwt|^2 / N^2], (C, F, E) float32.
+        "amax" -> [max over N of |cwt|^2 / N^2], (C, F, E) float32, with
+        W and |W|^2 formed bit for bit as ``fused_ssq`` forms them.
       spec: (E, C, L) complex64 CUDA tensor, contiguous: the signal spectra,
         of which the first ``k_bins`` bins of each row are used (L may exceed
         ``k_bins``, e.g. a whole rFFT row of N/2 + 1 bins).
@@ -388,14 +379,15 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
                          f"epilogues, not {epilogue!r}")
     e, c, row_len, f, n = _check(spec, bank, k_bins, complex_bank=cx)
     lib = _load()
-    shape = (c, f, e) if epilogue == "amax" else (c, f, n)
-    outs = [torch.empty(shape, dtype=torch.float32, device=spec.device)
+    # "amax" adds each warp's peak into its cell by atomicMax.
+    alloc, shape = ((torch.zeros, (c, f, e)) if epilogue == "amax"
+                    else (torch.empty, (c, f, n)))
+    outs = [alloc(shape, dtype=torch.float32, device=spec.device)
             for _ in range(2 if epilogue == "power_itc" else 1)]
     with torch.cuda.device(spec.device):
         err = lib.ninw_fused_cwt(
             EPILOGUES[epilogue], spec.data_ptr(), bank.data_ptr(),
-            (_core_twiddles if epilogue in CORE_EPILOGUES
-             else _twiddles)(n, spec.device).data_ptr(), outs[0].data_ptr(),
+            _core_twiddles(n, spec.device).data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr() if len(outs) > 1 else None,
             e, c, f, n, k_bins, row_len, int(cx), _stream(spec.device))
     key = f"{epilogue}_cx" if cx else epilogue
@@ -551,7 +543,7 @@ def fused_ssq(spec: torch.Tensor, bank: torch.Tensor, floors: torch.Tensor,
     with torch.cuda.device(spec.device):
         err = lib.ninw_fused_ssq(
             spec.data_ptr(), bank.data_ptr(),
-            _twiddles(n, spec.device).data_ptr(), floors.data_ptr(),
+            _core_twiddles(n, spec.device).data_ptr(), floors.data_ptr(),
             out.data_ptr(), e, c, f, n, row_len, int(kind == "log"),
             2.0 * np.pi * float(sfreq) / n, float(e0), float(step),
             _stream(spec.device))
