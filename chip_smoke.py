@@ -255,6 +255,48 @@ banks) and the rest of the zoo, on the serving data:
    diagonal 1.  Times the multitaper and superlet
    epoch means against the plain path, and the matrix.
 
+Slice 7, the rest of connectivity (plain torch with every matrix product in
+full float32; nothing here joins the kernels' record), at the JAX
+package's shapes (``benchmarks/extensions_bench.py``):
+
+30. The matrices at 16 x 64 x 2048 x 100 Morse rows (``interpolate=True``)
+   through ``EpochsWavelet``: ``psi_matrix``, ``partial_coherence``,
+   ``multitaper_partial_coherence`` (3 tapers), ``kuramoto_order`` and
+   ``env_corr`` (orthogonalized and plain); PSI's diagonal exactly 0, the
+   partial coherences' diagonals 1 within 1e-4, the orthogonalized
+   envelope correlation's diagonal 0.
+31. Coupling on the serving data: ``nm_plv`` 2:1 over 64 rows (4-35.5 Hz)
+   on the 64 channel pairs of slice 5; ``plv_significance`` and
+   ``phase_lag_significance`` ("wpli") on one pair, 100 rows, 199
+   surrogates; ``pac`` ("mvl", "tort"; phase 4-11 Hz, amplitude 40-150
+   Hz) on all 64 channels and ``pac_significance`` (199) on one;
+   ``erpac`` 8 x 8 rows; ``bicoherence`` 16 x 16; ``cfd``; and
+   ``EpochsWavelet.wavelet_entropy``, the counters zeroed just before:
+   K1 "power" must launch once, and its entropy must lie within the
+   power's 1e-5 carried through the entropy of the plain power.  Each
+   adapter method equals its ops function on the same channel exactly.
+   Then rhythmicity: ``lagged_coherence_morse`` on 16 x 65,536 samples at
+   2-59 Hz; and the single-trial coherence: ``wavelet_coherence`` on 64
+   pairs x 2048 x 100 rows, ``wtc_significance`` (100 surrogates, N =
+   2048) and ``RawWavelet.coherence`` over one pair of slice 3's
+   recording, without significance (the reason is printed).
+32. Every path of 30 and 31 runs under the float32 matmul precision "high"
+   (TF32 allowed) and "highest": the results must agree within 1e-6 of
+   their max (``fp32_matmul`` guards every product) and each call must
+   leave the caller's setting as it found it.  Each path's time: median
+   of 5 after a warm-up, fresh input values each run, on a text line with
+   the card's name and power limit; ``EpochsWavelet.wavelet_entropy`` and
+   ``RawWavelet.coherence`` are timed as the whole user call (the
+   channels' copies to the card, and the recording's bank, included).
+33. The JAX tests' known answers on the card: the mediated chain's partial
+   coherence below 0.1; the delayed pair's PSI sign (|z| > 2),
+   antisymmetry and zero diagonal; the Kuramoto order of locked channels
+   above 0.95; the harmonic 2:1 lock (only at its ratio); a planted PAC's
+   p at the floor 1/200; a coupled pair's median PLV p <= 0.02; lagged
+   coherence of a sustained rhythm above 0.9 and of noise below 0.3;
+   bicoherence peaking at the planted (10, 25) Hz; a shared 20 Hz tone
+   above its AR(1) level in > 90 % of its row.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -299,6 +341,7 @@ PAIR_REPLACES = {"coherence": "ninwavelets_tpu/ops/fused.py:311",
                  "plv": "ninwavelets_tpu/ops/fused.py:344"}
 E_MATRIX = 16
 SIGN_ROUNDOFF, SIGN_CELLS = 1e-5, 1e-4
+TF32_GATE = 1e-6
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 #: The radix-2 kernels' times of the rows now on the register-resident core
 #: (PERF.md section 6, from this script's runs on an NVIDIA H100 80GB HBM3
@@ -2185,6 +2228,458 @@ def zoo_phase(data):
           f"3 tapers): {ms} ms")
 
 
+# -- slice 7: the rest of connectivity ----------------------------------------
+
+def tf32_same(name, fn):
+    """``fn()`` under the float32 matmul precision "high" (TF32 allowed) and
+    "highest": every tensor of the two results equal within
+    ``TF32_GATE`` x its max (NaN masks equal), since ``fp32_matmul``
+    guards every product of the slice; and each call leaves the setting it
+    found.  Returns the "highest" result."""
+    import torch
+    prev = torch.get_float32_matmul_precision()
+    outs = []
+    for setting in ("high", "highest"):
+        torch.set_float32_matmul_precision(setting)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            after = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        check(after == setting, f"{name}: the matmul precision {setting!r} "
+              f"came back as {after!r}")
+        outs.append(out if isinstance(out, tuple) else (out,))
+    worst = 0.0
+    for a, b in zip(*outs):
+        check(torch.equal(a.isnan(), b.isnan()),
+              f"{name}: NaN masks differ with TF32 on and off")
+        d = (a - b).abs().nan_to_num().max().item()
+        scale = b.abs().nan_to_num().max().item()
+        worst = max(worst, d / scale if scale else d)
+    print(f"check {name} TF32 on / off: max|d| / max {worst} "
+          f"(gate {TF32_GATE})")
+    check(worst <= TF32_GATE, f"{name}: TF32 on / off differ by {worst}")
+    return outs[1] if len(outs[1]) > 1 else outs[1][0]
+
+
+def rest_path(name, fn, x, card, shape=None):
+    """One slice 7 path: the TF32 check, finiteness (and ``shape``) of every
+    output, and its time (median of REPS after a warm-up, fresh values in
+    ``x`` before each run), printed with the card.  Returns the output."""
+    out = tf32_same(name, fn)
+    for o in out if isinstance(out, tuple) else (out,):
+        check(bool(o.isfinite().all()), f"{name}: non-finite values")
+    if shape is not None:
+        got = tuple((out[0] if isinstance(out, tuple) else out).shape)
+        check(got == shape, f"{name}: shape {got} != {shape}")
+    ms = host_ms(lambda _: fn(), lambda: x.normal_())
+    print(f"time {name}: {ms} ms on {card}")
+    return out
+
+
+def chain_epochs(e, n, seed=0):
+    """x1 = z, x2 = z + e2, x3 = x2 + e3: the JAX tests' mediated chain."""
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((e, n))
+    e2 = 0.5 * rng.standard_normal((e, n))
+    e3 = 0.5 * rng.standard_normal((e, n))
+    return np.stack([z, z + e2, z + e2 + e3], axis=1).astype(np.float32)
+
+
+def delayed_epochs(e, n, delay=8, seed=0):
+    """ch0 leads ch1 by ``delay`` samples; ch2 independent; 0.2 noise."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((e, n + delay))
+    x = np.stack([s[:, delay:], s[:, :n], rng.standard_normal((e, n))],
+                 axis=1)
+    x += 0.2 * rng.standard_normal(x.shape)
+    return x.astype(np.float32)
+
+
+def harmonic_epochs(locked, e=20, n=2048, seed=0):
+    """10 Hz on a, 20 Hz on b at twice a's phase (locked) or not."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SFREQ
+    a = np.empty((e, n), np.float32)
+    b = np.empty((e, n), np.float32)
+    for i in range(e):
+        pa = rng.uniform(0, 2 * np.pi)
+        pb = 2 * pa + 0.7 if locked else rng.uniform(0, 2 * np.pi)
+        a[i] = np.sin(2 * np.pi * 10 * t + pa) + 0.2 * rng.standard_normal(n)
+        b[i] = np.sin(2 * np.pi * 20 * t + pb) + 0.2 * rng.standard_normal(n)
+    return a, b
+
+
+def rest_known_answers():
+    """The JAX tests' known answers, on the card at their own sizes."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import extensions as ext
+
+    def bank(freqs, n, interpolate=True, sfreq=SFREQ):
+        return nt.ops.make_fft_bank(nt.Morse(sfreq, device="cuda")._wdef(),
+                                    np.asarray(freqs, np.float32), n, sfreq,
+                                    interpolate, device="cuda")
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    x = dev(chain_epochs(24, 2048))
+    b = bank(np.arange(16.0, 64.0, 6.0), 2048, False)
+    pc = conn.partial_coherence(x, b).mean(0)
+    coh = conn.coherence_matrix(x, b).mean(0)
+    print(f"check mediated chain: coherence(1, 3) {coh[0, 2].item()}, "
+          f"partial coherence(1, 3) {pc[0, 2].item()} (gate < 0.1), "
+          f"(1, 2) {pc[0, 1].item()}, (2, 3) {pc[1, 2].item()}")
+    check(coh[0, 2].item() > 0.5 and pc[0, 2].item() < 0.1
+          and pc[0, 1].item() > 20 * pc[0, 2].item()
+          and pc[1, 2].item() > 20 * pc[0, 2].item(), "mediated chain")
+
+    z = conn.psi_matrix(dev(delayed_epochs(16, 2048)),
+                        bank(np.arange(16.0, 80.0, 4.0), 2048, False))
+    anti = (z + z.T).abs().max().item()
+    print(f"check delayed pair PSI: z[0, 1] {z[0, 1].item()} (> 2), z[1, 0] "
+          f"{z[1, 0].item()} (< -2), max|z + z^T| {anti} (gate 1e-5 max|z| "
+          f"+ 1e-4), diagonal {z.diagonal().tolist()} (exactly 0)")
+    check(z[0, 1].item() > 2 and z[1, 0].item() < -2
+          and abs(z[0, 2].item()) < 4 and abs(z[1, 2].item()) < 4,
+          "delayed pair PSI direction")
+    check(anti <= 1e-5 * z.abs().max().item() + 1e-4
+          and bool((z.diagonal() == 0).all()), "PSI antisymmetry / diagonal")
+
+    rng = np.random.default_rng(5)
+    t = np.arange(1024) / SFREQ
+    locked = (np.sin(2 * np.pi * 40 * t + rng.uniform(0, 2 * np.pi,
+                                                      (6, 1, 1)))
+              + 0.1 * rng.standard_normal((6, 5, 1024))).astype(np.float32)
+    r = conn.kuramoto_order(dev(locked), bank([40.0], 1024))[0, 200:-200]
+    print(f"check Kuramoto order of 5 locked channels: min {r.min().item()} "
+          "(gate > 0.95)")
+    check(r.min().item() > 0.95, "Kuramoto order of locked channels")
+
+    fa = np.array([8.0, 10.0, 12.0])
+    ba, bb = bank(fa, 2048), bank(2 * fa, 2048)
+    a, b_ = (dev(v) for v in harmonic_epochs(True))
+    a0, b0 = (dev(v) for v in harmonic_epochs(False, seed=3))
+    v21 = conn.nm_plv(a, b_, ba, bb, 2, 1, True)[1, 400:-400].mean().item()
+    v11 = conn.nm_plv(a, b_, ba, ba, 1, 1, True)[1, 400:-400].mean().item()
+    v0 = conn.nm_plv(a0, b0, ba, bb, 2, 1, True)[1, 400:-400].mean().item()
+    print(f"check harmonic lock: 2:1 {v21} (> 0.85), 1:1 {v11} (< 0.4), "
+          f"unlocked 2:1 {v0} (< 0.45)")
+    check(v21 > 0.85 and v11 < 0.4 and v0 < 0.45, "n:m harmonic lock")
+
+    sf = 250.0
+    t = np.arange(1024) / sf
+    planted = (np.sin(2 * np.pi * 8.0 * t)
+               + (1 + 0.8 * np.sin(2 * np.pi * 8.0 * t)) * 0.5
+               * np.sin(2 * np.pi * 50.0 * t)
+               + 0.1 * np.random.default_rng(0).standard_normal((12, 1024))
+               ).astype(np.float32)
+    _, p = conn.pac_significance(dev(planted), bank([8.0], 1024, sfreq=sf),
+                                 bank([50.0], 1024, sfreq=sf),
+                                 interpolate=True, n_surrogates=199)
+    print(f"check planted PAC: p {p.min().item()} (floor 1/200 = 0.005)")
+    check(abs(p.min().item() - 1 / 200) < 1e-7, "planted PAC p off the floor")
+
+    rng = np.random.default_rng(7)
+    t = np.arange(1024) / SFREQ
+    pa = rng.uniform(0, 2 * np.pi, 16)
+    ca = (np.sin(2 * np.pi * 40 * t + pa[:, None])
+          + 0.4 * rng.standard_normal((16, 1024))).astype(np.float32)
+    cb = (np.sin(2 * np.pi * 40 * t + pa[:, None] + 1.0)
+          + 0.4 * rng.standard_normal((16, 1024))).astype(np.float32)
+    _, p = conn.plv_significance(dev(ca[:, None]), dev(cb[:, None]),
+                                 bank(np.arange(30.0, 55.0, 8.0), 1024),
+                                 interpolate=True, n_surrogates=99, seed=1)
+    med = p[0, 1, 300:-300].median().item()
+    print(f"check coupled pair: median p at 40 Hz {med} (gate <= 0.02)")
+    check(med <= 0.02 + 1e-9, "coupled pair median p")
+
+    rng = np.random.default_rng(0)
+    t = np.arange(4096) / SFREQ
+    rhythm = dev((np.sin(2 * np.pi * 20 * t)
+                  + 0.3 * rng.standard_normal((4, 4096))).astype(np.float32))
+    noise = dev(rng.standard_normal((4, 4096)).astype(np.float32))
+    lr = conn.lagged_coherence_morse(rhythm, [20.0], SFREQ, pooled=True)
+    ln = conn.lagged_coherence_morse(noise, [20.0], SFREQ, pooled=True)
+    print(f"check lagged coherence at 20 Hz: rhythm {lr.item()}, noise "
+          f"{ln.item()} (gates > 0.9, < 0.3)")
+    check(lr.item() > 0.9 and ln.item() < 0.3, "lagged coherence")
+
+    rng = np.random.default_rng(0)
+    t = np.arange(1024) / SFREQ
+    p1 = rng.uniform(0, 2 * np.pi, (8, 1, 1))
+    p2 = rng.uniform(0, 2 * np.pi, (8, 1, 1))
+    quad = dev((np.sin(2 * np.pi * 10 * t + p1)
+                + np.sin(2 * np.pi * 25 * t + p2)
+                + 0.5 * np.sin(2 * np.pi * 35 * t + p1 + p2)
+                + 0.3 * rng.standard_normal((8, 1, 1024))).astype(np.float32))
+    f1, f2 = np.array([6.0, 10.0, 14.0]), np.array([15.0, 25.0, 35.0])
+    bic = ext.bicoherence(quad, bank(f1, 1024), bank(f2, 1024),
+                          bank((f1[:, None] + f2[None]).ravel(), 1024),
+                          True)[0]
+    peak = divmod(int(bic.argmax()), 3)
+    print(f"check bicoherence peak at rows {peak} (planted (10, 25) Hz: "
+          f"(1, 1)), value {bic.max().item()}")
+    check(peak == (1, 1), "bicoherence peak")
+
+    rng = np.random.default_rng(1)
+    shared = np.sin(2 * np.pi * 20 * np.arange(1024) / SFREQ)
+    sa = dev((shared + 0.5 * rng.standard_normal(1024)).astype(np.float32))
+    sb = dev((shared + 0.5 * rng.standard_normal(1024)).astype(np.float32))
+    fw = np.arange(10.0, 40.0, 5.0)
+    bw = bank(fw, 1024)
+    wtc = ext.wavelet_coherence(sa, sb, bw, fw, SFREQ, True)
+    thr = ext.wtc_significance(sa, sb, bw, fw, SFREQ, n_surrogates=50,
+                               interpolate=True)
+    above = (wtc[2] > thr[2]).float().mean().item()
+    below = (wtc[5] > thr[5]).float().mean().item()
+    print(f"check shared 20 Hz tone: share above its AR(1) level {above} "
+          f"(gate > 0.9), uncoupled 35 Hz row {below} (gate < 0.35)")
+    check(above > 0.9 and below < 0.35, "shared tone against the AR(1) level")
+
+
+def connectivity_rest_phase(data):
+    """Slice 7, the rest of connectivity at the JAX package's shapes: the
+    matrices on 16 x 64 x 2048 through ``EpochsWavelet``, the coupling
+    statistics on the serving data, rhythmicity on 16 x 65,536, the
+    single-trial coherence on 64 pairs and on one pair of the slice 3
+    recording; each path's TF32 check and time, the known answers, and
+    K1's launch under ``wavelet_entropy``.  Plain torch only: nothing
+    joins the kernels' record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import envelope as env
+    from ninwavelets_tpu_torch.ops import extensions as ext
+    from ninwavelets_tpu_torch.ops import multitaper as mt
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    freqs = np.arange(1.0, F + 1.0)
+    morse = nt.Morse(SFREQ, interpolate=True, device="cuda")
+
+    def bank(fr, n=N):
+        return nt.ops.make_fft_bank(morse._wdef(), np.asarray(fr, np.float32),
+                                    n, SFREQ, True, device="cuda")
+
+    # -- matrices: 16 x 64 x 2048, 100 rows, through EpochsWavelet ----------
+    ew16 = nt.EpochsWavelet(nt.ArrayEpochs(data[:E_MATRIX], SFREQ), morse)
+    x16 = ew16._all_data()
+    mats = {
+        "psi_matrix": (lambda: ew16.psi_matrix(freqs), (C, C)),
+        "partial_coherence": (lambda: ew16.partial_coherence(freqs),
+                              (F, C, C)),
+        "multitaper_partial_coherence (3 tapers)": (
+            lambda: ew16.multitaper_partial_coherence(freqs), (F, C, C)),
+        "kuramoto_order": (lambda: ew16.kuramoto_order(freqs), (F, N)),
+        "env_corr (orthogonalize)": (lambda: ew16.env_corr(freqs),
+                                     (F, C, C)),
+        "env_corr (plain)": (lambda: ew16.env_corr(
+            freqs, orthogonalize=False), (F, C, C)),
+    }
+    out = {}
+    for name, (fn, shape) in mats.items():
+        out[name] = rest_path(f"{name} ({E_MATRIX} x {C} x {N} x {F})", fn,
+                              x16, card, shape)
+    x16.copy_(torch.from_numpy(data[:E_MATRIX]))
+    z = ew16.psi_matrix(freqs)
+    check(bool((z.diagonal() == 0).all()), "psi_matrix diagonal not 0")
+    bank100 = bank(freqs)
+    ref = conn.psi_matrix(x16, bank100, True)
+    d = (z - ref).abs().max().item()
+    print(f"check EpochsWavelet.psi_matrix = ops psi_matrix: max|d| {d} "
+          "(gate 0: the same call)")
+    check(d == 0, "adapter psi_matrix differs from ops")
+    for name in ("partial_coherence", "multitaper_partial_coherence "
+                 "(3 tapers)"):
+        m = out[name]
+        dev_ = (m.diagonal(dim1=1, dim2=2) - 1).abs().max().item()
+        print(f"check {name} diagonal: max|d - 1| {dev_} (gate 1e-4)")
+        check(dev_ <= 1e-4, f"{name} diagonal")
+    check(bool((out["env_corr (orthogonalize)"].diagonal(dim1=1, dim2=2)
+                == 0).all()), "orthogonalized env_corr diagonal not 0")
+    del out, mats, ref
+    torch.cuda.empty_cache()
+
+    # -- coupling on the serving data ---------------------------------------
+    # ``x0`` / ``a0`` keep the data for the adapter comparisons; ``x`` and
+    # ``a1`` are the timing buffers that each timed run refills.
+    x0 = torch.from_numpy(data).cuda()
+    x, xb = x0.clone(), pair_b(x0)
+    nm_f = np.arange(4.0, 36.0, 0.5)                       # 64 rows
+    nm_a, nm_b = bank(nm_f), bank(2.0 * nm_f)
+    rest_path(f"nm_plv 2:1 (E={E}, {C} pairs, {nm_f.size} rows, N={N})",
+              lambda: conn.nm_plv(x, xb, nm_a, nm_b, 2, 1, True), x, card,
+              (C, nm_f.size, N))
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ), morse)
+    a0, c1 = x0[:, 0].contiguous(), x0[:, 1].contiguous()
+    got = ew.nm_plv("ch0", "ch1", nm_f[:8], n=2, m=1)
+    ref = conn.nm_plv(a0, c1, bank(nm_f[:8]), bank(2 * nm_f[:8]), 2, 1, True)
+    d = (got - ref).abs().max().item()
+    print(f"check EpochsWavelet.nm_plv = ops nm_plv: max|d| {d} (gate 0)")
+    check(d == 0, "adapter nm_plv differs from ops")
+
+    a1 = a0.clone()
+    b1 = (0.6 * torch.roll(a0, 5, -1) + 0.8 * c1).contiguous()
+    s = 199
+    obs, p = rest_path(f"plv_significance (one pair, E={E}, {F} rows, "
+                       f"{s} surrogates)",
+                       lambda: conn.plv_significance(a1, b1, bank100, True,
+                                                     n_surrogates=s),
+                       a1, card, (F, N))
+    check(bool(((p >= 1 / (s + 1) - 1e-7) & (p <= 1)).all()),
+          "plv_significance p outside [1/(S+1), 1]")
+    rest_path(f"phase_lag_significance wpli (one pair, E={E}, {F} rows, "
+              f"{s} surrogates)",
+              lambda: conn.phase_lag_significance(a1, b1, bank100, "wpli",
+                                                  True, n_surrogates=s),
+              a1, card, (F, N))
+    got = ew.plv_significance("ch0", "ch1", freqs[:10], n_surrogates=19)
+    ref = conn.plv_significance(a0, c1, bank(freqs[:10]), True,
+                                n_surrogates=19)
+    check(all(torch.equal(u, v) for u, v in zip(got, ref)),
+          "adapter plv_significance differs from ops")
+
+    fp, fa = np.arange(4.0, 12.0), np.arange(40.0, 151.0, 5.0)
+    bp, ba = bank(fp), bank(fa)
+    for method in ("mvl", "tort"):
+        rest_path(f"pac {method} (E={E}, C={C}, {fp.size} x {fa.size} rows)",
+                  lambda: conn.pac(x, bp, ba, True, method,
+                                   mean_epochs=True),
+                  x, card, (C, fp.size, fa.size))
+        got = ew.pac("ch0", fp, fa, method=method)
+        ref = conn.pac(a0, bp, ba, True, method, mean_epochs=True)
+        d = (got - ref).abs().max().item()
+        print(f"check EpochsWavelet.pac {method} = ops pac: max|d| {d} "
+              "(gate 0)")
+        check(d == 0, f"adapter pac {method} differs from ops")
+    rest_path(f"pac significance=199 mvl (one channel, E={E}, {fp.size} x "
+              f"{fa.size} rows)",
+              lambda: conn.pac_significance(a1, bp, ba, True,
+                                            n_surrogates=199),
+              a1, card, (fp.size, fa.size))
+    got = ew.pac("ch0", fp[:2], fa[:2], significance=19)
+    ref = conn.pac_significance(a0, bp[:2], ba[:2], True, n_surrogates=19)
+    check(all(torch.equal(u, v) for u, v in zip(got, ref)),
+          "adapter pac significance differs from ops")
+
+    fe_p, fe_a = np.arange(4.0, 12.0), np.arange(40.0, 80.0, 5.0)
+    be_p, be_a = bank(fe_p), bank(fe_a)
+    rest_path(f"erpac (E={E}, 8 x 8 rows, N={N})",
+              lambda: conn.erpac(a1, be_p, be_a, True), a1, card, (8, 8, N))
+    d = (ew.erpac("ch0", fe_p, fe_a)
+         - conn.erpac(a0, be_p, be_a, True)).abs().max().item()
+    check(d == 0, f"adapter erpac differs from ops by {d}")
+
+    f1, f2 = np.arange(4.0, 36.0, 2.0), np.arange(20.0, 84.0, 4.0)
+    b1_, b2_ = bank(f1), bank(f2)
+    b12 = bank((f1[:, None] + f2[None]).ravel())
+    rest_path(f"bicoherence (E={E}, 16 x 16 rows, N={N})",
+              lambda: ext.bicoherence(a1[:, None], b1_, b2_, b12, True)[0],
+              a1, card, (16, 16))
+    d = (ew.bicoherence("ch0", f1, f2) - ext.bicoherence(
+        a0[:, None], b1_, b2_, b12, True)[0]).abs().max().item()
+    check(d == 0, f"adapter bicoherence differs from ops by {d}")
+
+    rest_path(f"cfd (E={E}, {fp.size} slow x {fa.size} fast rows)",
+              lambda: ext.cfd(a1, bp, ba, interpolate=True), a1, card, (N,))
+    d = (ew.cfd("ch0", fp, fa) - ext.cfd(a0, bp, ba, interpolate=True)
+         ).abs().max().item()
+    check(d == 0, f"adapter cfd differs from ops by {d}")
+
+    kernels.reset_launches()
+    h = ew.wavelet_entropy("ch0", freqs)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"wavelet_entropy launches {counts}")
+    check(counts["power"] == 1 and sum(counts.values()) == 1,
+          f"wavelet_entropy launched {counts}")
+    # The power's 1e-5 (of its column max) carried through
+    # -sum_f p ln p / ln F: |dH| <= sum_f |dp_f| (1 + |ln p_f|) / ln F with
+    # |dp_f| <= 2e-5 max_f P / sum_f P.
+    pw = nt.ops.mean_power_from_bank(a0[:, None], ew.wavelet.fft_wavelets,
+                                     True)[0]
+    ref = ext.wavelet_entropy(pw)
+    pn = pw / pw.sum(0)
+    carried = (2 * POWER_RTOL * pw.amax(0) / pw.sum(0)
+               * (1 + pn.clamp(min=1e-30).log().abs()).sum(0) / math.log(F))
+    ratio = ((h - ref).abs() / carried).max().item()
+    print(f"check wavelet_entropy through K1 against the plain power: "
+          f"max|d| {(h - ref).abs().max().item()}, max|d| / carried power "
+          f"tolerance {ratio} (gate 1)")
+    check(ratio <= 1 and bool(((h >= 0) & (h <= 1 + 1e-5)).all()),
+          "wavelet_entropy")
+    # The user's call, checked and timed whole: the channel leaves the
+    # adapter's host snapshot, which each run refills (before the clock
+    # starts).
+    name = f"EpochsWavelet.wavelet_entropy (one channel, E={E}, {F} rows, K1)"
+    tf32_same(name, lambda: ew.wavelet_entropy("ch0", freqs))
+    host = ew._host_data()
+    refill = np.random.default_rng(5)
+    ms = host_ms(lambda _: ew.wavelet_entropy("ch0", freqs),
+                 lambda: host[:, 0].__setitem__(
+                     slice(None), refill.standard_normal((E, N),
+                                                         dtype=np.float32)))
+    print(f"time {name}: {ms} ms on {card}")
+    del x, x0, xb
+    torch.cuda.empty_cache()
+
+    # -- rhythmicity ----------------------------------------------------------
+    lc_f = np.arange(2.0, 60.0, 1.0)
+    xl = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (16, 65536), dtype=np.float32)).cuda()
+    rest_path(f"lagged_coherence_morse (16 x 65536, {lc_f.size} rows)",
+              lambda: conn.lagged_coherence_morse(xl, lc_f, SFREQ), xl, card,
+              (16, lc_f.size))
+    del xl
+    torch.cuda.empty_cache()
+
+    # -- single-trial coherence -----------------------------------------------
+    wa = torch.from_numpy(data[0]).cuda()                   # 64 x 2048
+    wb = (0.6 * wa + 0.8 * torch.roll(wa, 1, 0)).contiguous()
+    rest_path(f"wavelet_coherence ({C} pairs x {N} x {F} rows)",
+              lambda: ext.wavelet_coherence(wa, wb, bank100, freqs, SFREQ,
+                                            True, return_phase=True),
+              wa, card, (C, F, N))
+    rest_path(f"wtc_significance (100 surrogates, N={N}, {F} rows)",
+              lambda: ext.wtc_significance(wa[0], wb[0], bank100, freqs,
+                                           SFREQ, interpolate=True),
+              wa, card, (F,))
+    print("RawWavelet.coherence runs without significance: the (S, F, N) "
+          "surrogate stack of a 600,000-sample run is S x 240 MB in float32 "
+          "(about 24 GB at S = 100), and wtc_significance says to size S "
+          "for it")
+    rec = recording(3)
+    rf = np.linspace(2.0, 100.0, REC_F)
+    rw = nt.RawWavelet(ArrayRaw(rec), nt.Morse(SFREQ, interpolate=True,
+                                               device="cuda"))
+    coh = tf32_same(f"RawWavelet.coherence (one pair, {REC_N} samples, "
+                    f"{REC_F} rows)", lambda: rw.coherence(
+                        "EEG000", "EEG001", rf))
+    check(tuple(coh.shape) == (REC_F, REC_N)
+          and bool(coh.isfinite().all()), "RawWavelet.coherence output")
+    # The user's call, timed whole: its bank, the two channels' copies to
+    # the card and the coherence; each run refills the two channels of the
+    # adapter's host copy (before the clock starts).
+    host = rw._host_data()
+    ms = host_ms(lambda _: rw.coherence("EEG000", "EEG001", rf),
+                 lambda: host[:2].__setitem__(
+                     slice(None), refill.standard_normal((2, REC_N),
+                                                         dtype=np.float32)))
+    print(f"time RawWavelet.coherence (one pair, {REC_N} samples, {REC_F} "
+          f"rows): {ms} ms on {card}")
+    del coh, host, rec
+    torch.cuda.empty_cache()
+
+    rest_known_answers()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2328,6 +2823,10 @@ def main() -> int:
     records += complex_bank_phase(data)
     torch.cuda.empty_cache()
     zoo_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 7: the rest of connectivity ------------------------------------
+    connectivity_rest_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

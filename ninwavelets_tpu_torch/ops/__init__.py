@@ -4,8 +4,12 @@ fitting of frequency grids and banks, baseline correction, synchrosqueezing
 and reassignment, the inverse CWT and denoising, ridges and modes, the
 Torrence & Compo statistics, pair connectivity (coherence, imaginary
 coherency, the phase slope index, PLV, PPC, the phase-lag family and the
-all-pairs matrices), the Paul / DOG / Bump spectra, multitaper Morse
-spectrograms and superlets.
+all-pairs matrices), the rest of connectivity (partial coherence, the PSI
+matrix, the Kuramoto order, n:m PLV, PAC and ERPAC, surrogate
+significance, lagged coherence, bicoherence, the smoothed single-trial
+wavelet coherence with its AR(1) levels, cross-frequency directionality,
+wavelet entropy and envelope correlations), the Paul / DOG / Bump spectra,
+multitaper Morse spectrograms and superlets.
 """
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
                    make_time_wavelet)
@@ -13,20 +17,38 @@ from .baseline import (Baseline, baseline_correct, baseline_of, baseline_tf,
                        METHODS as BASELINE_METHODS)
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
                   itc_from_bank, mean_power_from_bank, power_from_bank)
-from .connectivity import (PHASE_LAG_METHODS, coherence_matrix,
-                           coherence_matrix_from_bank, pair_matrix_scan,
-                           phase_lag, phase_lag_auto, phase_lag_from_bank,
-                           phase_lag_from_sums, phase_lag_sums, plv,
-                           plv_auto, plv_from_bank, plv_matrix,
-                           plv_matrix_from_bank, plv_sums, ppc, ppc_auto,
+from .connectivity import (PAC_METHODS, PHASE_LAG_METHODS,
+                           coherence_matrix, coherence_matrix_from_bank,
+                           erpac, erpac_from_banks, kuramoto_order,
+                           kuramoto_order_from_bank, lagged_coherence,
+                           lagged_coherence_morse, nm_plv, nm_plv_from_bank,
+                           nm_plv_sums, pac, pac_from_banks,
+                           pac_mean_from_banks, pac_pair,
+                           pac_pair_from_banks, pac_pair_mean,
+                           pac_significance, pair_matrix_scan,
+                           partial_coherence, partial_coherence_from_bank,
+                           partial_coherence_per_row, phase_lag,
+                           phase_lag_auto, phase_lag_from_bank,
+                           phase_lag_from_sums, phase_lag_significance,
+                           phase_lag_sums, plv, plv_auto, plv_from_bank,
+                           plv_matrix, plv_matrix_from_bank,
+                           plv_significance, plv_sums, ppc, ppc_auto,
                            ppc_from_bank, ppc_matrix, ppc_matrix_from_bank,
+                           psi_matrix, psi_matrix_from_bank, psi_reps_scan,
+                           roll_epochs, surrogate_pvalues,
+                           surrogate_pvalues_from_shifts, surrogate_shifts,
                            wpli_matrix, wpli_matrix_from_bank)
-from .extensions import (bump_spectrum, coherence_from_sums,
-                         coherence_sums, cross_power_from_bank,
-                         dog_spectrum, epoch_coherence,
-                         epoch_coherence_auto, epoch_coherence_from_bank,
-                         imcoh, imcoh_auto, imcoh_from_bank, imcoh_from_sums,
-                         paul_spectrum, psi, psi_from_bank, psi_from_sums)
+from .envelope import env_corr_matrix, env_corr_matrix_from_bank
+from .extensions import (ar1_filter, bicoherence, bicoherence_from_banks,
+                         bump_spectrum, cfd, cfd_from_banks,
+                         coherence_from_sums, coherence_sums,
+                         cross_power_from_bank, dog_spectrum,
+                         epoch_coherence, epoch_coherence_auto,
+                         epoch_coherence_from_bank, imcoh, imcoh_auto,
+                         imcoh_from_bank, imcoh_from_sums, paul_spectrum,
+                         psi, psi_from_bank, psi_from_sums, row_quantile,
+                         wavelet_coherence, wavelet_coherence_from_bank,
+                         wavelet_entropy, wtc_significance)
 from .fit import fit_frequencies, learn_bank
 from .denoise import denoise_from_bank
 from .fused import (fused_coherence, fused_coherence_sums,
@@ -41,7 +63,8 @@ from .fused import (fused_coherence, fused_coherence_sums,
 from .icwt import coverage, icwt_from_bank
 from .multitaper import (morse_taper_def, multitaper_banks,
                          multitaper_coherence_matrix, multitaper_mean_power,
-                         multitaper_power, multitaper_power_from_banks)
+                         multitaper_partial_coherence, multitaper_power,
+                         multitaper_power_from_banks)
 from .reassign import reassigned_mean_power, reassigned_power
 from .ridge import (extract_modes, extract_modes_ri, extract_ridge,
                     ridge_frequencies)

@@ -1,8 +1,7 @@
 """Multitaper Morse spectrograms: the mean of the scalograms of the first K
 orthogonal generalized Morse wavelets (Olhede & Walden 2002), and the
-multitaper all-pairs coherence (port of ``ninwavelets_tpu.ops.multitaper``
-but ``multitaper_partial_coherence``, which waits for
-``partial_coherence_per_row``).
+multitaper all-pairs coherence and partial coherence (port of
+``ninwavelets_tpu.ops.multitaper``).
 
 Taper k is F more rows of the ordinary frequency-domain bank, so the K-taper
 transform is one (F*K, N) bank, stacked F-major, through the same paths as
@@ -23,14 +22,15 @@ import torch
 
 from ..device import as_float32
 from .bank import WaveletDef, WaveletMode, make_fft_bank
-from .connectivity import _pair_sums
+from .connectivity import _pair_sums, partial_coherence_per_row
 from .cwt import analytic_spectrum
 from .fused import mean_power_auto, power_auto
 from .spectra import morse_taper_spectrum
 
 __all__ = ["morse_taper_def", "multitaper_banks",
            "multitaper_power_from_banks", "multitaper_power",
-           "multitaper_mean_power", "multitaper_coherence_matrix"]
+           "multitaper_mean_power", "multitaper_coherence_matrix",
+           "multitaper_partial_coherence"]
 
 
 @lru_cache(maxsize=None)
@@ -122,6 +122,31 @@ def multitaper_mean_power(signals_r, freqs, sfreq: float, b: float = 17.5,
     return p.mean(-2)
 
 
+def _mt_pair_scan(sigs: torch.Tensor, banks: torch.Tensor, per_row,
+                  interpolate: bool, time_range=None) -> torch.Tensor:
+    """Stream an all-pairs statistic over the (F, K, n) taper banks: per
+    frequency, one inverse FFT of the (K, E, C, N) slab, the K tapers
+    folded into the epoch axis (K more trials of the same local spectrum),
+    the full-float32 pairwise sums over the ``time_range`` window
+    (``connectivity._pair_sums``) and ``per_row(sr, si) -> (C, C)``.
+    Returns the (F, C, C) stack."""
+    spec = analytic_spectrum(sigs, interpolate)              # (E, C, N)
+    n0, n1 = time_range if time_range is not None else (0, sigs.shape[-1])
+    rows = []
+    for bank_f in banks:                                      # (K, N)
+        w = torch.fft.ifft(spec[None] * bank_f[:, None, None, :])
+        rows.append(per_row(*_pair_sums(
+            w.reshape(-1, *w.shape[2:])[..., n0:n1])))
+    return torch.stack(rows)
+
+
+def _mt_input(sigs_r, freqs, sfreq, b, r, n_tapers, interpolate, device):
+    sigs = as_float32(sigs_r, device)
+    banks = multitaper_banks(freqs, int(sigs.shape[-1]), sfreq, b, r,
+                             n_tapers, interpolate, device=sigs.device)
+    return sigs, banks
+
+
 def multitaper_coherence_matrix(sigs_r, freqs, sfreq: float,
                                 b: float = 17.5, r: float = 3.0,
                                 n_tapers: int = 3,
@@ -130,24 +155,38 @@ def multitaper_coherence_matrix(sigs_r, freqs, sfreq: float,
                                 device=None) -> torch.Tensor:
     """(F, C, C) all-pairs multitaper coherence of (E, C, N) epochs:
     ``|S_ab|^2 / (S_aa S_bb)`` with the cross-spectra summed over epochs,
-    time (the ``time_range`` (start, stop) sample window) and the K tapers,
-    which fold into the epoch axis as K extra trials.  The denominator is
-    floored at ``eps`` times its maximum.  Per bank row: one inverse FFT of
-    the (K, E, C, N) slab and the full-float32 pairwise sums
-    (``connectivity._pair_sums``)."""
-    sigs = as_float32(sigs_r, device)
-    n = int(sigs.shape[-1])
-    banks = multitaper_banks(freqs, n, sfreq, b, r, n_tapers, interpolate,
-                             device=sigs.device)
-    spec = analytic_spectrum(sigs, interpolate)              # (E, C, N)
-    n0, n1 = time_range if time_range is not None else (0, n)
-    rows = []
-    for bank_f in banks:                                      # (K, N)
-        w = torch.fft.ifft(spec[None] * bank_f[:, None, None, :])
-        sr, si = _pair_sums(w.reshape(-1, *w.shape[2:])[..., n0:n1])
+    time (the ``time_range`` (start, stop) sample window) and the K tapers
+    (``_mt_pair_scan``).  The denominator is floored at ``eps`` times its
+    maximum."""
+    sigs, banks = _mt_input(sigs_r, freqs, sfreq, b, r, n_tapers,
+                            interpolate, device)
+
+    def per_row(sr, si):
         s_r, s_i = sr.sum(-1), si.sum(-1)                    # (C, C)
         p = torch.diagonal(s_r)
         den = p[:, None] * p[None, :]
         den = torch.maximum(den, eps * den.max())
-        rows.append((s_r * s_r + s_i * s_i) / den)
-    return torch.stack(rows)
+        return (s_r * s_r + s_i * s_i) / den
+
+    return _mt_pair_scan(sigs, banks, per_row, interpolate, time_range)
+
+
+def multitaper_partial_coherence(sigs_r, freqs, sfreq: float,
+                                 b: float = 17.5, r: float = 3.0,
+                                 n_tapers: int = 3,
+                                 interpolate: bool = False,
+                                 lam: float = 1e-5, time_range=None,
+                                 device=None) -> torch.Tensor:
+    """(F, C, C) multitaper partial coherence: the conditioning inverse of
+    ``connectivity.partial_coherence_per_row`` on the taper-augmented
+    cross-spectra, whose effective epoch count is E * K, so the (C, C)
+    inverse stays well posed at trial counts where the single-taper
+    estimate is rank-starved (E * K * n_time >= C)."""
+    sigs, banks = _mt_input(sigs_r, freqs, sfreq, b, r, n_tapers,
+                            interpolate, device)
+    e_eff = sigs.shape[0] * int(n_tapers)
+
+    def per_row(sr, si):
+        return partial_coherence_per_row(sr, si, e_eff, lam)
+
+    return _mt_pair_scan(sigs, banks, per_row, interpolate, time_range)

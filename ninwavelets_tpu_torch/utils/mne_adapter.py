@@ -12,7 +12,13 @@ through ``mean_power_auto`` and ``power_auto``.  The pair connectivity methods
 (``plv``, ``coherence``, ``phase_lag`` ...) hand one channel pair to the
 ``*_auto`` entry points as (E, N) signals, which run the plain sums, as in
 the JAX package; the all-pairs ``*_matrix`` methods stream the bank rows
-through plain FFTs and batched matrix products.  A continuous recording streams
+through plain FFTs and batched matrix products.  The rest of connectivity
+(``partial_coherence``, ``psi_matrix``, ``kuramoto_order``, ``nm_plv``,
+``plv_significance``, ``pac``, ``erpac``, ``bicoherence``, ``cfd``,
+``lagged_coherence``, ``env_corr`` ...) is plain torch as well;
+``wavelet_entropy`` takes its power through ``power``, the kernel on the
+card.  ``RawWavelet.coherence`` is the single-trial smoothed wavelet
+coherence of two channels of a recording.  A continuous recording streams
 through ``parallel.StreamingCWT`` in overlap-discard windows.  Both need
 only the duck-typed MNE surface ``.info['sfreq']``, ``.ch_names`` and
 ``.get_data()``.
@@ -31,7 +37,10 @@ from ..ops import extensions as _ext
 from ..ops.baseline import baseline_tf
 from ..ops.cwt import cwt_from_bank
 from ..ops.fused import itc_auto, mean_power_auto, power_auto, power_itc_auto
-from ..ops.multitaper import multitaper_coherence_matrix, multitaper_mean_power
+from ..ops.envelope import env_corr_matrix
+from ..ops.multitaper import (multitaper_coherence_matrix,
+                              multitaper_mean_power,
+                              multitaper_partial_coherence)
 from ..ops.signal_utils import pad_to
 from ..ops.reassign import reassigned_mean_power
 from ..ops.sst import ssq_mean_power
@@ -451,6 +460,172 @@ class EpochsWavelet:
             interpolate=self.wavelet.interpolate,
             time_range=self._samples(time_range))
 
+    def multitaper_partial_coherence(self, freqs: Numbers,
+                                     n_tapers: int = 3, lam: float = 1e-5,
+                                     time_range=None) -> torch.Tensor:
+        """(F, C, C) multitaper partial coherence
+        (``ops.multitaper.multitaper_partial_coherence``): the conditioning
+        inverse runs on the taper-augmented cross-spectra, so it stays well
+        posed where ``partial_coherence`` is rank-starved."""
+        return multitaper_partial_coherence(
+            self._all_data(), np.asarray(list(freqs), np.float64),
+            self.wavelet.sfreq, n_tapers=n_tapers, lam=lam,
+            interpolate=self.wavelet.interpolate,
+            time_range=self._samples(time_range))
+
+    def kuramoto_order(self, freqs: Numbers,
+                       mean_epochs: bool = True) -> torch.Tensor:
+        """(F, N) Kuramoto order parameter across every channel
+        (``ops.connectivity.kuramoto_order``): 1 for a whole-head phase
+        lock, ~1/sqrt(C) under independence; (E, F, N) with
+        ``mean_epochs=False``."""
+        waves, bank = self._matrix_input(freqs)
+        return _conn.kuramoto_order(waves, bank,
+                                    interpolate=self.wavelet.interpolate,
+                                    mean_epochs=mean_epochs)
+
+    def partial_coherence(self, freqs: Numbers, time_range=None,
+                          lam: float = 1e-5) -> torch.Tensor:
+        """(F, C, C) all-pairs partial coherence, each pair conditioned on
+        every other channel (``ops.connectivity.partial_coherence``)."""
+        waves, bank = self._matrix_input(freqs)
+        return _conn.partial_coherence(waves, bank,
+                                       interpolate=self.wavelet.interpolate,
+                                       lam=lam,
+                                       time_range=self._samples(time_range))
+
+    def psi_matrix(self, freqs: Numbers, time_range=None,
+                   normalize: bool = True) -> torch.Tensor:
+        """(C, C) phase slope index over every channel pair
+        (``ops.connectivity.psi_matrix``): positive ``[a, b]`` where ``a``
+        leads ``b`` across the band of ``freqs`` (sorted ascending here);
+        ``normalize`` divides by the jackknife standard error."""
+        freqs = np.sort(np.asarray(list(freqs), np.float64))
+        waves, bank = self._matrix_input(freqs)
+        return _conn.psi_matrix(waves, bank,
+                                interpolate=self.wavelet.interpolate,
+                                time_range=self._samples(time_range),
+                                normalize=normalize)
+
+    def nm_plv(self, ch_a: str, ch_b: str, freqs: Numbers, n: int = 1,
+               m: int = 1, eps: float = 0.0) -> torch.Tensor:
+        """(F, N) n:m phase locking of ``n * phase(ch_a at freqs[k])``
+        against ``m * phase(ch_b at (n / m) * freqs[k])``
+        (``ops.connectivity.nm_plv``)."""
+        sa, sb, bank_a = self._pair(ch_a, ch_b, freqs)
+        scaled = np.asarray(freqs, np.float64) * (float(n) / float(m))
+        bank_b = self._conn_bank(sa.shape[-1], scaled)
+        return _conn.nm_plv(sa, sb, bank_a, bank_b, n=n, m=m,
+                            interpolate=self.wavelet.interpolate, eps=eps)
+
+    def plv_significance(self, ch_a: str, ch_b: str, freqs: Numbers,
+                         n_surrogates: int = 199, seed: int = 0,
+                         eps: float = 0.0):
+        """((F, N) plv, (F, N) p-values) with circular-shift surrogates
+        (``ops.connectivity.plv_significance``)."""
+        sa, sb, bank = self._pair(ch_a, ch_b, freqs)
+        return _conn.plv_significance(sa, sb, bank,
+                                      interpolate=self.wavelet.interpolate,
+                                      eps=eps, n_surrogates=n_surrogates,
+                                      seed=seed)
+
+    def pac(self, ch_name: str, freqs_phase: Numbers, freqs_amp: Numbers,
+            method: str = "mvl", n_bins: int = 18, ch_amp=None,
+            significance: int = 0, seed: int = 0):
+        """(F_phase, F_amp) epoch-mean comodulogram
+        (``ops.connectivity.pac``); ``ch_amp`` takes the amplitude from
+        another channel; ``significance=S`` also returns S-surrogate
+        p-values, ``(pac, p)`` (same channel only)."""
+        cross = ch_amp is not None and ch_amp != ch_name
+        if significance and cross:
+            raise ValueError("significance is same-channel only "
+                             "(the surrogate rolls the amplitude "
+                             "copy of the SAME signal)")
+        waves = self._channel_data(ch_name)
+        bp = self._conn_bank(waves.shape[-1], freqs_phase)
+        ba = self._conn_bank(waves.shape[-1], freqs_amp)
+        interp = self.wavelet.interpolate
+        if significance:
+            return _conn.pac_significance(waves, bp, ba, interpolate=interp,
+                                          method=method, n_bins=n_bins,
+                                          n_surrogates=int(significance),
+                                          seed=seed)
+        if cross:
+            return _conn.pac_pair(waves, self._channel_data(ch_amp), bp, ba,
+                                  interpolate=interp, method=method,
+                                  n_bins=n_bins)
+        return _conn.pac(waves, bp, ba, interpolate=interp, method=method,
+                         n_bins=n_bins, mean_epochs=True)
+
+    def lagged_coherence(self, ch_name: str, freqs: Numbers,
+                         n_cycles: float = 3.0, lag=None) -> torch.Tensor:
+        """(F,) rhythmicity of one channel
+        (``ops.connectivity.lagged_coherence_morse``, pair sums pooled over
+        epochs)."""
+        return _conn.lagged_coherence_morse(
+            self._channel_data(ch_name), freqs, self.wavelet.sfreq,
+            n_cycles=n_cycles, lag=lag, pooled=True)
+
+    def cfd(self, ch_name: str, freqs_slow: Numbers, freqs_fast: Numbers,
+            band=None) -> torch.Tensor:
+        """(N,) cross-frequency directionality of one channel
+        (``ops.extensions.cfd``): positive where the slow phase leads the
+        fast amplitude envelope."""
+        waves = self._channel_data(ch_name)
+        bs = self._conn_bank(waves.shape[-1], freqs_slow)
+        bf = self._conn_bank(waves.shape[-1], freqs_fast)
+        return _ext.cfd(waves, bs, bf, band=band,
+                        interpolate=self.wavelet.interpolate)
+
+    def erpac(self, ch_name: str, freqs_phase: Numbers,
+              freqs_amp: Numbers) -> torch.Tensor:
+        """(Fp, Fa, N) event-related PAC of one channel across trials
+        (``ops.connectivity.erpac``)."""
+        waves = self._channel_data(ch_name)
+        bp = self._conn_bank(waves.shape[-1], freqs_phase)
+        ba = self._conn_bank(waves.shape[-1], freqs_amp)
+        return _conn.erpac(waves, bp, ba,
+                           interpolate=self.wavelet.interpolate)
+
+    def bicoherence(self, ch_name: str, freqs1: Numbers,
+                    freqs2: Numbers = None,
+                    eps: float = 1e-12) -> torch.Tensor:
+        """(F1, F2) wavelet bicoherence of one channel across epochs
+        (``ops.extensions.bicoherence``); ``freqs2`` defaults to
+        ``freqs1``.  Every pairwise sum must stay below Nyquist."""
+        f1 = np.asarray(freqs1, np.float64)
+        f2 = f1 if freqs2 is None else np.asarray(freqs2, np.float64)
+        sums = (f1[:, None] + f2[None, :]).ravel()
+        nyq = self.wavelet.sfreq / 2.0
+        if sums.max() >= nyq:
+            raise ValueError(
+                f"f1 + f2 reaches {sums.max():g} Hz >= Nyquist {nyq:g} — "
+                "shrink the grids")
+        waves = self._channel_data(ch_name)[:, None, :]
+        n = waves.shape[-1]
+        return _ext.bicoherence(waves, self._conn_bank(n, f1),
+                                self._conn_bank(n, f2),
+                                self._conn_bank(n, sums),
+                                interpolate=self.wavelet.interpolate,
+                                eps=eps)[0]
+
+    def wavelet_entropy(self, ch_name: str, freqs: Numbers,
+                        normalized: bool = True) -> torch.Tensor:
+        """(N,) time-resolved wavelet entropy of the channel's epoch-mean
+        power (``ops.extensions.wavelet_entropy``; the power through
+        ``power``, the "power" kernel on the card)."""
+        return _ext.wavelet_entropy(self.power(ch_name, freqs), normalized)
+
+    def env_corr(self, freqs: Numbers, orthogonalize: bool = True,
+                 log: bool = True, time_range=None) -> torch.Tensor:
+        """(F, C, C) power-envelope correlations over every channel
+        (``ops.envelope``); ``orthogonalize`` removes the zero-lag leakage
+        component first; ``time_range`` is a seconds pair."""
+        waves, bank = self._matrix_input(freqs)
+        return env_corr_matrix(waves, bank, orthogonalize=orthogonalize,
+                               interpolate=self.wavelet.interpolate, log=log,
+                               time_range=self._samples(time_range))
+
     def _samples(self, time_range):
         """(start_s, stop_s) -> integer sample window, or None."""
         if time_range is None:
@@ -605,3 +780,41 @@ class RawWavelet:
             data = data[idx]
         return self._stream_for(freqs).ssq_power_device(
             data, rel_threshold=rel_threshold)
+
+    def coherence(self, ch_a: str, ch_b: str, freqs: Numbers,
+                  cycles: float = 1.0, scale_width: float = 0.6,
+                  eps: float = 1e-12, return_phase: bool = False,
+                  significance: int = 0, seed: int = 0):
+        """(F, N) single-trial smoothed wavelet coherence between two
+        channels of the recording (``ops.extensions.wavelet_coherence``),
+        over the whole recording at once: O(F*N) device memory.
+        ``significance=S`` appends the (F,) AR(1) Monte-Carlo levels of
+        ``wtc_significance`` from S surrogates (real banks only), whose
+        (S, F, N) stack must fit the device."""
+        w = self.wavelet
+        data = self._host_data()
+        ia = self.raw.ch_names.index(ch_a)
+        ib = self.raw.ch_names.index(ch_b)
+        arr = w._check_freqs(freqs).numpy()
+        bank = _bank.make_fft_bank(w._wdef(), arr, data.shape[-1], w.sfreq,
+                                   w.interpolate, w.real_wave_length,
+                                   device=w.device)
+        sa = torch.from_numpy(np.ascontiguousarray(data[ia])).to(w.device)
+        sb = torch.from_numpy(np.ascontiguousarray(data[ib])).to(w.device)
+        out = _ext.wavelet_coherence(sa, sb, bank, arr, w.sfreq,
+                                     interpolate=w.interpolate,
+                                     cycles=cycles, scale_width=scale_width,
+                                     eps=eps, return_phase=return_phase)
+        if significance:
+            if bank.is_complex():
+                raise ValueError(
+                    "significance levels need an analytic (real-bank) "
+                    "family — the AR(1) null is built on the real bank "
+                    "and would not match a Normal/Twice-mode estimator")
+            thr = _ext.wtc_significance(
+                data[ia], data[ib], bank, arr, w.sfreq,
+                n_surrogates=int(significance), seed=seed,
+                interpolate=w.interpolate, cycles=cycles,
+                scale_width=scale_width, eps=eps)
+            return (*(out if return_phase else (out,)), thr)
+        return out
