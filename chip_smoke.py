@@ -297,6 +297,49 @@ package's shapes (``benchmarks/extensions_bench.py``):
    bicoherence peaking at the planted (10, 25) Hz; a shared 20 Hz tone
    above its AR(1) level in > 90 % of its row.
 
+Slice 8, directed and network connectivity and the event-locked path
+(plain torch with every product in full float32, but for the event-locked
+reductions, which run K1 / K2; nothing here joins the kernels' record):
+
+34. Spectral Granger causality: ``EpochsWavelet.granger``,
+   ``wavelet_dtf_pdc`` and ``wavelet_granger_significance`` (19
+   surrogates; its GC must equal ``wavelet_granger``'s, p in [1/20, 1],
+   diagonal 1) at the JAX bench's shape (``bench.py:253``: 16 epochs x 4
+   channels x 2048 at 1 kHz, 65 bins, ``time_decim`` 32);
+   ``EpochsWavelet.granger(conditional=True)`` on 8 channels of the
+   serving data (diagonal 0); the pairwise call at full width (the serving
+   data, 64 channels, ``time_decim`` 64), with its peak memory
+   (``torch.cuda.max_memory_allocated``) and its time split between the
+   decimated CWT with the cross spectra and the Wilson loop.
+35. ``EpochsWavelet.network`` ("wpli", "plv"; 20 nulls) at 16 x 64 x 2048
+   x 100 rows: modularity and, on rows whose matrix is finite off the
+   diagonal, efficiency and path length finite (and, for "plv", every
+   measure; the wPLI matrix's NaN diagonal reaches strength, clustering and
+   the small-world index, as in the JAX package); the 20 Hz row's shortest
+   paths against a float64 Floyd-Warshall (rel 1e-5); a lagged pair's
+   strengths at 20 Hz (``tests/test_graph.py``'s inputs).
+36. The event-locked path: ``RawWavelet`` over the slice 3 recording, 200
+   mne-style events of two codes and one past the edge, -0.5 to 1.547 s
+   (2048 samples): ``epochs``, ``epoch_power`` with the baseline, ``itc``,
+   ``split()`` and each group's ``power_all``, the counters zeroed just
+   before: "power" must launch 3 times and "itc" once, and nothing else.
+   The windows equal numpy slices of the recording exactly, the edge event
+   drops with its code, and the kernel results hold against the plain path
+   on the same tensors at slice 1's gates.
+37. ``convert.wavelet_from_jax`` on duck-typed ``Superlet``,
+   ``MorseMultitaper`` and ``MorseMNE`` objects: the port's class on the
+   card with the same parameters, its power equal to the class built
+   directly.
+38. Every path of 34-36 runs under TF32 allowed and not: the results must
+   be identical (gate 0) and the caller's setting must come back.  Each
+   path's time: median of 5 after a warm-up, fresh values each run (new
+   data, or the events moved by a new offset), with the card's name and
+   power limit; the full-width call's two TF32 runs are its warm-up.
+   Then ``tests/test_granger.py``'s known answers on the card, at its
+   sizes and tolerances: a VAR(2)'s Wilson factors and GC against the
+   analytic factors, the direction on simulated epochs, and the mediated
+   chain under pairwise and conditional GC and DTF / PDC.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -342,6 +385,7 @@ PAIR_REPLACES = {"coherence": "ninwavelets_tpu/ops/fused.py:311",
 E_MATRIX = 16
 SIGN_ROUNDOFF, SIGN_CELLS = 1e-5, 1e-4
 TF32_GATE = 1e-6
+EVENT_N, EVENT_TMIN, EVENT_TMAX = 200, -0.5, 1.547   # 2048-sample windows
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
 #: The radix-2 kernels' times of the rows now on the register-resident core
 #: (PERF.md section 6, from this script's runs on an NVIDIA H100 80GB HBM3
@@ -2230,12 +2274,12 @@ def zoo_phase(data):
 
 # -- slice 7: the rest of connectivity ----------------------------------------
 
-def tf32_same(name, fn):
+def tf32_same(name, fn, gate=TF32_GATE):
     """``fn()`` under the float32 matmul precision "high" (TF32 allowed) and
-    "highest": every tensor of the two results equal within
-    ``TF32_GATE`` x its max (NaN masks equal), since ``fp32_matmul``
-    guards every product of the slice; and each call leaves the setting it
-    found.  Returns the "highest" result."""
+    "highest": every tensor of the two results equal within ``gate`` x its
+    max (NaN masks equal; ``gate`` 0 asks for identical values), since
+    ``fp32_matmul`` guards every product of the slice; and each call leaves
+    the setting it found.  Returns the "highest" result."""
     import torch
     prev = torch.get_float32_matmul_precision()
     outs = []
@@ -2258,16 +2302,17 @@ def tf32_same(name, fn):
         scale = b.abs().nan_to_num().max().item()
         worst = max(worst, d / scale if scale else d)
     print(f"check {name} TF32 on / off: max|d| / max {worst} "
-          f"(gate {TF32_GATE})")
-    check(worst <= TF32_GATE, f"{name}: TF32 on / off differ by {worst}")
+          f"(gate {gate})")
+    check(worst <= gate, f"{name}: TF32 on / off differ by {worst}")
     return outs[1] if len(outs[1]) > 1 else outs[1][0]
 
 
-def rest_path(name, fn, x, card, shape=None):
-    """One slice 7 path: the TF32 check, finiteness (and ``shape``) of every
-    output, and its time (median of REPS after a warm-up, fresh values in
-    ``x`` before each run), printed with the card.  Returns the output."""
-    out = tf32_same(name, fn)
+def rest_path(name, fn, x, card, shape=None, gate=TF32_GATE):
+    """One slice 7 or 8 path: the TF32 check (at ``gate``), finiteness (and
+    ``shape``) of every output, and its time (median of REPS after a
+    warm-up, fresh values in ``x`` before each run), printed with the card.
+    Returns the output."""
+    out = tf32_same(name, fn, gate)
     for o in out if isinstance(out, tuple) else (out,):
         check(bool(o.isfinite().all()), f"{name}: non-finite values")
     if shape is not None:
@@ -2680,6 +2725,450 @@ def connectivity_rest_phase(data):
     rest_known_answers()
 
 
+# -- slice 8: directed and network connectivity, the event-locked path --------
+
+GC_FS = 200.0      # the sampling rate of the JAX tests' VAR systems
+
+
+def var_epochs(coeffs, sig, e, n, seed):
+    """(E, C, N) float32 epochs of x_t = sum_l A_l x_(t-l) + eps_t, eps ~
+    N(0, sig), after 200 burn-in samples (``tests/test_granger.py``'s
+    simulator)."""
+    rng = np.random.default_rng(seed)
+    burn, c = 200, sig.shape[0]
+    out = np.zeros((e, c, n), np.float32)
+    chol = np.linalg.cholesky(sig)
+    for ep in range(e):
+        x = np.zeros((n + burn, c))
+        eps = rng.standard_normal((n + burn, c)) @ chol.T
+        for t in range(len(coeffs), n + burn):
+            acc = eps[t].copy()
+            for lag, ak in enumerate(coeffs, start=1):
+                acc += ak @ x[t - lag]
+            x[t] = acc
+        out[ep] = x[burn:].T
+    return out
+
+
+def var2_system():
+    """VAR(2): y drives x near 48 Hz at 200 Hz (poles |z| ~ 0.9); x never
+    drives y."""
+    return ([np.array([[0.55, 0.25], [0.0, 0.55]]),
+             np.array([[-0.8, 0.0], [0.0, -0.8]])], np.diag([1.0, 0.7]))
+
+
+def chain_system():
+    """x <- z <- y, order [x, y, z]: no direct y -> x."""
+    a = np.diag([0.5, 0.5, 0.5])
+    a[0, 2] = 0.5
+    a[2, 1] = 0.5
+    return [a], np.diag([1.0, 0.8, 0.9])
+
+
+def var_spectrum(coeffs, sig, k):
+    """The VAR's true (K, C, C) spectrum S, transfer H and inverse transfer
+    A on the uniform grid of K bins from DC to Nyquist."""
+    c = sig.shape[0]
+    s = np.zeros((k, c, c), np.complex128)
+    h = np.zeros_like(s)
+    a_fn = np.zeros_like(s)
+    for idx, f in enumerate(np.linspace(0.0, GC_FS / 2, k)):
+        a = np.eye(c, dtype=np.complex128)
+        for lag, ak in enumerate(coeffs, start=1):
+            a -= ak * np.exp(-2j * np.pi * f * lag / GC_FS)
+        a_fn[idx] = a
+        h[idx] = np.linalg.inv(a)
+        s[idx] = h[idx] @ sig @ h[idx].conj().T
+    return s, h, a_fn
+
+
+def granger_known_answers():
+    """``tests/test_granger.py``'s known answers on the card, at its sizes
+    and tolerances: the Wilson factors of a VAR(2), its GC against the
+    analytic factors, the direction of the simulated VAR, the mediated
+    chain under pairwise and conditional GC and under DTF / PDC."""
+    import torch
+    from ninwavelets_tpu_torch.ops import granger as gr
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    coeffs, sig = var2_system()
+    s, h_true, _ = var_spectrum(coeffs, sig, 129)
+    s64 = dev(s.astype(np.complex64))
+    h, sg = gr.wilson_factorize(s64, n_iter=100)
+    h = h.cpu().numpy().astype(np.complex128)
+    sg = sg.cpu().numpy().astype(np.float64)
+    recon = h @ sg[None] @ np.conj(np.swapaxes(h, -1, -2))
+    rel = np.abs(recon - s).max() / np.abs(s).max()
+    d_sig = np.abs(sg - sig).max()
+    d_h = np.abs(h - h_true).max() / np.abs(h_true).max()
+    print(f"check Wilson factors of the VAR(2) (129 bins, 100 steps): S "
+          f"rebuilt rel {rel} (gate 1e-4), Sigma max|d| {d_sig} (gate "
+          f"5e-3), H max|d| / max {d_h} (gate 5e-3)")
+    check(rel < 1e-4 and d_sig <= 5e-3 and d_h <= 5e-3, "Wilson factors")
+    gc = gr.spectral_granger_pairwise(s64, n_iter=100).cpu().numpy()
+    analytic = gr.granger_from_factors(
+        dev(h_true.astype(np.complex64)), dev(sig.astype(np.float32)),
+        s64).cpu().numpy()
+    d = max(np.abs(gc[:, 0, 1] - analytic[:, 0]).max(),
+            np.abs(gc[:, 1, 0] - analytic[:, 1]).max())
+    print(f"check VAR(2) GC against the analytic factors: max|d| {d} (gate "
+          f"2e-3); y -> x max {gc[:, 0, 1].max()} (> 0.05), x -> y max "
+          f"{gc[:, 1, 0].max()} (< 1e-3)")
+    check(d <= 2e-3 and gc[:, 0, 1].max() > 0.05
+          and gc[:, 1, 0].max() < 1e-3
+          and bool((gc[:, range(2), range(2)] == 0).all()), "VAR(2) GC")
+
+    data = dev(var_epochs(coeffs, sig, 24, 2048, 0))
+    m = gr.wavelet_granger(data, GC_FS, n_bins=33, time_decim=32,
+                           n_iter=60).mean(0).cpu().numpy()
+    peak = gr.uniform_freqs(33, GC_FS)[m[:, 0, 1].argmax()]
+    print(f"check simulated VAR(2), 24 x 2 x 2048: time-mean y -> x max "
+          f"{m[:, 0, 1].max()}, x -> y max {m[:, 1, 0].max()} (gate 5x), "
+          f"peak at {peak} Hz (gate > 25)")
+    check(m[:, 0, 1].max() > 5 * max(m[:, 1, 0].max(), 1e-6)
+          and peak > 25.0, "simulated VAR(2) direction")
+
+    coeffs, sig = chain_system()
+    s, h_true, a_true = var_spectrum(coeffs, sig, 65)
+    s64 = dev(s.astype(np.complex64))
+    pw = gr.spectral_granger_pairwise(s64, n_iter=100).cpu().numpy()
+    cg = gr.conditional_granger(s64, n_iter=100).cpu().numpy()
+    print(f"check chain x <- z <- y: pairwise y -> x {pw[:, 0, 1].max()} "
+          f"(> 0.2), conditional y -> x {cg[:, 0, 1].max()} (< 1e-3), "
+          f"z -> x {cg[:, 0, 2].max()}, y -> z {cg[:, 2, 1].max()} (> 0.3), "
+          f"x -> y {cg[:, 1, 0].max()}, z -> y {cg[:, 1, 2].max()} (< 1e-3)")
+    check(pw[:, 0, 1].max() > 0.2 and cg[:, 0, 1].max() < 1e-3
+          and cg[:, 0, 2].max() > 0.3 and cg[:, 2, 1].max() > 0.3
+          and cg[:, 1, 0].max() < 1e-3 and cg[:, 1, 2].max() < 1e-3
+          and bool((cg[:, range(3), range(3)] == 0).all()),
+          "chain: conditional GC")
+    dtf, pdc = (x.cpu().numpy() for x in gr.dtf_pdc(s64, n_iter=100))
+    dtf_true = np.abs(h_true) / np.sqrt(
+        (np.abs(h_true) ** 2).sum(-1, keepdims=True))
+    pdc_true = np.abs(a_true) / np.sqrt(
+        (np.abs(a_true) ** 2).sum(-2, keepdims=True))
+    d_dtf, d_pdc = (np.abs(dtf - dtf_true).max(),
+                    np.abs(pdc - pdc_true).max())
+    print(f"check chain DTF / PDC: PDC y -> x {pdc[:, 0, 1].max()} (< "
+          f"0.02), DTF y -> x {dtf[:, 0, 1].max()} (> 0.1); against the "
+          f"closed form max|d| {d_dtf} / {d_pdc} (gate 5e-3)")
+    check(pdc[:, 0, 1].max() < 0.02 and pdc[:, 0, 2].max() > 0.3
+          and pdc[:, 2, 1].max() > 0.3 and dtf[:, 0, 1].max() > 0.1
+          and d_dtf <= 5e-3 and d_pdc <= 5e-3, "chain DTF / PDC")
+    data = dev(var_epochs(coeffs, sig, 24, 2048, 6))
+    m_c = gr.wavelet_conditional_granger(data, GC_FS, n_bins=33,
+                                         time_decim=64).mean(0).cpu().numpy()
+    m_p = gr.wavelet_granger(data, GC_FS, n_bins=33,
+                             time_decim=64).mean(0).cpu().numpy()
+    print(f"check simulated chain, 24 x 3 x 2048: y -> x conditional "
+          f"{m_c[:, 0, 1].max()} < 0.4 x pairwise {m_p[:, 0, 1].max()}; "
+          f"z -> x conditional {m_c[:, 0, 2].max()} > 0.5 x pairwise "
+          f"{m_p[:, 0, 2].max()}")
+    check(m_c[:, 0, 1].max() < 0.4 * m_p[:, 0, 1].max()
+          and m_c[:, 0, 2].max() > 0.5 * m_p[:, 0, 2].max(),
+          "simulated chain: conditional GC")
+
+
+def floyd(w):
+    """Float64 Floyd-Warshall shortest paths of a weight matrix, length
+    1 / weight (``tests/test_graph.py``'s oracle)."""
+    c = w.shape[-1]
+    d = np.where(w > 1e-12, 1.0 / np.maximum(w, 1e-12), np.inf)
+    np.fill_diagonal(d, 0.0)
+    for k in range(c):
+        d = np.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+    return d
+
+
+def network_tuple(net):
+    """The tensors of an ``EpochsWavelet.network`` dict, in a fixed order
+    (its numpy communities and modularity as tensors)."""
+    import torch
+    keys = ("matrix", "strength", "clustering", "efficiency", "path_length",
+            "small_world")
+    return tuple(net[k] for k in keys) + tuple(
+        torch.from_numpy(np.asarray(net[k], np.float32))
+        for k in ("communities", "modularity"))
+
+
+def directed_network_phase(data):
+    """Slice 8: spectral Granger causality (pairwise, conditional, DTF /
+    PDC, trial-shuffle significance) at the JAX bench's shape, at full width
+    and on 8 channels; ``EpochsWavelet.network``; the event-locked path of
+    a recording, whose reductions must run K1 / K2; the conversion of the
+    families of banks; every new path's TF32 check (identical values) and
+    time; the JAX tests' known answers.  Plain torch but for K1 / K2:
+    nothing joins the kernels' record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import convert, kernels
+    from ninwavelets_tpu_torch.ops import cwt
+    from ninwavelets_tpu_torch.ops import granger as gr
+    from ninwavelets_tpu_torch.ops import graph
+    from ninwavelets_tpu_torch.ops.scattering import fp32_matmul
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    morse = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    kernels.reset_launches()
+
+    # -- Granger at bench.py:253's shape: 16 x 4 x 2048, 65 bins, decim 32 --
+    g16 = np.random.default_rng(11).standard_normal((16, 4, N),
+                                                     dtype=np.float32)
+    ewg = nt.EpochsWavelet(nt.ArrayEpochs(g16, SFREQ), morse)
+    xg = ewg._all_data()
+    kw = dict(n_bins=65, time_decim=32)
+    shape = (N // 32, 65, 4, 4)
+    rest_path("EpochsWavelet.granger (16 x 4 x 2048, 65 bins, decim 32)",
+              lambda: ewg.granger(**kw), xg, card, shape, gate=0)
+    dtf, pdc = rest_path("wavelet_dtf_pdc (16 x 4 x 2048, 65 bins, decim "
+                         "32)", lambda: gr.wavelet_dtf_pdc(xg, SFREQ, **kw),
+                         xg, card, shape, gate=0)
+    check(dtf.max().item() <= 1 + 1e-5 and pdc.max().item() <= 1 + 1e-5,
+          "DTF / PDC above 1")
+    xg.copy_(torch.from_numpy(g16))
+    gc, p = rest_path("wavelet_granger_significance (16 x 4 x 2048, 65 "
+                      "bins, decim 32, 19 surrogates)",
+                      lambda: gr.wavelet_granger_significance(
+                          xg, SFREQ, n_surrogates=19, **kw),
+                      xg, card, shape, gate=0)
+    xg.copy_(torch.from_numpy(g16))       # the timing refilled it
+    plain = gr.wavelet_granger(xg, SFREQ, **kw)
+    d = (gc - plain).abs().max().item()
+    eye = torch.eye(4, dtype=torch.bool, device="cuda")
+    print(f"check significance: its GC against wavelet_granger max|d| {d} "
+          "(gate 0: the same cross spectra and factorization); p in "
+          "[1/20, 1], diagonal 1")
+    check(d == 0 and bool(((p >= 1 / 20 - 1e-7) & (p <= 1)).all())
+          and bool((p[..., eye] == 1).all()), "wavelet_granger_significance")
+
+    # -- conditional Granger: 8 channels x 200 epochs, decim 16 -------------
+    ew8 = nt.EpochsWavelet(nt.ArrayEpochs(np.ascontiguousarray(
+        data[:, :8]), SFREQ), morse)
+    cg = rest_path(f"EpochsWavelet.granger conditional=True ({E} x 8 x {N}, "
+                   "65 bins, decim 16)", lambda: ew8.granger(
+                       conditional=True), ew8._all_data(), card,
+                   (N // 16, 65, 8, 8), gate=0)
+    check(bool((cg[..., torch.eye(8, dtype=torch.bool, device="cuda")]
+                == 0).all()), "conditional GC diagonal not 0")
+    del cg, ew8
+    torch.cuda.empty_cache()
+
+    # -- Granger at full width: 200 x 64 x 2048, 65 bins, decim 64 ----------
+    # Each call takes seconds, so the two runs of the TF32 check are the
+    # warm-up and give the peak memory, and the REPS timed runs are split
+    # between the two parts of the call's body, ``wavelet_granger``: the
+    # bank and the decimated CWT with its cross spectra, then the pairwise
+    # Wilson loop and GC.
+    ewf = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ), morse)
+    xf = ewf._all_data()
+    name = f"EpochsWavelet.granger ({E} x {C} x {N}, 65 bins, decim 64)"
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full = tf32_same(name, lambda: ewf.granger(time_decim=64), gate=0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"memory {name}: peak {peak} bytes allocated, {held} held before "
+          f"the calls, {peak - held} for a call, on {card}")
+    check(tuple(full.shape) == (N // 64, 65, C, C)
+          and bool(full.isfinite().all()), f"{name}: output")
+    del full
+    parts = []
+    for _ in range(REPS):
+        xf.normal_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sigs, bank_g = gr._granger_inputs(xf, SFREQ, 65, True)
+        cross = gr._cross_spectra(sigs, bank_g, 64, True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gr._pairwise_assemble(cross, 60)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        parts.append(((t2 - t0) * 1e3, (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    ms, ms_cwt, ms_wilson = (sorted(p)[REPS // 2] for p in zip(*parts))
+    print(f"time {name}: {ms} ms (its body, wavelet_granger), of which the "
+          f"bank, decimated CWT and cross spectra {ms_cwt} ms, the pairwise "
+          f"Wilson loop and GC {ms_wilson} ms (medians of {REPS}), on {card}")
+    # One Wilson step's pieces on the first chunk of (time, pair) systems,
+    # by CUDA events; the 2 x 2 product also as a batched GEMM (matmul),
+    # which ``_mm`` replaces for matrices up to 4 x 4.
+    i, j = torch.triu_indices(C, C, 1, device="cuda")
+    pair_s = torch.stack([cross[..., i, i], cross[..., i, j], cross[..., j, i],
+                          cross[..., j, j]], -1).movedim(-2, -3)
+    part = gr._two_sided(pair_s.reshape(-1, 65, 2, 2)[:gr._PAIR_CHUNK])
+    psi = part * 1.1
+    with fp32_matmul("exact"):
+        pieces = {"solve (2 a step)": lambda: gr._solve_complex(psi, part),
+                  "product psi gamma (_mm)": lambda: gr._mm(psi, part),
+                  "the same product by matmul": lambda: psi @ part,
+                  "plus operator (2 FFTs)": lambda: gr._plus_operator(
+                      part, 64)}
+        times = {k: event_ms(fn) for k, fn in pieces.items()}
+    print(f"breakdown of one Wilson step on {part.shape[0]} of the "
+          f"{pair_s.shape[0] * pair_s.shape[1]} (time, pair) systems "
+          f"(128 frequencies): " + ", ".join(f"{k} {v} ms" for k, v in
+                                              times.items())
+          + f", on {card}")
+    del ewf, xf, sigs, bank_g, cross, pair_s, part, psi
+    torch.cuda.empty_cache()
+
+    # -- EpochsWavelet.network at 16 x 64 x 2048 x 100 rows ------------------
+    freqs = np.arange(1.0, F + 1.0)
+    ew16 = nt.EpochsWavelet(nt.ArrayEpochs(data[:E_MATRIX], SFREQ), morse)
+    x16 = ew16._all_data()
+    for method in ("wpli", "plv"):
+        name = (f"EpochsWavelet.network {method} n_nulls=20 ({E_MATRIX} x "
+                f"{C} x {N} x {F})")
+        net = tf32_same(name, lambda: network_tuple(ew16.network(
+            freqs, method=method, n_nulls=20)), gate=0)
+        m, st, cl, eff, pl, sw, comm, q = net
+        off = ~torch.eye(C, dtype=torch.bool, device="cuda")
+        ok = m[:, off].isfinite().all(-1)       # rows with a finite matrix
+        rows = [eff, pl] + ([st, cl, sw] if method == "plv" else [])
+        check(bool(q.isfinite().all()) and bool(comm.isfinite().all())
+              and all(bool(t[ok].isfinite().all()) for t in rows),
+              f"network {method}: non-finite measures on finite rows")
+        print(f"network {method}: {int((~ok).sum())} of {F} rows with NaN "
+              f"off the matrix diagonal; NaN cells in strength "
+              f"{int(st.isnan().sum())}, clustering {int(cl.isnan().sum())}, "
+              f"small_world {int(sw.isnan().sum())} (the wPLI matrix's NaN "
+              "diagonal reaches them, as in the JAX package)")
+        if method == "plv":
+            i20 = int(np.argmin(np.abs(freqs - 20.0)))
+            row = m[i20].double().cpu().numpy()
+            ref = floyd(np.maximum(0.5 * (row + row.T), 0) * (1 - np.eye(C)))
+            got = graph.shortest_paths(m[i20]).double().cpu().numpy()
+            d = (np.abs(got - ref) / ref.clip(min=1e-30)).max()
+            print(f"check network plv: shortest paths of the 20 Hz row "
+                  f"against a float64 Floyd-Warshall rel {d} (gate 1e-5)")
+            check(d <= 1e-5, "network plv shortest paths")
+        ms = host_ms(lambda _: ew16.network(freqs, method=method,
+                                            n_nulls=20),
+                     lambda: x16.normal_())
+        print(f"time {name}: {ms} ms on {card}")
+    del net, m, st, cl, eff, pl, sw, comm, q
+    rng = np.random.default_rng(7)
+    t = np.arange(256) / 250.0
+    shared = np.sin(2 * np.pi * 20 * t + 0.7)
+    small = 0.5 * rng.standard_normal((10, 3, 256)).astype(np.float32)
+    small[:, 0] += shared.astype(np.float32)
+    small[:, 1] += np.roll(shared, 7).astype(np.float32)
+    net = nt.EpochsWavelet(nt.ArrayEpochs(small, 250.0), nt.Morse(
+        250.0, device="cuda")).network([15.0, 20.0, 25.0], method="plv",
+                                       n_nulls=5)
+    s20 = net["strength"][1].tolist()
+    print(f"check network of a lagged pair at 20 Hz: strengths {s20} (the "
+          "third channel weakest)")
+    check(s20[2] < s20[0] and s20[2] < s20[1], "network known answer")
+    torch.cuda.empty_cache()
+
+    # -- the event-locked path of a recording --------------------------------
+    rec = recording(4)
+    rng = np.random.default_rng(8)
+    onsets = np.sort(rng.choice(np.arange(1000, REC_N - 2000), EVENT_N,
+                                replace=False))
+    events = np.stack([np.append(onsets, REC_N - 100),
+                       np.zeros(EVENT_N + 1, np.int64),
+                       np.append(np.tile([1, 2], EVENT_N // 2), 3)], 1)
+    start = int(round(EVENT_TMIN * SFREQ))
+    morse_ev = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    rw = nt.RawWavelet(ArrayRaw(rec), morse_ev)
+    kernels.reset_launches()
+    ew = rw.epochs(events, EVENT_TMIN, EVENT_TMAX)
+    pw = rw.epoch_power(freqs, events, EVENT_TMIN, EVENT_TMAX,
+                        baseline=BASELINE)
+    itc = rw.itc(freqs, events, EVENT_TMIN, EVENT_TMAX)
+    groups = ew.split()
+    gpow = {lab: g.power_all(freqs) for lab, g in groups.items()}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"event-locked path launches {counts}")
+    check(counts["power"] == 3 and counts["itc"] == 1
+          and sum(counts.values()) == 4,
+          f"event-locked path launched {counts}: K1 must launch 3 times "
+          "(epoch_power, two split groups), K2 once (itc)")
+    host = ew._host_data()
+    want = np.stack([rec[:, e + start:e + start + N] for e in onsets])
+    check(host.shape == (EVENT_N, REC_C, N) and np.array_equal(host, want),
+          "event windows differ from numpy slices of the recording")
+    check(np.array_equal(ew.event_codes, np.tile([1, 2], EVENT_N // 2))
+          and sorted(groups) == [1, 2], "event codes")
+    print(f"check event windows: {host.shape} equal to numpy slices of the "
+          "recording (the edge event dropped with its code)")
+    x = ew._all_data()
+    bank_ev = morse_ev.fft_wavelets
+    ref_power = cwt.mean_power_from_bank(x, bank_ev, True)
+    baselined_err("RawWavelet.epoch_power baselined", pw, ref_power)
+    itc_err("RawWavelet.itc", itc, cwt.itc_from_bank(x, bank_ev, True),
+            ref_power)
+    for lab, gp in gpow.items():
+        sel = torch.from_numpy(ew.event_codes == lab).cuda()
+        rel_err(f"split()[{lab}].power_all", gp,
+                cwt.mean_power_from_bank(x[sel], bank_ev, True))
+    del x, ref_power, pw, itc, gpow
+    shift = iter(range(1, 100))
+
+    def fresh_events():
+        """The events moved by a new sample offset: fresh windows."""
+        ev = events.copy()
+        ev[:-1, 0] += next(shift)
+        return ev
+
+    paths = {
+        "RawWavelet.epochs and the copy to the card": lambda ev: rw.epochs(
+            ev, EVENT_TMIN, EVENT_TMAX)._all_data(),
+        "RawWavelet.epoch_power (baseline)": lambda ev: rw.epoch_power(
+            freqs, ev, EVENT_TMIN, EVENT_TMAX, baseline=BASELINE),
+        "RawWavelet.itc": lambda ev: rw.itc(freqs, ev, EVENT_TMIN,
+                                            EVENT_TMAX),
+        "split() and each group's power_all": lambda ev: [
+            g.power_all(freqs) for g in rw.epochs(
+                ev, EVENT_TMIN, EVENT_TMAX).split().values()],
+    }
+    for label, fn in paths.items():
+        if not label.startswith("RawWavelet.epochs"):
+            tf32_same(f"{label} (event-locked)", lambda: tuple(
+                torch.stack(out) if isinstance(out, list) else out
+                for out in [fn(events)]), gate=0)
+        ms = host_ms(fn, fresh_events)
+        print(f"time {label} ({EVENT_N} events x {REC_C} channels x {N} "
+              f"samples of a {REC_N}-sample recording, {F} rows): {ms} ms "
+              f"on {card}")
+    del rw, ew, groups, rec
+    torch.cuda.empty_cache()
+
+    # -- convert: the families of banks and MorseMNE, duck-typed -------------
+    ducks = {"Superlet": dict(sfreq=SFREQ, sigma=2.5, order_min=2,
+                              order_max=5, adaptive=False, interpolate=True),
+             "MorseMultitaper": dict(sfreq=SFREQ, b=9.0, r=2.5, n_tapers=4,
+                                     interpolate=True),
+             "MorseMNE": dict(sfreq=SFREQ, b=12.0, r=3.5,
+                              real_wave_length=1.0, interpolate=True,
+                              mode=nt.WaveletMode.Reverse)}
+    sig = torch.from_numpy(data[0, :2]).cuda()
+    fr = np.arange(8.0, 72.0, 8.0)
+    for cls_name, attrs in ducks.items():
+        duck = type(cls_name, (), dict(attrs))()
+        w = convert.wavelet_from_jax(duck)
+        params = {k: v for k, v in attrs.items() if k != "mode"}
+        same = all(getattr(w, k) == v for k, v in params.items())
+        direct = getattr(nt, cls_name)(device="cuda", **{
+            k: v for k, v in params.items() if k != "real_wave_length"})
+        d = (w.power(sig, fr) - direct.power(sig, fr)).abs().max().item()
+        print(f"check convert.wavelet_from_jax({cls_name}): {type(w).__name__}"
+              f" on {w.device}, parameters carried {same}, power against "
+              f"the class built directly max|d| {d} (gate 0)")
+        check(type(w).__name__ == cls_name and same and d == 0
+              and w.device.type == "cuda", f"convert {cls_name}")
+
+    granger_known_answers()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2827,6 +3316,10 @@ def main() -> int:
 
     # -- slice 7: the rest of connectivity ------------------------------------
     connectivity_rest_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 8: directed and network connectivity, event-locked epochs -----
+    directed_network_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

@@ -16,7 +16,10 @@ reader in ``io``, and ``scattering``), and the synchrosqueezing path
 reassignment, inverse-CWT, denoising, ridge and Torrence & Compo extensions
 in ``ops``, and pair connectivity (coherence, imaginary coherency, PLV,
 PPC, PLI / wPLI / debiased wPLI^2, the phase slope index in ``ops``; the
-all-pairs matrices; the ``EpochsWavelet`` pair and matrix methods).  On a
+all-pairs matrices; the ``EpochsWavelet`` pair and matrix methods), the rest
+of connectivity, directed connectivity (spectral Granger causality, DTF /
+PDC) and graph measures (``EpochsWavelet.granger`` / ``network``), and
+event-locked epochs of a recording (``RawWavelet.epochs``).  On a
 CUDA tensor the epoch reductions (for real and complex banks) and the
 per-signal power run the fused kernels of ``csrc/fused_cwt.cu``, the power's
 gradient the fused backward of ``csrc/fused_cwt_bwd.cu`` (real and complex

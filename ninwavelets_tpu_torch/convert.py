@@ -19,23 +19,36 @@ from .models import zoo
 from .ops.bank import WaveletMode
 
 _CLASSES = {cls.__name__: cls for cls in
-            (zoo.Morse, zoo.Morlet, zoo.MexicanHat, zoo.Shannon, zoo.Haar,
-             zoo.Paul, zoo.DOG, zoo.Bump)}
+            (zoo.Morse, zoo.MorseMNE, zoo.Morlet, zoo.MexicanHat,
+             zoo.Shannon, zoo.Haar, zoo.Paul, zoo.DOG, zoo.Bump)}
 # The shape parameters a class takes: Morse's b and r, Morlet's sigma and
 # gabor, MexicanHat's, Shannon's and Bump's sigma, Paul's and DOG's order m.
 _PARAMS = ("b", "r", "sigma", "gabor", "m")
+# The families of banks (not a WaveletBase: no mode, no real_wave_length)
+# and the parameters each takes besides sfreq and interpolate.
+_FAMILIES = {"Superlet": (zoo.Superlet, ("sigma", "order_min", "order_max",
+                                          "adaptive")),
+             "MorseMultitaper": (zoo.MorseMultitaper, ("b", "r",
+                                                       "n_tapers"))}
 
 
 def wavelet_from_jax(w, device=None):
     """The port's wavelet of the same class as ``w`` (a JAX-package wavelet),
     with the same ``sfreq``, ``b``, ``r``, ``sigma``, ``gabor``, ``m``,
     ``real_wave_length``, ``interpolate`` and ``mode``, on ``device`` (the
-    card when None).  Superlets and multitaper Morse, families of banks,
-    have no single-wavelet counterpart here and raise ``TypeError``."""
+    card when None).  The families of banks carry theirs: a ``Superlet``
+    its ``sigma``, ``order_min``, ``order_max`` and ``adaptive``, a
+    ``MorseMultitaper`` its ``b``, ``r`` and ``n_tapers`` (with ``sfreq``
+    and ``interpolate``).  Any other class raises ``TypeError``."""
     name = type(w).__name__
+    if name in _FAMILIES:
+        cls, params = _FAMILIES[name]
+        return cls(sfreq=float(w.sfreq), interpolate=bool(w.interpolate),
+                   device=resolve_device(device),
+                   **{k: getattr(w, k) for k in params})
     if name not in _CLASSES:
         raise TypeError(f"no port of wavelet class {name!r}; one of "
-                        f"{sorted(_CLASSES)}")
+                        f"{sorted(set(_CLASSES) | set(_FAMILIES))}")
     kwargs = {k: getattr(w, k) for k in _PARAMS if hasattr(w, k)}
     out = _CLASSES[name](sfreq=float(w.sfreq),
                          real_wave_length=float(w.real_wave_length),

@@ -8,11 +8,14 @@ all-pairs matrices), the rest of connectivity (partial coherence, the PSI
 matrix, the Kuramoto order, n:m PLV, PAC and ERPAC, surrogate
 significance, lagged coherence, bicoherence, the smoothed single-trial
 wavelet coherence with its AR(1) levels, cross-frequency directionality,
-wavelet entropy and envelope correlations), the Paul / DOG / Bump spectra,
-multitaper Morse spectrograms and superlets.
+wavelet entropy and envelope correlations), directed connectivity
+(spectral Granger causality by Wilson factorization, pairwise and
+conditional, DTF / PDC, trial-shuffle significance), graph measures over the
+connectivity matrices, the Paul / DOG / Bump spectra, multitaper Morse
+spectrograms and superlets.
 """
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
-                   make_time_wavelet)
+                   make_time_wavelet, pad_spectrum_to)
 from .baseline import (Baseline, baseline_correct, baseline_of, baseline_tf,
                        METHODS as BASELINE_METHODS)
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
@@ -50,6 +53,16 @@ from .extensions import (ar1_filter, bicoherence, bicoherence_from_banks,
                          wavelet_coherence, wavelet_coherence_from_bank,
                          wavelet_entropy, wtc_significance)
 from .fit import fit_frequencies, learn_bank
+from .granger import (conditional_granger, dtf_pdc, granger_from_factors,
+                      spectral_granger_pairwise, uniform_freqs,
+                      wavelet_conditional_granger, wavelet_dtf_pdc,
+                      wavelet_granger, wavelet_granger_significance,
+                      wilson_factorize)
+from .graph import (char_path_length, clustering_onnela, global_efficiency,
+                    modularity_communities, shortest_paths, small_worldness,
+                    strength)
+from .grids import (analytic_mask, fft_bin_freqs, log_freqs,
+                    reverse_timeline, wavelet_timeline)
 from .denoise import denoise_from_bank
 from .fused import (fused_coherence, fused_coherence_sums,
                     fused_epoch_coherence, fused_imcoh, fused_itc_from_bank,
@@ -68,7 +81,8 @@ from .multitaper import (morse_taper_def, multitaper_banks,
 from .reassign import reassigned_mean_power, reassigned_power
 from .ridge import (extract_modes, extract_modes_ri, extract_ridge,
                     ridge_frequencies)
-from .signal_utils import SizeError, pad_last_axis_to, pad_to
+from .signal_utils import (SizeError, hamming_window, interpolate_alias,
+                           normalize, pad_last_axis_to, pad_to)
 from .sst import (ssq_mean_power, ssq_mean_power_from_bank, ssq_power,
                   ssq_power_from_bank, uniform_grid_hint)
 from .superlets import (superlet_banks, superlet_mean_power, superlet_power,

@@ -52,6 +52,13 @@ class WaveletDef:
     peak_freq: Callable = field(default=lambda freq: 1.0)
 
 
+def pad_spectrum_to(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference's ``pad_to`` on a spectrum's last axis (head-truncate,
+    or center-pad with the extra zero on the tail): the canonical
+    implementation is ``ops.signal_utils.pad_last_axis_to``."""
+    return pad_last_axis_to(spec, n)
+
+
 def _as_freq(freq, device) -> torch.Tensor:
     return torch.as_tensor(freq, dtype=torch.float32, device=device)
 

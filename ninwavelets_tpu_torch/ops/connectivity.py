@@ -731,17 +731,28 @@ def kuramoto_order(sigs, bank, interpolate: bool = False,
 
 # -- partial coherence --------------------------------------------------------
 
+def _solve_ex(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^{-1} b`` for (..., C, C) and (..., C, k), batch dims broadcast,
+    through ``torch.linalg.solve_ex`` without error checks: a singular
+    system gives non-finite values (``jnp.linalg.solve``'s result) instead
+    of an exception, and the card is not synced to check."""
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    return torch.linalg.solve_ex(a.expand(*batch, *a.shape[-2:]),
+                                 b.expand(*batch, *b.shape[-2:]),
+                                 check_errors=False)[0]
+
+
 def _solve_complex(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a^{-1} b`` for complex (..., C, C) through the real (2C, 2C) block
     embedding ``[[Re, -Im], [Im, Re]]``, in full float32 (the JAX
-    package's form, so the Granger slice can share it)."""
+    package's form, shared with ``ops.granger``); ``_solve_ex``'s rules."""
     from .scattering import fp32_matmul    # scattering imports ops.fused
     ar, ai = a.real, a.imag
     big_a = torch.cat([torch.cat([ar, -ai], -1), torch.cat([ai, ar], -1)],
                       -2)
     big_b = torch.cat([b.real, b.imag], -2)
     with fp32_matmul("exact"):
-        x = torch.linalg.solve(big_a, big_b)
+        x = _solve_ex(big_a, big_b)
     c = a.shape[-1]
     return torch.complex(x[..., :c, :], x[..., c:, :])
 

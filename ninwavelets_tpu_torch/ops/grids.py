@@ -56,3 +56,14 @@ def reverse_timeline(sfreq: float, freq, real_wave_length: float,
     n = int(round(sfreq * real_wave_length))
     i = torch.arange(n, dtype=dtype, device=device)
     return i / torch.as_tensor(freq, dtype=dtype, device=device)
+
+
+def log_freqs(lo: float, hi: float, n: int, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """``n`` log-spaced analysis frequencies in [lo, hi]: the natural grid
+    for constant-Q wavelets like Morse / Morlet, whose bandwidth scales
+    with frequency (linear grids oversample the top of the band)."""
+    if lo <= 0 or hi <= lo or n < 2:
+        raise ValueError("need 0 < lo < hi and n >= 2")
+    return torch.logspace(math.log10(lo), math.log10(hi), n, dtype=dtype,
+                          device=device)

@@ -17,11 +17,16 @@ through plain FFTs and batched matrix products.  The rest of connectivity
 ``plv_significance``, ``pac``, ``erpac``, ``bicoherence``, ``cfd``,
 ``lagged_coherence``, ``env_corr`` ...) is plain torch as well;
 ``wavelet_entropy`` takes its power through ``power``, the kernel on the
-card.  ``RawWavelet.coherence`` is the single-trial smoothed wavelet
-coherence of two channels of a recording.  A continuous recording streams
-through ``parallel.StreamingCWT`` in overlap-discard windows.  Both need
-only the duck-typed MNE surface ``.info['sfreq']``, ``.ch_names`` and
-``.get_data()``.
+card.  ``granger`` (spectral Granger causality, pairwise or conditional,
+``ops.granger``) and ``network`` (graph measures of a ``*_matrix``,
+``ops.graph``) are plain torch too.  ``subset`` and ``split`` carve trial
+groups, carrying the event codes.  ``RawWavelet.coherence`` is the
+single-trial smoothed wavelet coherence of two channels of a recording.  A
+continuous recording streams through ``parallel.StreamingCWT`` in
+overlap-discard windows; ``RawWavelet.epochs`` cuts event-locked windows
+out of it into an ``EpochsWavelet``, whose epoch reductions then run the
+kernels (``epoch_power``, ``itc``).  Both need only the duck-typed MNE
+surface ``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
 """
 from __future__ import annotations
 
@@ -29,11 +34,14 @@ import numpy as np
 import torch
 
 from ..io.edf import EDFRaw
+from ..io.native import f32_gather
 from ..io.stream import EDFSource
 from ..models.base import Numbers, WaveletBase
 from ..ops import bank as _bank
 from ..ops import connectivity as _conn
 from ..ops import extensions as _ext
+from ..ops import granger as _granger
+from ..ops import graph as _graph
 from ..ops.baseline import baseline_tf
 from ..ops.cwt import cwt_from_bank
 from ..ops.fused import itc_auto, mean_power_auto, power_auto, power_itc_auto
@@ -507,6 +515,56 @@ class EpochsWavelet:
                                 time_range=self._samples(time_range),
                                 normalize=normalize)
 
+    def network(self, freqs: Numbers, method: str = "wpli",
+                time_range=None, n_nulls: int = 0) -> dict:
+        """Graph summary of the all-pairs connectivity at each frequency
+        (``ops.graph`` over the ``*_matrix`` estimators): a dict with the
+        (F, C, C) ``matrix``, per-node ``strength`` and ``clustering``
+        (F, C), per-frequency ``efficiency`` and ``path_length`` (F,), the
+        leading-eigenvector ``communities`` (F, C) and ``modularity`` (F,)
+        as numpy arrays; ``n_nulls > 0`` adds ``small_world`` sigma against
+        that many weight-shuffled nulls.  ``method``: "wpli", "plv",
+        "coherence", "ppc" or "pcoh" (partial coherence)."""
+        fn = {"wpli": self.wpli_matrix, "plv": self.plv_matrix,
+              "coherence": self.coherence_matrix,
+              "ppc": self.ppc_matrix,
+              "pcoh": self.partial_coherence}.get(method)
+        if fn is None:
+            raise ValueError("method must be one of wpli/plv/coherence/"
+                             "ppc/pcoh, got %r" % (method,))
+        m = fn(freqs, time_range=time_range)
+        labels, q = _graph.modularity_communities(m)   # batched over F
+        out = {"matrix": m,
+               "strength": _graph.strength(m),
+               "clustering": _graph.clustering_onnela(m),
+               "efficiency": _graph.global_efficiency(m),
+               "path_length": _graph.char_path_length(m),
+               "communities": labels.cpu().numpy(),
+               "modularity": q.cpu().numpy()}
+        if n_nulls:
+            out["small_world"] = _graph.small_worldness(m, n_nulls=n_nulls)
+        return out
+
+    def granger(self, picks=None, n_bins: int = 65, time_decim: int = 16,
+                n_iter: int = 60, conditional: bool = False) -> torch.Tensor:
+        """(T', K, C, C) time-resolved spectral Granger causality over
+        channels (``ops.granger``, Dhamala et al. 2008): ``out[t, k, i, j]``
+        is the influence j -> i at the ``k``-th uniform bin
+        (``ops.granger.uniform_freqs(n_bins, sfreq)``) and every
+        ``time_decim``-th sample.  ``picks`` restricts to a channel-name
+        subset (order kept).  Uses its own energy-normalized uniform-grid
+        Morse bank, independent of this wavelet's.  ``conditional=True``
+        takes the multivariate conditional estimator (needs >= 3 channels;
+        indirect routes suppressed)."""
+        waves = self._all_data()
+        if picks is not None:
+            idx = [self.epochs.ch_names.index(ch) for ch in picks]
+            waves = waves[:, idx, :]
+        fn = (_granger.wavelet_conditional_granger if conditional
+              else _granger.wavelet_granger)
+        return fn(waves, self.wavelet.sfreq, n_bins=n_bins,
+                  time_decim=time_decim, n_iter=n_iter)
+
     def nm_plv(self, ch_a: str, ch_b: str, freqs: Numbers, n: int = 1,
                m: int = 1, eps: float = 0.0) -> torch.Tensor:
         """(F, N) n:m phase locking of ``n * phase(ch_a at freqs[k])``
@@ -625,6 +683,53 @@ class EpochsWavelet:
         return env_corr_matrix(waves, bank, orthogonalize=orthogonalize,
                                interpolate=self.wavelet.interpolate, log=log,
                                time_range=self._samples(time_range))
+
+    # -- trial groups ------------------------------------------------------
+
+    def _carry_codes(self, out: "EpochsWavelet", sel=None
+                     ) -> "EpochsWavelet":
+        """Carry ``event_codes`` onto a new adapter (``sel`` filters the
+        trials; None keeps them all), so ``split()`` works down a chain of
+        transforms."""
+        codes = getattr(self, "event_codes", None)
+        if codes is not None:
+            codes = np.asarray(codes)
+            out.event_codes = codes if sel is None else codes[sel]
+        return out
+
+    def subset(self, sel) -> "EpochsWavelet":
+        """A NEW ``EpochsWavelet`` over a trial subset: ``sel`` is a boolean
+        mask or integer indices over epochs (order kept); the event codes
+        follow."""
+        sel = np.asarray(sel)
+        sub = self._host_data()[sel]
+        if sub.ndim != 3 or sub.shape[0] == 0:
+            raise ValueError("selection keeps no trials")
+        times = getattr(self.epochs, "times", None)
+        out = EpochsWavelet(
+            ArrayEpochs(sub, self.wavelet.sfreq,
+                        list(self.epochs.ch_names), times=times),
+            self.wavelet)
+        return self._carry_codes(out, sel)
+
+    def split(self, labels=None) -> dict:
+        """``{label: EpochsWavelet}``, the trials partitioned by a per-epoch
+        label array; with no argument by the ``event_codes`` carried over
+        from ``RawWavelet.epochs`` (events with an mne-style id column)."""
+        if labels is None:
+            labels = getattr(self, "event_codes", None)
+            if labels is None:
+                raise ValueError(
+                    "no labels given and this adapter carries no "
+                    "event_codes — pass (E,) labels, or build the "
+                    "epochs from (E, 3) mne-style events")
+        labels = np.asarray(labels)
+        # count epochs off the data: duck-typed containers need only
+        # get_data()
+        if labels.shape[0] != self._host_data().shape[0]:
+            raise ValueError("labels must have one entry per epoch")
+        return {lab: self.subset(labels == lab)
+                for lab in np.unique(labels)}
 
     def _samples(self, time_range):
         """(start_s, stop_s) -> integer sample window, or None."""
@@ -780,6 +885,120 @@ class RawWavelet:
             data = data[idx]
         return self._stream_for(freqs).ssq_power_device(
             data, rel_threshold=rel_threshold)
+
+    # -- event-locked epochs -------------------------------------------------
+
+    def _bad_spans(self, prefix: str):
+        """[(onset_s, duration_s), ...] of the annotations whose text starts
+        with ``prefix`` (case-insensitive, mne's "bad" convention).  Needs a
+        reader with ``read_annotations`` (EDF+)."""
+        reader = getattr(self.raw, "reader", None)
+        read = getattr(reader, "read_annotations", None)
+        if read is None:
+            raise ValueError(
+                "this recording carries no annotation spans (open an "
+                "EDF+ file via RawWavelet.from_edf, or pass explicit "
+                "reject_spans=[(onset_s, duration_s), ...])")
+        p = prefix.lower()
+        return [(o, d) for (o, d, txt) in read()
+                if txt.lower().startswith(p)]
+
+    def epochs(self, events, tmin: float, tmax: float, picks=None,
+               reject_spans=None, reject_annotations=None,
+               codes=None) -> EpochsWavelet:
+        """An ``EpochsWavelet`` over event-locked windows of the recording
+        (the ``mne.Epochs(raw, events)`` workflow without mne); its epoch
+        reductions (``power_all``, ``itc_all`` ...) run the kernels on the
+        card.
+
+        events: an ``(E,)`` array of event sample indices, or an mne-style
+            ``(E, 3)`` int array whose first column is the sample index; its
+            third (event-id) column survives as ``.event_codes`` (filtered
+            with the kept events), so ``split()`` partitions by condition.
+        tmin / tmax: the window in seconds around each event, both end
+            samples included (mne: ``n = round((tmax - tmin) * sfreq) + 1``).
+        picks: optional channel names (only those rows are gathered).
+        reject_spans: optional ``[(onset_s, duration_s), ...]``: events
+            whose window overlaps a span are dropped.
+        reject_annotations: optional text prefix (e.g. ``"bad"``): the spans
+            come from the recording's EDF+ annotations too.
+        codes: optional per-event codes (instead of an id column).
+
+        Events whose window would cross either edge of the recording are
+        dropped, as mne drops them.
+        """
+        ev = np.asarray(events)
+        codes = None if codes is None else np.asarray(codes)
+        if ev.ndim == 2:
+            if codes is None and ev.shape[1] >= 3:
+                codes = ev[:, 2].copy()          # mne event-id column
+            ev = ev[:, 0]
+        if codes is not None and codes.shape[0] != ev.shape[0]:
+            raise ValueError("codes must have one entry per event")
+        ev = ev.astype(np.int64)
+        sf = self.wavelet.sfreq
+        start = int(round(tmin * sf))
+        n_win = int(round((tmax - tmin) * sf)) + 1
+        ch_names = (list(picks) if picks is not None
+                    else list(self.raw.ch_names))
+        source = self._file_source(picks)
+        if source is not None:
+            n = int(source.n_samples)
+        else:
+            data = self._host_data()
+            if picks is not None:
+                idx = [self.raw.ch_names.index(ch) for ch in picks]
+                data = data[idx]
+            n = data.shape[-1]
+        keep = (ev + start >= 0) & (ev + start + n_win <= n)
+        spans = list(reject_spans) if reject_spans else []
+        if reject_annotations is not None:
+            spans += self._bad_spans(reject_annotations)
+        if spans:
+            lo = ev + start                       # window [lo, hi)
+            hi = lo + n_win
+            for onset_s, dur_s in spans:
+                s0 = int(np.floor(float(onset_s) * sf))
+                s1 = int(np.ceil((float(onset_s) + float(dur_s)) * sf))
+                keep &= (hi <= s0) | (lo >= max(s1, s0 + 1))
+        ev = ev[keep]
+        if codes is not None:
+            codes = codes[keep]
+        if ev.size == 0:
+            raise ValueError(
+                "no event window fits inside the recording "
+                f"(N={n}, window={n_win} samples at offset {start}"
+                + (", after bad-span rejection" if spans else "") + ")")
+        # One native gather builds the (E, C, Nw) batch: off the file mmap
+        # for an EDF-backed recording, off the host snapshot otherwise
+        # (halo 0: every kept window is interior, nothing is zero-padded).
+        if source is not None:
+            windows = source.gather(ev + start, n_win, 0)
+        else:
+            windows = f32_gather(data.reshape(-1, n), ev + start, n_win,
+                                 0).reshape((len(ev),) + data.shape[:-1]
+                                            + (n_win,))
+        times = tmin + np.arange(n_win) / sf
+        out = EpochsWavelet(
+            ArrayEpochs(windows, sf, ch_names, times=times), self.wavelet)
+        if codes is not None:
+            out.event_codes = codes
+        return out
+
+    def itc(self, freqs: Numbers, events, tmin: float, tmax: float,
+            picks=None) -> torch.Tensor:
+        """(C, F, Nw) inter-trial coherence locked to ``events``
+        (``self.epochs(...).itc_all``): ITC is defined only across repeated
+        trials, so a continuous recording needs event markers."""
+        return self.epochs(events, tmin, tmax, picks=picks).itc_all(freqs)
+
+    def epoch_power(self, freqs: Numbers, events, tmin: float, tmax: float,
+                    picks=None, **kw) -> torch.Tensor:
+        """(C, F, Nw) event-locked epoch-mean power
+        (``self.epochs(...).power_all``, with its ``baseline`` / ``decim``
+        keywords)."""
+        return self.epochs(events, tmin, tmax, picks=picks).power_all(
+            freqs, **kw)
 
     def coherence(self, ch_a: str, ch_b: str, freqs: Numbers,
                   cycles: float = 1.0, scale_width: float = 0.6,

@@ -298,10 +298,45 @@ def test_convert_zoo_family(family, params, n):
 
 
 def test_convert_rejects_unported_class():
-    # A superlet is a family of Morlet banks, not one wavelet: convert has
-    # no class for it.
-    with pytest.raises(TypeError):
-        convert.wavelet_from_jax(nw.Superlet(SFREQ))
+    # Every class of the JAX package has a port; a class of the caller's
+    # own (here a Morse subclass) has none.
+    class CustomMorse(nw.Morse):
+        pass
+
+    with pytest.raises(TypeError, match="CustomMorse"):
+        convert.wavelet_from_jax(CustomMorse(SFREQ), device="cpu")
+
+
+@pytest.mark.parametrize("family, params", [
+    ("Superlet", {"sigma": 2.5, "order_min": 2, "order_max": 5,
+                  "adaptive": False, "interpolate": True}),
+    ("Superlet", {"sigma": 3.0, "order_min": 1, "order_max": 4}),
+    ("MorseMultitaper", {"b": 9.0, "r": 2.5, "n_tapers": 4,
+                         "interpolate": True}),
+    ("MorseMNE", {"b": 12.0, "r": 3.5, "interpolate": True}),
+])
+def test_convert_families_of_banks_and_morse_mne(family, params):
+    """A JAX ``Superlet``, ``MorseMultitaper`` or ``MorseMNE`` becomes the
+    port's class with the same parameters, and its power (the epoch mean
+    too, for the families) equals the JAX package's at slice 6's power gate
+    (``tests/test_torch_zoo.py``: 1e-4 of the max)."""
+    jw = getattr(nw, family)(SFREQ, **params)
+    tw = convert.wavelet_from_jax(jw, device="cpu")
+    assert type(tw).__name__ == family
+    for key in ("sfreq", "interpolate", *params):
+        assert getattr(tw, key) == getattr(jw, key), key
+    if family == "MorseMNE":
+        assert tw.mode.name == jw.mode.name
+        assert tw.real_wave_length == jw.real_wave_length
+    freqs = np.arange(8.0, 72.0, 8.0)
+    x = np.random.default_rng(0).standard_normal((3, 2, 512)).astype(
+        np.float32)
+    got = tw.power(torch.from_numpy(x[0]), freqs).numpy()
+    want = np.asarray(jw.power(x[0], freqs))
+    assert _rel(got, want) <= RTOL
+    if family != "MorseMNE":
+        got = tw.mean_power(torch.from_numpy(x), freqs).numpy()
+        assert _rel(got, np.asarray(jw.mean_power(x, freqs))) <= RTOL
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():
