@@ -340,6 +340,53 @@ reductions, which run K1 / K2; nothing here joins the kernels' record):
    analytic factors, the direction on simulated epochs, and the mediated
    chain under pairwise and conditional GC and DTF / PDC.
 
+Slice 9, statistics (``statistics_phase``; plain torch but for K4, which
+makes the single-trial planes; nothing here joins the kernels' record), on
+the serving data with a 40 Hz burst of amplitude 2 planted at 0.8-1.2 s in
+channel 0 of the even epochs (a seeded phase per epoch):
+
+39. Drives, the counters zeroed just before and read just after (K4,
+   "power_each", must launch, and nothing else): ``EpochsWavelet.cluster_test``
+   one-sample with the baseline (999 permutations) and independent between
+   the two ``split()`` halves (999), ``cluster_regression`` on a seeded
+   covariate, ``cluster_f`` over three ``split()`` groups,
+   ``cluster_test_all`` over all 64 channels with a ring adjacency, decim 4
+   and 256 permutations (``bench.py``'s ``BENCH_PERMS``), then on channel 0's
+   baselined planes ``tfce_test_one_sample`` and ``max_stat_test_one_sample``
+   (199), ``bootstrap_ci`` (1000) of its raw planes, and
+   ``EpochsWavelet.bursts`` (factor 20, min_area 10) as a summary and as a
+   table.
+40. Each call runs under TF32 allowed and not, and the two results must be
+   identical (gate 0: the contractions are full float32 and the masses exact
+   sums); those runs give its peak memory
+   (``torch.cuda.max_memory_allocated``), then its median host time over 5
+   runs (3 for a call over 1 s), the data negated in place before each run.
+41. Known answers: the planted burst is the first cluster of the one-sample,
+   independent and all-channel tests, positive, p < 0.05, and holds every
+   pixel of the planted box (40 Hz x 0.8-1.2 s; channel 0 at decim 4); the
+   TFCE p is below 0.05 over the box and the max-stat p at (40 Hz, 1 s);
+   ``bootstrap_ci`` equals float64 host quantiles of the same counts at 4096
+   pixels within 1e-5 of the plane max, and the trial mean lies inside its
+   bounds at 99% of the pixels; ``bursts`` finds the planted burst (from at
+   most 0.85 s to at least 1.15 s, 40 Hz inside its rows) in every burst
+   epoch.  The decimated planes of ``single_trial_power_all`` must not keep
+   the full plane alive (at most 4 MiB above their own bytes).
+42. The labels of one null chunk of the one-channel test (64 maps of 100 x
+   2048) on the card equal the port's CPU labeler's and the host's
+   connected components (``scipy.sparse.csgraph``) exactly; so do two null
+   maps of the ring-adjacency test against the host's.
+43. The one-channel ``cluster_test`` split by CUDA events into the power, the
+   contractions, the labeling, the masses and ``_finish``; its null must equal
+   ``cluster_test``'s exactly.
+44. Calibration (``benchmarks/stats_calibration.py``'s first block):
+   cluster, TFCE (stop 15) and max-stat one-sample tests on 500 null sims of
+   20 x 8 x 32 (the script's own count), 99 permutations each; each
+   family-wise error rate must lie in the exact binomial 99% envelope of
+   alpha = 0.05 for the sim count.
+45. ``cluster_permutations_per_s`` at ``bench.py:163``'s configuration (40 x
+   100 x 1024, 256 permutations, threshold 2.0, 5 iterations on new input
+   values, ``torch.cuda.synchronize()`` before the clock stops).
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -3168,6 +3215,382 @@ def directed_network_phase(data):
 
     granger_known_answers()
 
+# -- slice 9: statistics ------------------------------------------------------
+
+STAT_CH = "ch0"
+BURST_HZ, BURST_T0, BURST_T1, BURST_AMP = 40.0, 0.8, 1.2, 2.0
+CAL_SHAPE, CAL_PERMS, CAL_SIMS, CAL_ALPHA = (20, 8, 32), 99, 500, 0.05
+BENCH_SHAPE, BENCH_PERMS, BENCH_THR, BENCH_ITERS = (40, 100, 1024), 256, 2.0, 5
+
+
+def planted(data):
+    """The serving data with a 40 Hz burst, 0.8-1.2 s, of amplitude 2 and a
+    seeded phase added to channel 0 of the even epochs."""
+    t = np.arange(N) / SFREQ
+    win = (t >= BURST_T0) & (t < BURST_T1)
+    phase = np.random.default_rng(9).uniform(0, 2 * np.pi, (E // 2, 1))
+    out = data.copy()
+    out[::2, 0] += (BURST_AMP * np.sin(2 * np.pi * BURST_HZ * t + phase)
+                    * win).astype(np.float32)
+    return out
+
+
+def same_result(a, b):
+    """Bit-for-bit equality of two results (tensors, arrays, tuples, lists,
+    dicts, numbers)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b, equal_nan=True)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_result, a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_result(a[k], b[k])
+                                            for k in a)
+    return a == b
+
+
+def stat_call(name, fn, fresh, card):
+    """One statistics call: run under the float32 matmul precision "high"
+    (TF32 allowed) and "highest", whose results must be identical and which
+    must leave the caller's setting as they found it; these two runs are
+    the warm-up and give the peak memory.  Then the median host time of 5
+    runs (3 for a call over 1 s), ``fresh()`` giving new input values
+    before each, called an even number of times.  Returns the result."""
+    import torch
+    prev = torch.get_float32_matmul_precision()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs, first = [], []
+    for setting in ("high", "highest"):
+        torch.set_float32_matmul_precision(setting)
+        try:
+            t0 = time.perf_counter()
+            outs.append(fn())
+            torch.cuda.synchronize()
+            first.append(time.perf_counter() - t0)
+            after = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        check(after == setting, f"{name}: the matmul precision {setting!r} "
+              f"came back as {after!r}")
+    peak = torch.cuda.max_memory_allocated()
+    ok = same_result(*outs)
+    print(f"check {name} TF32 on / off: identical {ok} (gate: identical)")
+    check(ok, f"{name}: TF32 on and off differ")
+    reps = 3 if min(first) > 1.0 else REPS
+    times = []
+    for _ in range(reps):
+        fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if reps % 2:
+        fresh()      # an even count: a negating fresh() leaves the input
+    print(f"time {name}: {sorted(times)[reps // 2]} ms (median of {reps}); "
+          f"peak {peak} bytes allocated, {peak - held} above the {held} "
+          f"held before the call, on {card}")
+    return outs[1]
+
+
+def negate(*adapters):
+    """``fresh`` for adapter calls: each adapter's data negated in place
+    (its host snapshot, and its card copy where it has one): new input
+    values, the same work and, power being even, the same results."""
+    def fresh():
+        for a in adapters:
+            host = a._host_data()
+            np.negative(host, out=host)
+            if hasattr(a, "_data"):
+                a._data.neg_()
+    return fresh
+
+
+def host_labels(mask, edges=()):
+    """Minimum-flat-index labels of a batch of (F, N) or (C, F, N) masks
+    from the host's connected components (``scipy.sparse.csgraph`` over
+    the 4-neighbour links and the same-pixel links of ``edges``)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    out = np.empty(mask.shape, np.int64)
+    for b, m in enumerate(mask):
+        fn = m.size
+        idx = np.arange(fn).reshape(m.shape)
+        links = [(idx[..., :, :-1], idx[..., :, 1:],
+                  m[..., :, :-1] & m[..., :, 1:]),
+                 (idx[..., :-1, :], idx[..., 1:, :],
+                  m[..., :-1, :] & m[..., 1:, :])]
+        links += [(idx[u], idx[v], m[u] & m[v]) for u, v in edges]
+        i = np.concatenate([a[k] for a, _, k in links])
+        j = np.concatenate([c[k] for _, c, k in links])
+        n_comp, comp = connected_components(coo_matrix(
+            (np.ones(i.size), (i, j)), shape=(fn, fn)), directed=False)
+        pix = np.flatnonzero(m)
+        low = np.full(n_comp, fn)
+        np.minimum.at(low, comp[pix], pix)
+        lab = np.full(fn, fn)
+        lab[pix] = low[comp[pix]]
+        out[b] = lab.reshape(m.shape)
+    return out
+
+
+def statistics_phase(data):
+    """Slice 9: the statistics family through its public entry points on
+    the serving data with a planted burst; K4 under it; the known answers,
+    labels on the card against the CPU labeler and the host, TF32 on and
+    off identical, the calibration of the three one-sample tests, the
+    cluster null's throughput and the split of one call.  Plain torch but
+    for K4: nothing joins the kernels' record."""
+    import torch
+    from scipy.stats import binom
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import bootstrap as bs
+    from ninwavelets_tpu_torch.ops import cluster as cl
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    t_phase = time.perf_counter()
+    freqs = np.arange(1.0, F + 1.0)
+    row = int(BURST_HZ) - 1
+    cols = slice(int(BURST_T0 * SFREQ), int(BURST_T1 * SFREQ))
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(planted(data), SFREQ),
+                          nt.Morse(SFREQ, device="cuda"))
+    halves = ew.split(np.arange(E) % 2)      # 0: the burst epochs
+    thirds = ew.split(np.arange(E) % 3)
+    covariate = np.random.default_rng(10).standard_normal(E).astype(
+        np.float32)
+    ring = np.stack([np.arange(C), (np.arange(C) + 1) % C], 1)
+    kernels.reset_launches()
+
+    def first_covers(name, res, box):
+        """The first cluster is positive, p < 0.05, and holds every pixel
+        of the planted box."""
+        c0 = res.clusters[0]
+        inside = bool(np.all(res.mass_map[box] == c0["mass"]))
+        print(f"check {name}: {len(res.clusters)} clusters, the first "
+              f"sign {c0['sign']} size {c0['size']} mass {c0['mass']} p "
+              f"{c0['p']}, covering the planted box {inside}")
+        check(c0["sign"] == 1 and c0["p"] < 0.05 and inside,
+              f"{name}: the planted burst is not the first cluster")
+
+    # -- the adapter's tests on the serving data ------------------------------
+    name = f"EpochsWavelet.cluster_test one-sample ({E} x {F} x {N}, n_perm 999)"
+    one = stat_call(name, lambda: ew.cluster_test(
+        STAT_CH, freqs, baseline=BASELINE, n_perm=999), negate(ew), card)
+    first_covers(name, one, (row, cols))
+    check(one.null_max.shape == (999,)
+          and one.p_map[np.abs(one.t_obs) <= one.threshold].min() == 1.0,
+          f"{name}: null or p map")
+    name = (f"EpochsWavelet.cluster_test independent (split() halves "
+            f"{E // 2} + {E // 2} x {F} x {N}, n_perm 999)")
+    ind = stat_call(name, lambda: halves[0].cluster_test(
+        STAT_CH, freqs, other=halves[1], n_perm=999),
+        negate(halves[0], halves[1]), card)
+    first_covers(name, ind, (row, cols))
+    name = f"EpochsWavelet.cluster_regression ({E} x {F} x {N}, n_perm 999)"
+    reg = stat_call(name, lambda: ew.cluster_regression(
+        STAT_CH, freqs, covariate, baseline=BASELINE, n_perm=999),
+        negate(ew), card)
+    name = f"EpochsWavelet.cluster_f (split() thirds of {E} x {F} x {N})"
+    fres = stat_call(name, lambda: thirds[0].cluster_f(
+        STAT_CH, freqs, [thirds[1], thirds[2]], n_perm=999),
+        negate(*thirds.values()), card)
+    for label, res in (("cluster_regression", reg), ("cluster_f", fres)):
+        ps = [c["p"] for c in res.clusters]
+        print(f"check {label}: {len(ps)} clusters, smallest p "
+              f"{min(ps, default=1.0)}")
+        check(np.isfinite(res.t_obs).all() and all(0 < p <= 1 for p in ps),
+              f"{label}: result")
+    check(all(c["sign"] == 1 for c in fres.clusters), "cluster_f signs")
+
+    ew._all_data()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    planes = ew.single_trial_power_all(freqs, BASELINE, decim=4)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    print(f"check single_trial_power_all decim=4: {kept} bytes kept for a "
+          f"{planes.numel() * 4}-byte plane (the full plane freed)")
+    check(kept <= planes.numel() * 4 + (1 << 22),
+          "the decimated planes keep the full plane alive")
+    del planes
+    name = (f"EpochsWavelet.cluster_test_all ({E} x {C} x {F} x {N // 4}, "
+            f"{C}-channel ring, decim 4, n_perm 256)")
+    allc = stat_call(name, lambda: ew.cluster_test_all(
+        freqs, adjacency=ring, baseline=BASELINE, decim=4, n_perm=256),
+        negate(ew), card)
+    first_covers(name, allc, (0, row, slice(cols.start // 4,
+                                             cols.stop // 4)))
+
+    x1 = ew.single_trial_power(STAT_CH, freqs, BASELINE)
+    name = f"tfce_test_one_sample ({E} x {F} x {N}, n_perm 199)"
+    tf = stat_call(name, lambda: cl.tfce_test_one_sample(x1, n_perm=199),
+                   x1.neg_, card)
+    name = f"max_stat_test_one_sample ({E} x {F} x {N}, n_perm 199)"
+    mt, mp = stat_call(name, lambda: cl.max_stat_test_one_sample(
+        x1, n_perm=199), x1.neg_, card)
+    print(f"check tfce / max-stat: box p max {tf.p_map[row, cols].max()} / "
+          f"p at ({BURST_HZ} Hz, 1 s) {mp[row, 1000]}")
+    check(tf.p_map[row, cols].max() < 0.05 and mp[row, 1000] < 0.05,
+          "tfce / max-stat miss the planted burst")
+    raw = ew.single_trial_power(STAT_CH, freqs)
+    name = f"bootstrap_ci ({E} x {F} x {N}, n_boot 1000)"
+    lo, hi = stat_call(name, lambda: bs.bootstrap_ci(raw, n_boot=1000),
+                       raw.neg_, card)
+    # the same bounds from the same counts in float64 on the host, at 4096
+    # pixels (its linear quantile: numpy's default)
+    counts = bs._boot_counts(0, 1000, E, bs._CHUNK, raw.device)
+    w = counts.reshape(-1, E)[:1000].double().cpu().numpy() / E
+    pick = np.random.default_rng(11).choice(F * N, 4096, replace=False)
+    sub = raw.reshape(E, -1)[:, pick].double().cpu().numpy()
+    ref = np.quantile(w @ sub, [0.025, 0.975], axis=0)
+    got = np.stack([lo.reshape(-1)[pick].cpu().numpy(),
+                    hi.reshape(-1)[pick].cpu().numpy()])
+    d = np.abs(got - ref).max() / raw.abs().max().item()
+    mean = raw.mean(0)
+    inside = ((lo <= mean) & (mean <= hi)).float().mean().item()
+    print(f"check bootstrap_ci: against float64 host quantiles of the same "
+          f"counts max|d| / max {d} (gate 1e-5); the mean inside its bounds "
+          f"at {inside} of the pixels (gate 0.99)")
+    check(d <= 1e-5 and inside >= 0.99, "bootstrap_ci")
+    del raw, lo, hi, mean
+
+    name = "EpochsWavelet.bursts summary (factor 20, min_area 10)"
+    summ = stat_call(name, lambda: ew.bursts(STAT_CH, freqs, factor=20.0,
+                                             min_area=10), negate(ew), card)
+    name = "EpochsWavelet.bursts table=True (factor 20, min_area 10)"
+    table = stat_call(name, lambda: ew.bursts(
+        STAT_CH, freqs, factor=20.0, min_area=10, table=True),
+        negate(ew), card)
+    found = {b["epoch"] for b in table
+             if b["t_start"] <= BURST_T0 + 0.05 and b["t_stop"] >= BURST_T1
+             - 0.05 and b["f_lo"] <= BURST_HZ <= b["f_hi"]}
+    count = summ.count.cpu().numpy()
+    quiet = sum(b["epoch"] % 2 for b in table)
+    print(f"check bursts: the planted burst found in {len(found & set(range(0, E, 2)))} "
+          f"of {E // 2} burst epochs; {quiet} bursts in the quiet epochs; "
+          f"summary counts >= 1 in the burst epochs {bool((count[::2] >= 1).all())}")
+    check(found >= set(range(0, E, 2)) and (count[::2] >= 1).all(),
+          "bursts miss the planted burst")
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"statistics path launches {counts}")
+    check(counts.get("power_each", 0) > 0
+          and sum(counts.values()) == counts["power_each"],
+          f"statistics path launched {counts}: K4 ('power_each') only")
+
+    # -- labels on the card against the CPU labeler and the host -------------
+    thr = cl.t_threshold(0.05, E - 1)
+    _, plane, xf, s2 = cl._sign_moments(x1)
+    mask = cl._sign_t(cl.sign_draws(0, 999, E, cl._CHUNK, "cuda")[0], xf,
+                      s2, E, plane) > thr
+    card_l = cl.label_components(mask).cpu()
+    cpu_l = cl.label_components(mask.cpu())
+    host_l = host_labels(mask.cpu().numpy())
+    print(f"check labels of one null chunk ({tuple(mask.shape)}, "
+          f"{int(mask.sum())} pixels above {thr}): card == CPU labeler "
+          f"{torch.equal(card_l, cpu_l)}, card == host components "
+          f"{np.array_equal(card_l.numpy(), host_l)}")
+    check(torch.equal(card_l, cpu_l) and np.array_equal(card_l.numpy(),
+                                                        host_l),
+          "card labels differ")
+    planes = ew.single_trial_power_all(freqs, BASELINE, decim=4)
+    _, plane4, xf4, s24 = cl._sign_moments(planes)
+    mask = cl._sign_t(cl.sign_draws(0, 256, E, cl._CHUNK, "cuda")[0][:2],
+                      xf4, s24, E, plane4) > thr
+    card_l = cl.label_components(mask, ring).cpu().numpy()
+    host_l = host_labels(mask.cpu().numpy(), ring)
+    print(f"check ring-adjacency labels of two null maps "
+          f"({tuple(mask.shape)}): card == host components "
+          f"{np.array_equal(card_l, host_l)}")
+    check(np.array_equal(card_l, host_l), "card ring labels differ")
+    del planes, xf4, s24, mask, card_l, cpu_l, host_l
+    torch.cuda.empty_cache()
+
+    # -- the split of the one-channel cluster_test by CUDA events -------------
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    xs = ew.single_trial_power(STAT_CH, freqs, BASELINE)
+    ev[1].record()
+    _, plane, xf, s2 = cl._sign_moments(xs)
+    maps = [cl._sign_t(s, xf, s2, E, plane)
+            for s in cl.sign_draws(0, 999, E, cl._CHUNK, "cuda")]
+    ev[2].record()
+    labels = [[(sg > thr, cl.label_components(sg > thr)) for sg in (m, -m)]
+              for m in maps]
+    ev[3].record()
+    fn = F * N
+    null = torch.cat([torch.maximum(*[
+        cl._mass_bins(torch.where(mk, sg, 0.0), lab, fn)[..., :fn].amax(-1)
+        for sg, (mk, lab) in zip((m, -m), pair)])
+        for m, pair in zip(maps, labels)])[:999]
+    ev[4].record()
+    res = cl._finish(cl.t_one_sample(xs), null, thr)
+    ev[5].record()
+    torch.cuda.synchronize()
+    parts = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+    print(f"breakdown of the one-channel cluster_test ({E} x {F} x {N}, 999 "
+          f"permutations, by CUDA events): power (K4 and the baseline) "
+          f"{parts[0]} ms, contractions {parts[1]} ms, labeling "
+          f"{parts[2]} ms, masses {parts[3]} ms, _finish {parts[4]} ms, "
+          f"on {card}")
+    check(np.array_equal(res.null_max, one.null_max),
+          "the split's null differs from cluster_test's")
+    del xs, xf, maps, labels, null, x1
+    torch.cuda.empty_cache()
+
+    # -- calibration: benchmarks/stats_calibration.py's first block ----------
+    rng = np.random.default_rng(0)
+    hits = {"cluster": 0, "tfce": 0, "maxstat": 0}
+    t0 = time.perf_counter()
+    for s in range(CAL_SIMS):
+        x = torch.from_numpy(rng.standard_normal(CAL_SHAPE).astype(
+            np.float32)).cuda()
+        res = cl.cluster_test_one_sample(x, n_perm=CAL_PERMS, seed=s)
+        hits["cluster"] += any(c["p"] <= CAL_ALPHA for c in res.clusters)
+        res = cl.tfce_test_one_sample(x, n_perm=CAL_PERMS, seed=s, stop=15.0)
+        hits["tfce"] += bool(res.p_map.min() <= CAL_ALPHA)
+        _, p = cl.max_stat_test_one_sample(x, n_perm=CAL_PERMS, seed=s)
+        hits["maxstat"] += bool(p.min() <= CAL_ALPHA)
+    elapsed = time.perf_counter() - t0
+    lo_r = binom.ppf(0.005, CAL_SIMS, CAL_ALPHA) / CAL_SIMS
+    hi_r = binom.ppf(0.995, CAL_SIMS, CAL_ALPHA) / CAL_SIMS
+    rates = {k: v / CAL_SIMS for k, v in hits.items()}
+    print(f"check calibration ({CAL_SIMS} null sims of {CAL_SHAPE}, n_perm "
+          f"{CAL_PERMS}, {elapsed} s): FWER {rates}, the exact binomial "
+          f"99% envelope of {CAL_ALPHA}: [{lo_r}, {hi_r}]")
+    check(all(lo_r <= r <= hi_r for r in rates.values()),
+          f"calibration outside the envelope: {rates}")
+
+    # -- throughput at bench.py:163's configuration --------------------------
+    xb = torch.randn(BENCH_SHAPE, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+
+    def step(d):
+        return cl._sign_flip_null(d, 0, n_perm=BENCH_PERMS,
+                                  threshold=BENCH_THR)
+
+    step(xb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(BENCH_ITERS):
+        out = step(xb * (1.0 + 1e-7 * k))
+    torch.cuda.synchronize()
+    value = BENCH_PERMS * BENCH_ITERS / (time.perf_counter() - t0)
+    check(bool(out.isfinite().all()), "throughput null not finite")
+    print(f"metric cluster_permutations_per_s {value} (bench.py:163's "
+          f"configuration: {BENCH_SHAPE}, {BENCH_PERMS} permutations, "
+          f"threshold {BENCH_THR}, {BENCH_ITERS} iterations, new input "
+          f"values each) on {card}")
+    print(f"statistics phase {time.perf_counter() - t_phase} s")
+
 
 def main() -> int:
     import torch
@@ -3320,6 +3743,10 @@ def main() -> int:
 
     # -- slice 8: directed and network connectivity, event-locked epochs -----
     directed_network_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 9: statistics ---------------------------------------------------
+    statistics_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

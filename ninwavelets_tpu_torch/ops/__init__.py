@@ -11,13 +11,27 @@ wavelet coherence with its AR(1) levels, cross-frequency directionality,
 wavelet entropy and envelope correlations), directed connectivity
 (spectral Granger causality by Wilson factorization, pairwise and
 conditional, DTF / PDC, trial-shuffle significance), graph measures over the
-connectivity matrices, the Paul / DOG / Bump spectra, multitaper Morse
-spectrograms and superlets.
+connectivity matrices, the statistics of single-trial planes (cluster
+permutation tests, TFCE, the max-statistic correction, FDR, bootstrap
+confidence bounds, oscillatory bursts), the Paul / DOG / Bump spectra,
+multitaper Morse spectrograms and superlets.
 """
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
                    make_time_wavelet, pad_spectrum_to)
 from .baseline import (Baseline, baseline_correct, baseline_of, baseline_tf,
                        METHODS as BASELINE_METHODS)
+from .bootstrap import bootstrap_ci
+from .bursts import (BurstSummary, burst_summary, burst_table,
+                     burst_threshold)
+from .cluster import (ClusterResult, TfceResult, cluster_mass,
+                      cluster_test_f, cluster_test_independent,
+                      cluster_test_one_sample, cluster_test_paired,
+                      cluster_test_regression, f_oneway, f_threshold,
+                      fdr_correction, label_components,
+                      max_stat_test_independent, max_stat_test_one_sample,
+                      max_stat_test_regression, t_independent, t_one_sample,
+                      t_regression, t_threshold, tfce_map,
+                      tfce_test_independent, tfce_test_one_sample)
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
                   itc_from_bank, mean_power_from_bank, power_from_bank)
 from .connectivity import (PAC_METHODS, PHASE_LAG_METHODS,

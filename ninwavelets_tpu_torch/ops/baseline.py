@@ -98,12 +98,19 @@ def baseline_tf(tf: torch.Tensor, sfreq: float, start: float, stop: float,
     (default) substitutes std=1, so zscore/zlog degrade to mean-correction;
     ``"strict"`` keeps the reference's division (inf/NaN).
     """
+    tf = torch.as_tensor(tf)
+    return _correct(tf, *_tf_stats(tf, sfreq, start, stop, degenerate),
+                    method)
+
+
+def _tf_stats(tf: torch.Tensor, sfreq: float, start: float, stop: float,
+              degenerate: str = "unit"):
+    """``baseline_tf``'s per-row (mean, std) over the window."""
     if degenerate not in ("unit", "strict"):
         raise ValueError("degenerate must be 'unit' or 'strict'")
-    tf = torch.as_tensor(tf)
     window = tf[..., int(start * sfreq):int(stop * sfreq)]
     mean = window.mean(dim=-1, keepdim=True)
     std = _std(window, dim=-1, keepdim=True)
     if degenerate == "unit":
         std = torch.where(std > 0, std, torch.ones_like(std))
-    return _correct(tf, mean, std, method)
+    return mean, std

@@ -19,10 +19,14 @@ through plain FFTs and batched matrix products.  The rest of connectivity
 ``wavelet_entropy`` takes its power through ``power``, the kernel on the
 card.  ``granger`` (spectral Granger causality, pairwise or conditional,
 ``ops.granger``) and ``network`` (graph measures of a ``*_matrix``,
-``ops.graph``) are plain torch too.  ``subset`` and ``split`` carve trial
-groups, carrying the event codes.  ``RawWavelet.coherence`` is the
-single-trial smoothed wavelet coherence of two channels of a recording.  A
-continuous recording streams through ``parallel.StreamingCWT`` in
+``ops.graph``) are plain torch too.  The statistics
+(``cluster_test``, ``cluster_test_all``, ``cluster_regression``,
+``cluster_f``, ``bursts``; ``ops.cluster``, ``ops.bursts``) test and
+summarize the single-trial planes of ``single_trial_power(_all)``, which
+run K4 on the card; the tests themselves are plain torch.  ``subset`` and
+``split`` carve trial groups, carrying the event codes.
+``RawWavelet.coherence`` is the single-trial smoothed wavelet coherence of
+two channels of a recording.  A continuous recording streams through ``parallel.StreamingCWT`` in
 overlap-discard windows; ``RawWavelet.epochs`` cuts event-locked windows
 out of it into an ``EpochsWavelet``, whose epoch reductions then run the
 kernels (``epoch_power``, ``itc``).  Both need only the duck-typed MNE
@@ -33,16 +37,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import as_float32
 from ..io.edf import EDFRaw
 from ..io.native import f32_gather
 from ..io.stream import EDFSource
 from ..models.base import Numbers, WaveletBase
 from ..ops import bank as _bank
+from ..ops import cluster as _cl
 from ..ops import connectivity as _conn
 from ..ops import extensions as _ext
 from ..ops import granger as _granger
 from ..ops import graph as _graph
-from ..ops.baseline import baseline_tf
+from ..ops.baseline import _correct, _tf_stats, baseline_tf
+from ..ops.bursts import burst_summary, burst_table
 from ..ops.cwt import cwt_from_bank
 from ..ops.fused import itc_auto, mean_power_auto, power_auto, power_itc_auto
 from ..ops.envelope import env_corr_matrix
@@ -125,13 +132,19 @@ class EpochsWavelet:
     @staticmethod
     def _post(tf, sfreq, baseline, baseline_method, decim):
         """Optional per-row baseline correction, then time decimation
-        (plain slicing AFTER the transform)."""
-        if baseline is not None:
-            tf = baseline_tf(tf, sfreq, baseline[0], baseline[1],
-                             baseline_method)
-        if decim and decim != 1:
-            tf = tf[..., ::int(decim)]
-        return tf
+        (plain slicing AFTER the transform).  With both, the statistics
+        come from the whole plane and only the kept samples are corrected:
+        the same values, without a corrected copy of the whole plane.  A
+        decimated plane is a copy: a strided view would keep the whole
+        plane alive."""
+        decim = int(decim) if decim else 1
+        if baseline is None:
+            return tf if decim == 1 else tf[..., ::decim].contiguous()
+        if decim == 1:
+            return baseline_tf(tf, sfreq, baseline[0], baseline[1],
+                               baseline_method)
+        stats = _tf_stats(tf, sfreq, baseline[0], baseline[1])
+        return _correct(tf[..., ::decim], *stats, baseline_method)
 
     # -- reference-parity per-channel API ---------------------------------
 
@@ -271,6 +284,166 @@ class EpochsWavelet:
         tf = power_auto(waves, bank, interpolate=self.wavelet.interpolate)
         return self._post(tf, self.wavelet.sfreq, baseline,
                           baseline_method, decim)
+
+    # -- statistics ---------------------------------------------------------
+
+    @staticmethod
+    def _single_device(mesh) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: the multi-device (sharded) permutation null is not "
+                "ported to PyTorch yet (ROADMAP.md, queue 1, item 8: "
+                "multi-GPU); pass mesh=None")
+
+    def cluster_test(self, ch_name: str, freqs: Numbers, other=None, *,
+                     paired: bool = False, baseline=None,
+                     baseline_method: str = "zscore", decim: int = 1,
+                     n_perm: int = 999, threshold=None, alpha: float = 0.05,
+                     seed: int = 0, mesh=None):
+        """Cluster-based permutation test (Maris & Oostenveld 2007) on this
+        channel's single-trial power planes (``ops.cluster``).
+
+        ``other=None`` runs the one-sample sign-flip test of the
+        baseline-corrected power against zero (``baseline`` is REQUIRED:
+        raw power has no meaningful zero).  ``other`` may be another
+        ``EpochsWavelet`` (same channel / freqs computed there) or a
+        precomputed (E, F, N) array; ``paired=True`` tests the per-epoch
+        difference, else the independent-groups relabeling null.  The
+        permutations come from a ``torch.Generator`` seeded with ``seed``.
+        ``mesh`` (the multi-device null) must be None."""
+        self._single_device(mesh)
+        if other is None and baseline is None:
+            raise ValueError(
+                "one-sample cluster test needs baseline=(start, stop) "
+                "so zero is the null hypothesis for the trial planes")
+        x = self.single_trial_power(ch_name, freqs, baseline,
+                                    baseline_method, decim)
+        kw = dict(n_perm=n_perm, threshold=threshold, alpha=alpha,
+                  seed=seed)
+        if other is None:
+            return _cl.cluster_test_one_sample(x, **kw)
+        if isinstance(other, EpochsWavelet):
+            y = other.single_trial_power(ch_name, freqs, baseline,
+                                         baseline_method, decim)
+        else:
+            y = as_float32(other, x.device)
+        if paired:
+            return _cl.cluster_test_paired(x, y, **kw)
+        return _cl.cluster_test_independent(x, y, **kw)
+
+    def cluster_test_all(self, freqs: Numbers, other=None, *,
+                         adjacency=(), paired: bool = False, baseline=None,
+                         baseline_method: str = "zscore", decim: int = 1,
+                         n_perm: int = 999, threshold=None,
+                         alpha: float = 0.05, seed: int = 0, mesh=None):
+        """Spatio-spectral cluster permutation test over ALL channels (the
+        MNE ``spatio_temporal_cluster_test`` analog): clusters live in
+        (channel, frequency, time) with 4-connectivity in the TF plane plus
+        same-pixel links between ``adjacency`` channel edges ((M, 2) ints,
+        or a (C, C) boolean matrix; the default empty adjacency keeps
+        channels independent but still corrects across all of them).
+        Other arguments as :meth:`cluster_test`."""
+        self._single_device(mesh)
+        adjacency = self._as_edges(adjacency)
+        if other is None and baseline is None:
+            # validate BEFORE the expensive all-channel transform
+            raise ValueError(
+                "one-sample cluster test needs baseline=(start, stop) "
+                "so zero is the null hypothesis for the trial planes")
+        x = self.single_trial_power_all(freqs, baseline, baseline_method,
+                                        decim)
+        if other is None:
+            y = None
+        elif isinstance(other, EpochsWavelet):
+            y = other.single_trial_power_all(freqs, baseline,
+                                             baseline_method, decim)
+        else:
+            y = as_float32(other, x.device)
+        if y is not None and paired:
+            x, y = x - y, None
+        kw = dict(n_perm=n_perm, threshold=threshold, alpha=alpha,
+                  seed=seed, adjacency=adjacency)
+        if y is None:
+            return _cl.cluster_test_one_sample(x, **kw)
+        return _cl.cluster_test_independent(x, y, **kw)
+
+    @staticmethod
+    def _as_edges(adjacency) -> np.ndarray:
+        """Normalize a channel adjacency to an (M, 2) int edge array:
+        accepts an edge list / array or a square boolean / 0-1 matrix
+        (upper triangle taken, diagonal ignored)."""
+        adjacency = np.asarray(adjacency)
+        if adjacency.size == 0:
+            return np.zeros((0, 2), np.int32)
+        if adjacency.ndim == 2 and adjacency.shape[0] == adjacency.shape[1] \
+                and (adjacency.shape[1] != 2 or adjacency.dtype == bool):
+            iu, ju = np.triu_indices(adjacency.shape[0], k=1)
+            keep = adjacency[iu, ju] != 0
+            return np.stack([iu[keep], ju[keep]], -1).astype(np.int32)
+        return adjacency.reshape(-1, 2).astype(np.int32)
+
+    def cluster_regression(self, ch_name: str, freqs: Numbers,
+                           covariate, *, baseline=None,
+                           baseline_method: str = "zscore",
+                           decim: int = 1, n_perm: int = 999,
+                           threshold=None, alpha: float = 0.05,
+                           seed: int = 0):
+        """Cluster permutation test of a CONTINUOUS per-trial covariate
+        (reaction time, intensity, dose...) against this channel's
+        single-trial power (``ops.cluster.cluster_test_regression``):
+        pixelwise regression t, covariate shuffled across trials for the
+        null.  Baseline correction optional (the regression centres the
+        planes itself)."""
+        x = self.single_trial_power(ch_name, freqs, baseline,
+                                    baseline_method, decim)
+        return _cl.cluster_test_regression(
+            x, as_float32(np.asarray(covariate, np.float32), x.device),
+            n_perm=n_perm, threshold=threshold, alpha=alpha, seed=seed)
+
+    def cluster_f(self, ch_name: str, freqs: Numbers, others, *,
+                  baseline=None, baseline_method: str = "zscore",
+                  decim: int = 1, n_perm: int = 999, threshold=None,
+                  alpha: float = 0.05, seed: int = 0, mesh=None):
+        """One-way-ANOVA cluster permutation test across G >= 2 conditions
+        of this channel's single-trial power (``ops.cluster.cluster_test_f``):
+        this adapter is condition 1; ``others`` is a sequence of
+        ``EpochsWavelet`` adapters (same channel / freqs computed there) or
+        precomputed (E_g, F, N) arrays for the remaining conditions.
+        ``mesh`` (the multi-device null) must be None."""
+        self._single_device(mesh)
+        x = self.single_trial_power(ch_name, freqs, baseline,
+                                    baseline_method, decim)
+        groups = [x]
+        for o in others:
+            if isinstance(o, EpochsWavelet):
+                groups.append(o.single_trial_power(
+                    ch_name, freqs, baseline, baseline_method, decim))
+            else:
+                groups.append(as_float32(o, x.device))
+        return _cl.cluster_test_f(groups, n_perm=n_perm,
+                                  threshold=threshold, alpha=alpha,
+                                  seed=seed)
+
+    def bursts(self, ch_name: str, freqs: Numbers, factor: float = 6.0,
+               min_area: int = 1, threshold=None, table: bool = False):
+        """Oscillatory burst statistics of one channel's single-trial power
+        (``ops.bursts``, Shin et al. 2017): per-epoch ``BurstSummary``
+        (count / rate / duration / span / peak), or the host burst listing
+        with ``table=True``.  ``freqs`` must be uniformly spaced (the span
+        unit is its step)."""
+        freqs = np.asarray(freqs, np.float32)
+        step = float(freqs[1] - freqs[0]) if freqs.size > 1 else 1.0
+        if freqs.size > 2 and not np.allclose(np.diff(freqs), step,
+                                              rtol=1e-5):
+            raise ValueError(
+                "bursts needs a uniformly spaced freqs grid (the Hz "
+                "span unit is its step); got non-uniform spacing")
+        trials = self.single_trial_power(ch_name, freqs)
+        if table:
+            return burst_table(trials, threshold, self.wavelet.sfreq, freqs,
+                               factor, min_area)
+        return burst_summary(trials, threshold, self.wavelet.sfreq, step,
+                             factor, min_area)
 
     # -- synchrosqueezing ---------------------------------------------------
 
