@@ -387,6 +387,68 @@ channel 0 of the even epochs (a seeded phase per epoch):
    100 x 1024, 256 permutations, threshold 2.0, 5 iterations on new input
    values, ``torch.cuda.synchronize()`` before the clock stops).
 
+Slice 10, the other transforms (``transforms_phase``; plain torch but for
+the kernels under three adapter paths; nothing here joins the kernels'
+record), at the JAX package's bench shapes (``benchmarks/
+extensions_bench.py``):
+
+46. Each call runs under TF32 allowed and not (identical results, gate 0:
+   no matrix product is left in the slice), then its median host time over
+   5 runs with the input negated before each run, with its peak memory,
+   the counters zeroed before the first and read after the last (no kernel
+   may launch): ``modwt``, ``modwt_denoise`` and ``wavedec`` (db8, J = 8)
+   and ``modwpt`` (db8, L = 5) on 64 x 65,536 (``:149-163``);
+   ``best_basis`` (db4, 4 levels) on 8 x 65,536; ``bandpass`` 1-40 Hz and
+   ``resample`` to 250 Hz (the power-of-two route) and 300 Hz (the
+   any-ratio route) on slice 3's 64 x 600,000 recording (``:427-437``);
+   ``modwt_denoise`` of its copy on the card and
+   ``RawWavelet.modwt_denoise`` of it (2^20 samples, J = 17: the peak
+   memory at full width; the difference is the two host copies);
+   ``stockwell`` on 16 epochs x 64 channels x 2048, 100 rows 1-100 Hz;
+   ``power2d`` on 8 and 160 images of 256 x 256, 4
+   freqs x 6 orientations, on the default path and ``use_fft=True``
+   (``:523-545``); ``wavedec2`` / ``waverec2`` (db4, level 4) on the 160.
+47. Each result against the port's own CPU run on 4 rows (2 images) of
+   the same input at the CPU tests' gate (max|d| <= 1e-5 x max|ref|; the
+   CPU run is tied to JAX by ``tests/test_torch_*.py``); a denoised signal
+   within 1e-5 of its INPUT's max (the coefficients' round-off scales with
+   the signal they came from, and the shrinkage of white noise leaves an
+   output of 3% of it: 3.0e-5 of the output's max at 2^20 samples, 8.6e-7
+   of the input's, in the first run).  Known answers:
+   the MODWT's energy partition (1e-5 relative) and the ``imodwt``,
+   ``waverec``, ``imodwpt``, ``best_basis_reconstruct`` and ``waverec2``
+   round trips (1e-5 of the signal's max); best-basis node costs against
+   the CPU's (rtol 1e-5), its nodes equal where every decision's margin
+   exceeds 1e-4, and their bands tiling [0, 1/2); ``mean_t S x N`` equal to
+   the FFT at the bins and ``istockwell(stockwell(x))`` exact (1e-5) on a
+   bin-aligned signal; the bandpass gain of a 10 Hz tone in [0.95, 1.05]
+   and of a 100 Hz tone below 0.05; the default 2-D path against
+   ``use_fft=True`` (1e-5).  The any-ratio resample's float32 positions
+   are printed, not gated: a 100 Hz tone's error from the exact sine at
+   20,000 and 600,000 samples (the JAX package's fault, reproduced).
+48. The kernel paths, the counters zeroed just before and read just
+   after: ``EpochsWavelet.tfr_power2d`` on the serving data (K1 "power"
+   once), ``EpochsWavelet.modwt_denoise()`` and its ``power_all`` /
+   ``itc_all`` (K1 "power" and K2 "itc" once each), and
+   ``RawWavelet.filter(1, 40, notch_hz=50)`` of the recording wrapped back
+   into a ``RawWavelet`` (window 11524) and its ``power`` (K4, 7
+   launches); nothing else may launch.  K1's plane against the plain path
+   at slice 1's power gate, and ``tfr_power2d`` against the plain plane's
+   within that error carried through log1p and the 2-D CWT (|dW| <= max|d
+   plane| x ||psi||_1 a row, plus 1e-5 of the max for the two transforms'
+   own round-off); the denoised trials against the CPU run (as in 47) and
+   K1 at slice 1's power gate; K2 at its 1e-4 gate on sound cells (every
+   epoch's |c| at least 1e-2 of its row max, as in 21 and 27), with no
+   NaN there: shrinkage removes a band from some trials and not others,
+   so one epoch's coefficient can sit at the round-off floor under strong
+   mean power, and an exactly-zero one gave 464 NaN cells in the plain
+   path and 663 in K2 in the first runs, some where the power was above
+   1e-6 of the plane max (printed, not gated); the filtered
+   recording against the CPU run, its 60 Hz
+   tone gone (gain below 0.01), and 4 channels of K4's plane against
+   ``StreamingCWT(use_fused=False)`` (1e-5).  Then each user call of these
+   paths timed as in 46.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -3592,6 +3654,419 @@ def statistics_phase(data):
     print(f"statistics phase {time.perf_counter() - t_phase} s")
 
 
+TR_ROWS, TR_N, TR_LEVEL, TR_PACKETS = 64, 65536, 8, 5
+BB_ROWS, BB_LEVELS = 8, 4
+ST_E, ST_C, ST_N, ST_F = 16, 64, 2048, 100
+IMG_FEW, IMG_MANY, IMG_HW, IMG_LEVEL = 8, 160, 256, 4
+IMG_FREQS = (0.03, 0.06, 0.12, 0.24)
+CPU_ROWS, CPU_IMGS = 4, 2
+FAULT_HZ, FAULT_NS = 100.0, (20_000, 600_000)
+
+
+def on_cpu(name, got, fn, gate=POWER_RTOL):
+    """The card's result against the port's own CPU run of ``fn`` (the
+    CPU tests' gate; the CPU run is tied to JAX by tier-1)."""
+    return rel_err(f"{name}: card vs CPU", got.cpu(), fn())
+
+
+def denoised_err(name, got, ref, x):
+    """A denoised signal against its reference within 1e-5 of the max of
+    the INPUT ``x``: the coefficients' round-off is relative to the signal
+    they came from, and the shrinkage leaves an output far smaller than
+    it (white noise at J = 17: the output's max is 3% of the input's)."""
+    err = (got - ref).abs().max().item()
+    scale = x.abs().max().item()
+    print(f"check {name}: max|d| {err}, / max|x| {err / scale} (gate "
+          f"{POWER_RTOL}), / max|ref| {err / ref.abs().max().item()}")
+    check(bool(got.isfinite().all()), f"{name}: non-finite values")
+    check(err <= POWER_RTOL * scale, f"{name}: {err / scale} > "
+          f"{POWER_RTOL} of max|x|")
+
+
+def sound_itc_err(name, got, ref, sound):
+    """ITC at slice 1's 1e-4 gate on ``sound`` cells only (every epoch's
+    |c| at least 1e-2 of its row max: ``sound_cells``, the rule of slices
+    5 and 6 and of ``tests/test_torch_cwt.py``), with no NaN there in
+    either path.  Shrinkage removes a band from some trials and not
+    others, so at a cell of strong mean power one epoch's coefficient can
+    sit at the round-off floor, and an exactly-zero one gives NaN in one
+    path and not the other: off the sound cells the ITC is printed, not
+    gated."""
+    import torch
+    d = (got - ref).abs()
+    err = d[sound].max().item()
+    nan = bool(got[sound].isnan().any() or ref[sound].isnan().any())
+    weak = torch.where(sound, torch.zeros_like(d), d).nan_to_num()
+    print(f"check {name}: on the {int(sound.sum())} sound cells max|d| "
+          f"{err} (gate {ITC_ATOL_STRONG}), NaN there {nan}; on the other "
+          f"{int((~sound).sum())} cells max|d| {weak.max().item()}, NaN "
+          f"cells {int(got.isnan().sum())} / {int(ref.isnan().sum())} (not "
+          "gated)")
+    check(err <= ITC_ATOL_STRONG and not nan,
+          f"{name}: ITC err {err} on sound cells")
+
+
+def round_trip(name, rec, x):
+    """A reconstruction within 1e-5 of the signal's max."""
+    err = (rec - x).abs().max().item() / x.abs().max().item()
+    print(f"check {name} round trip: max|d| / max|x| {err} (gate 1e-5)")
+    check(err <= 1e-5, f"{name} round trip {err}")
+
+
+def prune_margin(costs, levels):
+    """The smallest relative margin |c - child| / max(|c|, |child|) over
+    the decisions of the bottom-up best-basis prune."""
+    best, low = {}, math.inf
+    for j in range(levels, -1, -1):
+        for b in range(2 ** j):
+            c = costs[(j, b)]
+            if j == levels:
+                best[(j, b)] = c
+                continue
+            child = best[(j + 1, 2 * b)] + best[(j + 1, 2 * b + 1)]
+            scale = max(abs(c), abs(child))
+            if scale:
+                low = min(low, abs(c - child) / scale)
+            best[(j, b)] = min(c, child)
+    return low
+
+
+def tone_gain(y, f, n, sfreq=SFREQ):
+    """|<y, sin> / <sin, sin>| of a tone at ``f`` Hz over the interior
+    80% of ``n`` samples."""
+    s = np.sin(2 * np.pi * f * np.arange(n) / sfreq)
+    mid = slice(n // 10, n - n // 10)
+    return abs(float(np.dot(y[mid], s[mid]) / np.dot(s[mid], s[mid])))
+
+
+def transforms_phase(data):
+    """Slice 10: the other transforms (MODWT / DWT and shrinkage, packets
+    and best bases, filters and resampling, the S-transform, the 2-D DWT
+    and CWT) at the JAX package's bench shapes, each against the port's
+    own CPU run and the known answers, TF32 on and off identical, timed
+    with its peak memory; then the three paths that end in the kernels
+    (K1 under ``tfr_power2d``, K1/K2 under the denoised adapter, K4 under
+    the filtered recording's power), held against the plain path.  Plain
+    torch but for those kernels: nothing joins the kernels' record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt, cwt2d, dwt, dwt2d, wpt
+    from ninwavelets_tpu_torch.ops import filtering as flt
+    from ninwavelets_tpu_torch.ops.stockwell import istockwell, stockwell
+    from ninwavelets_tpu_torch.parallel import StreamingCWT
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(20)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+
+    # -- the discrete transforms at extensions_bench.py:149-163 ---------------
+    xh = gen.standard_normal((TR_ROWS, TR_N), dtype=np.float32)
+    x = torch.from_numpy(xh).cuda()
+    x4 = torch.from_numpy(xh[:CPU_ROWS])
+    shape = f"{TR_ROWS} x {TR_N}"
+    w = stat_call(f"modwt db8 J={TR_LEVEL} ({shape})",
+                  lambda: dwt.modwt(x, "db8", TR_LEVEL), x.neg_, card)
+    on_cpu("modwt", w[:CPU_ROWS], lambda: dwt.modwt(x4, "db8", TR_LEVEL))
+    energy = w.double().square().sum((-2, -1))
+    want = x.double().square().sum(-1)
+    e_rel = ((energy - want).abs() / want).max().item()
+    print(f"check modwt energy partition: max rel {e_rel} (gate 1e-5)")
+    check(e_rel <= 1e-5, f"modwt energy partition {e_rel}")
+    round_trip("imodwt", dwt.imodwt(w, "db8"), x)
+    del w
+    den = stat_call(f"modwt_denoise db8 J={TR_LEVEL} ({shape})",
+                    lambda: dwt.modwt_denoise(x, "db8", TR_LEVEL), x.neg_,
+                    card)
+    denoised_err("modwt_denoise: card vs CPU", den[:CPU_ROWS].cpu(),
+                 dwt.modwt_denoise(x4, "db8", TR_LEVEL), x4)
+    c = stat_call(f"wavedec db8 J={TR_LEVEL} ({shape})",
+                  lambda: dwt.wavedec(x, "db8", TR_LEVEL), x.neg_, card)
+    for i, (a, b) in enumerate(zip(c, dwt.wavedec(x4, "db8", TR_LEVEL))):
+        rel_err(f"wavedec coefficient array {i}: card vs CPU",
+                a[:CPU_ROWS].cpu(), b)
+    round_trip("waverec", dwt.waverec(c, "db8"), x)
+    del den, c
+    p = stat_call(f"modwpt db8 L={TR_PACKETS} ({shape})",
+                  lambda: wpt.modwpt(x, "db8", TR_PACKETS), x.neg_, card)
+    on_cpu("modwpt", p[:CPU_ROWS], lambda: wpt.modwpt(x4, "db8", TR_PACKETS))
+    round_trip("imodwpt", wpt.imodwpt(p, "db8"), x)
+    del p
+    xb = x[:BB_ROWS]
+    nodes, coeffs = stat_call(
+        f"best_basis db4, {BB_LEVELS} levels ({BB_ROWS} x {TR_N})",
+        lambda: wpt.best_basis(xb, "db4", BB_LEVELS), xb.neg_, card)
+
+    def costs(t):
+        tables = {j: wpt.modwpt(t, "db4", j).cpu().numpy()
+                  for j in range(1, BB_LEVELS + 1)}
+        tables[0] = t.cpu().numpy()[..., None, :]
+        return wpt._node_costs(tables, BB_LEVELS, "shannon")
+
+    got, ref = costs(xb), costs(xb.cpu())
+    c_rel = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in ref)
+    margin = prune_margin(ref, BB_LEVELS)
+    nodes_cpu, _ = wpt.best_basis(xb.cpu(), "db4", BB_LEVELS)
+    bands = [wpt.node_band(*nd) for nd in nodes]
+    tiles = (bands[0][0] == 0.0 and bands[-1][1] == 0.5
+             and all(b1 == a2 for (_, b1), (a2, _) in zip(bands, bands[1:])))
+    print(f"check best_basis: {len(nodes)} nodes {nodes}; node costs card vs "
+          f"CPU max rel {c_rel} (gate 1e-5); smallest decision margin "
+          f"{margin} (nodes compared when > 1e-4): card == CPU "
+          f"{nodes == nodes_cpu}; the bands tile [0, 1/2) {tiles}")
+    check(c_rel <= 1e-5 and tiles, "best_basis costs or tiling")
+    check(margin <= 1e-4 or nodes == nodes_cpu, "best_basis nodes differ")
+    round_trip("best_basis_reconstruct",
+               wpt.best_basis_reconstruct(nodes, coeffs, "db4"), xb)
+    del nodes, coeffs, xb, x
+    torch.cuda.empty_cache()
+
+    # -- filters and resampling at extensions_bench.py:427-437 ----------------
+    rec = recording(3)
+    xr = torch.from_numpy(rec).cuda()
+    r4 = torch.from_numpy(rec[:CPU_ROWS])
+    shape = f"{REC_C} x {REC_N} at {SFREQ:g} Hz"
+    bp = stat_call(f"bandpass 1-40 Hz ({shape})",
+                   lambda: flt.bandpass(xr, SFREQ, 1.0, 40.0), xr.neg_, card)
+    on_cpu("bandpass", bp[:CPU_ROWS], lambda: flt.bandpass(r4, SFREQ, 1.0,
+                                                           40.0))
+    del bp
+    for new in (250.0, 300.0):
+        route = ("power-of-two" if new == 250.0 else "any-ratio")
+        y = stat_call(f"resample {SFREQ:g} -> {new:g} Hz, the {route} route "
+                      f"({shape})",
+                      lambda: flt.resample(xr, SFREQ, new)[0], xr.neg_, card)
+        on_cpu(f"resample -> {new:g} Hz", y[:CPU_ROWS],
+               lambda: flt.resample(r4, SFREQ, new)[0])
+        del y
+    tone = torch.from_numpy(np.stack([
+        np.sin(2 * np.pi * f * np.arange(REC_N) / SFREQ)
+        for f in (10.0, 100.0)]).astype(np.float32)).cuda()
+    gains = [tone_gain(flt.bandpass(tone[i], SFREQ, 1.0, 40.0).cpu().numpy(),
+                       f, REC_N) for i, f in enumerate((10.0, 100.0))]
+    print(f"check bandpass 1-40 Hz gain: 10 Hz {gains[0]} (gate [0.95, "
+          f"1.05]), 100 Hz {gains[1]} (gate < 0.05)")
+    check(0.95 <= gains[0] <= 1.05 and gains[1] < 0.05, "bandpass gains")
+    fault = torch.from_numpy(np.sin(
+        2 * np.pi * FAULT_HZ * np.arange(max(FAULT_NS)) / SFREQ).astype(
+            np.float32)).cuda()
+    for n in FAULT_NS:
+        t1 = fault[:n]
+        y = flt.resample(t1, SFREQ, 300.0)[0]
+        rel_err(f"resample {n} samples -> 300 Hz: card vs CPU", y.cpu(),
+                flt.resample(t1.cpu(), SFREQ, 300.0)[0])
+        y = y.cpu().numpy()
+        m = y.shape[-1]
+        exact = np.sin(2 * np.pi * FAULT_HZ * np.arange(m) / 300.0)
+        mid = slice(m // 10, m - m // 10)
+        print(f"fault: resample of a {FAULT_HZ:g} Hz tone, {n} samples, "
+              f"{SFREQ:g} -> 300 Hz: max error from the exact sine over the "
+              f"interior 80% {np.abs(y[mid] - exact[mid]).max()} (float32 "
+              f"output positions, as in the JAX package; not gated), on "
+              f"{card}")
+    del tone, fault
+    rw = nt.RawWavelet(ArrayRaw(rec), nt.Morse(SFREQ, interpolate=True,
+                                               device="cuda"),
+                       window=REC_WINDOW, batch=REC_BATCH)
+    n2 = 1 << (REC_N - 1).bit_length()
+    xr = torch.from_numpy(rec).cuda()
+    stat_call(f"modwt_denoise of the card's copy ({shape}, padded to {n2}, "
+              f"db4 J={dwt.max_level(n2)}; the bank's upload included)",
+              lambda: dwt.modwt_denoise(xr, pad_pow2=True), xr.neg_, card)
+    del xr
+    out = stat_call(f"RawWavelet.modwt_denoise ({shape}, padded to {n2}, "
+                    f"db4 J={dwt.max_level(n2)}; host copies included)",
+                    lambda: rw.modwt_denoise(), negate(rw), card)
+    denoised_err("RawWavelet.modwt_denoise, 4 channels: card vs CPU",
+                 torch.from_numpy(out[:CPU_ROWS]),
+                 dwt.modwt_denoise(r4, pad_pow2=True), r4)
+    del out
+
+    # -- the S-transform ------------------------------------------------------
+    freqs_st = np.arange(1.0, ST_F + 1.0)
+    xs = torch.from_numpy(gen.standard_normal((ST_E, ST_C, ST_N),
+                                              dtype=np.float32)).cuda()
+    s = stat_call(f"stockwell ({ST_C} channels x {ST_E} epochs x {ST_N}, "
+                  f"{ST_F} rows 1-{ST_F} Hz)",
+                  lambda: stockwell(xs, freqs_st, SFREQ), xs.neg_, card)
+    on_cpu("stockwell", s[0, :CPU_ROWS],
+           lambda: stockwell(xs[0, :CPU_ROWS].cpu(), freqs_st, SFREQ))
+    bins = np.rint(freqs_st * ST_N / SFREQ).astype(np.int64)
+    mean_rel = rel_err("stockwell time mean x N vs the FFT at the bins",
+                       s.mean(-1) * ST_N, torch.fft.fft(xs)[..., bins])
+    del s
+    phase = gen.uniform(0, 2 * np.pi, (8, 3, 1))
+    picked = bins[[9, 39, 79]]                       # 10, 40 and 80 Hz rows
+    aligned = torch.from_numpy(np.cos(
+        2 * np.pi * picked[:, None] * np.arange(ST_N) / ST_N + phase).sum(
+            1).astype(np.float32)).cuda()
+    round_trip("istockwell(stockwell(x)) of a bin-aligned signal",
+               istockwell(stockwell(aligned, freqs_st, SFREQ), freqs_st,
+                          SFREQ, ST_N), aligned)
+    del xs, mean_rel
+
+    # -- the 2-D transforms at extensions_bench.py:523-570 ---------------------
+    for count in (IMG_FEW, IMG_MANY):
+        imgs = torch.from_numpy(gen.standard_normal(
+            (count, IMG_HW, IMG_HW), dtype=np.float32)).cuda()
+        i2 = imgs[:CPU_IMGS].cpu()
+        out = {}
+        for use_fft in (False, True):
+            out[use_fft] = stat_call(
+                f"power2d {len(IMG_FREQS)} freqs x 6 orientations "
+                f"({count} x {IMG_HW} x {IMG_HW}, "
+                f"{'use_fft=True' if use_fft else 'default path'})",
+                lambda: cwt2d.power2d(imgs, IMG_FREQS, use_fft=use_fft),
+                imgs.neg_, card)
+            on_cpu(f"power2d use_fft={use_fft}", out[use_fft][:CPU_IMGS],
+                   lambda: cwt2d.power2d(i2, IMG_FREQS, use_fft=use_fft))
+        rel_err("power2d default path vs use_fft=True", out[False],
+                out[True])
+        del out
+        if count == IMG_MANY:
+            c2 = stat_call(f"wavedec2 db4 level {IMG_LEVEL} ({count} x "
+                           f"{IMG_HW} x {IMG_HW})",
+                           lambda: dwt2d.wavedec2(imgs, "db4", IMG_LEVEL),
+                           imgs.neg_, card)
+            ref = dwt2d.wavedec2(i2, "db4", IMG_LEVEL)
+            rel_err("wavedec2 LL: card vs CPU", c2[0][:CPU_IMGS].cpu(),
+                    ref[0])
+            for lev, (dg, dr) in enumerate(zip(c2[1:], ref[1:])):
+                for band, a, b in zip(("LH", "HL", "HH"), dg, dr):
+                    rel_err(f"wavedec2 {band} {IMG_LEVEL - lev}: card vs "
+                            "CPU", a[:CPU_IMGS].cpu(), b)
+            flat = [c2[0]] + [t for d in c2[1:] for t in d]
+            back = stat_call(f"waverec2 db4 level {IMG_LEVEL} ({count} x "
+                             f"{IMG_HW} x {IMG_HW})",
+                             lambda: dwt2d.waverec2(c2, "db4"),
+                             lambda: [t.neg_() for t in flat], card)
+            round_trip("waverec2", back, imgs)
+            del c2, flat, back
+        del imgs
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"the plain transforms launched {counts} (none)")
+    check(not any(counts.values()), f"the plain transforms launched {counts}")
+    torch.cuda.empty_cache()
+
+    # -- the paths that end in the kernels -------------------------------------
+    freqs = np.arange(1.0, F + 1.0)
+    rec_freqs = np.linspace(2.0, 100.0, REC_F)
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ),
+                          nt.Morse(SFREQ, interpolate=True, device="cuda"))
+    n_batches = -(-REC_N // (REC_WINDOW * REC_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tfr, crop = ew.tfr_power2d("ch0", freqs)
+    dew = ew.modwt_denoise()
+    den_power = dew.power_all(freqs)
+    den_itc = dew.itc_all(freqs)
+    filtered = rw.filter(1.0, 40.0, notch_hz=50.0)
+    rw_f = nt.RawWavelet(ArrayRaw(filtered), nt.Morse(
+        SFREQ, interpolate=True, device="cuda"), window=REC_WINDOW,
+        batch=REC_BATCH)
+    plane = rw_f.power(rec_freqs)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"transforms kernel paths {time.perf_counter() - t0} s (first "
+          f"calls: banks and host copies included; peak "
+          f"{torch.cuda.max_memory_allocated()} bytes allocated); launches "
+          f"{counts}, on {card}")
+    want = {"power": 2, "itc": 1, "power_each": n_batches}
+    check({k: v for k, v in counts.items() if v} == want,
+          f"transforms kernel paths launched {counts}, want {want}")
+    check(tuple(tfr.shape) == (4, 6, 128, N) and crop == (F, N)
+          and bool(tfr.isfinite().all()), "tfr_power2d result")
+
+    # tfr_power2d: K1's plane, then the 2-D CWT of its log1p, against the
+    # plain plane; the plane's error carried through log1p (1-Lipschitz)
+    # and the 2-D CWT (|dW| <= max|d img| x ||psi||_1 a row) into the power
+    x0 = ew._channel_data("ch0")
+    plain = cwt.mean_power_from_bank(x0[:, None, :],
+                                     ew._bank_for(x0, freqs), True)[0]
+    d_img = rel_err("tfr_power2d plane (K1 'power') vs plain",
+                    ew.power("ch0", freqs), plain)
+    padded, _ = cwt2d.pow2_pad2(torch.log1p(plain))
+    ref_w = cwt2d.cwt2(padded, (0.02, 0.05, 0.1, 0.2))
+    ref_p = ref_w.real.square() + ref_w.imag.square()
+    psi = torch.fft.ifft2(cwt2d.morlet2d_bank(
+        (0.02, 0.05, 0.1, 0.2), np.arange(6) * np.pi / 6.0, *padded.shape,
+        device="cuda")).abs().sum((-2, -1))[..., None, None]
+    e = d_img * psi
+    bound = (2 * ref_w.abs() * e + e * e
+             + POWER_RTOL * ref_p.abs().max())
+    ratio = ((tfr - ref_p).abs() / bound).max().item()
+    print(f"check tfr_power2d vs the plain plane's: max|d| "
+          f"{(tfr - ref_p).abs().max().item()}, max|d| / (2 |W| e + e^2 + "
+          f"{POWER_RTOL} max P) {ratio} (gate 1), e = max|d plane| x "
+          f"||psi||_1")
+    check(ratio <= 1.0, f"tfr_power2d {ratio}")
+    del x0, plain, padded, ref_w, ref_p, psi, e, bound, tfr
+
+    # modwt_denoise(): the cleaned trials, then K1/K2 at slice 1's gates
+    rows = torch.from_numpy(data.reshape(-1, N)[:CPU_ROWS])
+    denoised_err("EpochsWavelet.modwt_denoise data, 4 rows: card vs CPU",
+                 torch.from_numpy(dew._host_data().reshape(-1, N)[
+                     :CPU_ROWS]), dwt.modwt_denoise(rows, pad_pow2=True),
+                 rows)
+    xd = dew._all_data()
+    bank = dew._bank_for(xd, freqs)
+    ref_power = cwt.mean_power_from_bank(xd, bank, True)
+    rel_err("modwt_denoise().power_all (K1) vs plain", den_power, ref_power)
+    sound_itc_err("modwt_denoise().itc_all (K2) vs plain", den_itc,
+                  cwt.itc_from_bank(xd, bank, True),
+                  sound_cells(xd, xd, bank, True))
+    del xd, ref_power, den_power, den_itc
+    torch.cuda.empty_cache()
+
+    # the filtered recording: the CPU run, the line gone, K4 against plain
+    rel_err("RawWavelet.filter(1, 40, notch 50), 4 channels: card vs CPU",
+            torch.from_numpy(filtered[:CPU_ROWS]),
+            flt.notch(flt.bandpass(r4, SFREQ, 1.0, 40.0), SFREQ, 50.0))
+    g60 = tone_gain(filtered[0], 60.0, REC_N)
+    print(f"check the filtered recording: channel 0's 60 Hz tone gain "
+          f"{g60} (gate < 0.01)")
+    check(g60 < 0.01, f"60 Hz gain {g60}")
+    check(tuple(plane.shape) == (REC_C, REC_F, REC_N)
+          and bool(plane.isfinite().all()), "filtered plane")
+    plane4 = plane[:CPU_ROWS].clone()
+    del plane
+    torch.cuda.empty_cache()
+    plain_stream = StreamingCWT(rw_f.wavelet._wdef(), rec_freqs, SFREQ,
+                                window=REC_WINDOW, interpolate=True,
+                                use_fused=False, batch=REC_BATCH,
+                                device="cuda")
+    rel_err("filtered RawWavelet.power (K4), 4 channels, vs "
+            "StreamingCWT(use_fused=False)", plane4,
+            plain_stream.power_device(filtered[:CPU_ROWS]))
+    del plane4, plain_stream
+
+    # times of the user calls on these paths
+    stat_call(f"EpochsWavelet.tfr_power2d ({E} x {F} x {N} plane of one "
+              "channel, 4 x 6 2-D rows)",
+              lambda: ew.tfr_power2d("ch0", freqs), negate(ew), card)
+    stat_call(f"EpochsWavelet.modwt_denoise ({E} x {C} x {N}, db4, host "
+              "copies included)", lambda: ew.modwt_denoise()._host_data(),
+              negate(ew), card)
+    stat_call(f"modwt_denoise().power_all ({E} x {C} x {N} x {F})",
+              lambda: dew.power_all(freqs), negate(dew), card)
+    stat_call(f"RawWavelet.filter(1, 40, notch_hz=50) ({shape}, host copies "
+              "included)", lambda: rw.filter(1.0, 40.0, notch_hz=50.0),
+              negate(rw), card)
+    names = rw_f.raw.ch_names[:CPU_ROWS]
+    stat_call(f"RawWavelet.power of the filtered recording, {CPU_ROWS} "
+              "channels", lambda: rw_f.power(rec_freqs, picks=names),
+              negate(rw_f), card)
+    print(f"transforms phase {time.perf_counter() - t_phase} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3747,6 +4222,10 @@ def main() -> int:
 
     # -- slice 9: statistics ---------------------------------------------------
     statistics_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 10: the other transforms ----------------------------------------
+    transforms_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

@@ -19,7 +19,12 @@ PPC, PLI / wPLI / debiased wPLI^2, the phase slope index in ``ops``; the
 all-pairs matrices; the ``EpochsWavelet`` pair and matrix methods), the rest
 of connectivity, directed connectivity (spectral Granger causality, DTF /
 PDC) and graph measures (``EpochsWavelet.granger`` / ``network``), and
-event-locked epochs of a recording (``RawWavelet.epochs``).  On a
+event-locked epochs of a recording (``RawWavelet.epochs``), the statistics
+of single-trial planes, and the other transforms (MODWT / DWT and
+shrinkage, wavelet packets, the 2-D DWT, zero-phase filters and
+resampling, the S-transform and the directional 2-D CWT in ``ops``, with
+``EpochsWavelet.tfr_power2d`` / ``modwt_denoise`` and
+``RawWavelet.filter`` / ``resample``).  On a
 CUDA tensor the epoch reductions (for real and complex banks) and the
 per-signal power run the fused kernels of ``csrc/fused_cwt.cu``, the power's
 gradient the fused backward of ``csrc/fused_cwt_bwd.cu`` (real and complex

@@ -14,7 +14,10 @@ conditional, DTF / PDC, trial-shuffle significance), graph measures over the
 connectivity matrices, the statistics of single-trial planes (cluster
 permutation tests, TFCE, the max-statistic correction, FDR, bootstrap
 confidence bounds, oscillatory bursts), the Paul / DOG / Bump spectra,
-multitaper Morse spectrograms and superlets.
+multitaper Morse spectrograms and superlets, and the other transforms: the
+MODWT / DWT with wavelet variance and shrinkage, wavelet packets and best
+bases, the 2-D DWT, zero-phase filters and FFT resampling, the S-transform
+and the directional 2-D CWT.
 """
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
                    make_time_wavelet, pad_spectrum_to)
@@ -32,6 +35,7 @@ from .cluster import (ClusterResult, TfceResult, cluster_mass,
                       max_stat_test_regression, t_independent, t_one_sample,
                       t_regression, t_threshold, tfce_map,
                       tfce_test_independent, tfce_test_one_sample)
+from .cwt2d import cwt2, morlet2d_bank, pow2_pad2, power2d
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
                   itc_from_bank, mean_power_from_bank, power_from_bank)
 from .connectivity import (PAC_METHODS, PHASE_LAG_METHODS,
@@ -55,6 +59,10 @@ from .connectivity import (PAC_METHODS, PHASE_LAG_METHODS,
                            roll_epochs, surrogate_pvalues,
                            surrogate_pvalues_from_shifts, surrogate_shifts,
                            wpli_matrix, wpli_matrix_from_bank)
+from .dwt import (imodwt, max_level, modwt, modwt_corr, modwt_cov,
+                  modwt_denoise, modwt_mra, modwt_var, modwt_var_ci,
+                  pow2_pad, wavedec, waverec, wavelet_filter)
+from .dwt2d import dwt2, idwt2, max_level2, wavedec2, waverec2
 from .envelope import env_corr_matrix, env_corr_matrix_from_bank
 from .extensions import (ar1_filter, bicoherence, bicoherence_from_banks,
                          bump_spectrum, cfd, cfd_from_banks,
@@ -66,6 +74,7 @@ from .extensions import (ar1_filter, bicoherence, bicoherence_from_banks,
                          psi, psi_from_bank, psi_from_sums, row_quantile,
                          wavelet_coherence, wavelet_coherence_from_bank,
                          wavelet_entropy, wtc_significance)
+from .filtering import bandpass, highpass, lowpass, notch, resample
 from .fit import fit_frequencies, learn_bank
 from .granger import (conditional_granger, dtf_pdc, granger_from_factors,
                       spectral_granger_pairwise, uniform_freqs,
@@ -99,5 +108,8 @@ from .signal_utils import (SizeError, hamming_window, interpolate_alias,
                            normalize, pad_last_axis_to, pad_to)
 from .sst import (ssq_mean_power, ssq_mean_power_from_bank, ssq_power,
                   ssq_power_from_bank, uniform_grid_hint)
+from .stockwell import istockwell, stockwell
 from .superlets import (superlet_banks, superlet_mean_power, superlet_power,
                         superlet_power_from_banks, superlet_weights)
+from .wpt import (best_basis, best_basis_reconstruct, imodwpt, modwpt,
+                  node_band)

@@ -26,7 +26,12 @@ summarize the single-trial planes of ``single_trial_power(_all)``, which
 run K4 on the card; the tests themselves are plain torch.  ``subset`` and
 ``split`` carve trial groups, carrying the event codes.
 ``RawWavelet.coherence`` is the single-trial smoothed wavelet coherence of
-two channels of a recording.  A continuous recording streams through ``parallel.StreamingCWT`` in
+two channels of a recording.  The other transforms are plain torch:
+``EpochsWavelet.tfr_power2d`` (the directional 2-D CWT of the epoch-mean
+plane that ``power`` makes with the kernel), ``modwt_var`` and
+``modwt_denoise`` (a new adapter over the cleaned trials, whose reductions
+run the kernels); ``RawWavelet.filter``, ``resample``, ``modwt_denoise``
+and ``modwt_var``, which return host numpy, as the JAX package's do.  A continuous recording streams through ``parallel.StreamingCWT`` in
 overlap-discard windows; ``RawWavelet.epochs`` cuts event-locked windows
 out of it into an ``EpochsWavelet``, whose epoch reductions then run the
 kernels (``epoch_power``, ``itc``).  Both need only the duck-typed MNE
@@ -45,12 +50,16 @@ from ..models.base import Numbers, WaveletBase
 from ..ops import bank as _bank
 from ..ops import cluster as _cl
 from ..ops import connectivity as _conn
+from ..ops import dwt as _dwt
 from ..ops import extensions as _ext
+from ..ops import filtering as _flt
 from ..ops import granger as _granger
 from ..ops import graph as _graph
 from ..ops.baseline import _correct, _tf_stats, baseline_tf
 from ..ops.bursts import burst_summary, burst_table
 from ..ops.cwt import cwt_from_bank
+from ..ops.cwt2d import pow2_pad2, power2d
+from ..ops.dwt import pow2_pad
 from ..ops.fused import itc_auto, mean_power_auto, power_auto, power_itc_auto
 from ..ops.envelope import env_corr_matrix
 from ..ops.multitaper import (multitaper_coherence_matrix,
@@ -495,6 +504,55 @@ class EpochsWavelet:
                                      interpolate=self.wavelet.interpolate,
                                      rel_threshold=rel_threshold,
                                      t_decim=t_decim)
+
+    # -- other transforms -----------------------------------------------------
+
+    def tfr_power2d(self, ch_name: str, freqs: Numbers,
+                    img_freqs=(0.02, 0.05, 0.1, 0.2), thetas=None,
+                    log_power: bool = True):
+        """Directional 2-D wavelet analysis of the channel's epoch-mean TFR
+        plane (``ops.cwt2d``): the (F, N) map, from ``power`` (the "power"
+        kernel on the card), is an image decomposed over oriented 2-D
+        Morlets, so sustained rhythms, broadband events and frequency
+        sweeps land in different orientation channels.
+
+        Returns ``(power, (F, N))``: a (F2, T, Fp, Np) tensor over the
+        plane reflect-padded to powers of two, and the crop for the
+        original sizes.  ``img_freqs`` are cycles/pixel of the image;
+        ``log_power`` applies log1p first."""
+        plane = self.power(ch_name, freqs)              # (F, N)
+        if log_power:
+            plane = torch.log1p(plane)
+        padded, crop = pow2_pad2(plane)
+        return power2d(padded, img_freqs, thetas), crop
+
+    def modwt_var(self, ch_name: str, wavelet: str = "db4", level=None,
+                  mean: bool = True) -> torch.Tensor:
+        """Wavelet variance by octave of one channel (``ops.dwt.modwt_var``)
+        of each epoch reflect-padded to a power of two: the (J,) epoch mean
+        (``mean=True``) or (E, J) per epoch, a tensor on the wavelet's
+        device."""
+        padded, _ = pow2_pad(self._channel_data(ch_name))
+        out = _dwt.modwt_var(padded, wavelet, level)
+        return torch.mean(out, dim=0) if mean else out
+
+    def modwt_denoise(self, wavelet: str = "db4", level=None,
+                      mode: str = "soft") -> "EpochsWavelet":
+        """A NEW ``EpochsWavelet`` over MODWT-shrinkage-denoised copies of
+        every epoch and channel (``ops.dwt.modwt_denoise``, level-dependent
+        universal thresholds, each row reflect-padded to a power of two),
+        with the same channel names, sfreq, wavelet object and event codes:
+        its ``power_all`` / ``itc_all`` run the kernels on the cleaned
+        trials."""
+        data = self._all_data()                         # (E, C, N)
+        den = _dwt.modwt_denoise(data.reshape(-1, data.shape[-1]), wavelet,
+                                 level, mode, pad_pow2=True)
+        times = getattr(self.epochs, "times", None)
+        return self._carry_codes(EpochsWavelet(
+            ArrayEpochs(den.reshape(data.shape).cpu().numpy(),
+                        self.wavelet.sfreq, list(self.epochs.ch_names),
+                        times=times),
+            self.wavelet))
 
     # -- pair connectivity ----------------------------------------------------
 
@@ -1058,6 +1116,62 @@ class RawWavelet:
             data = data[idx]
         return self._stream_for(freqs).ssq_power_device(
             data, rel_threshold=rel_threshold)
+
+    # -- preprocessing and discrete transforms ------------------------------
+
+    def _picked(self, picks) -> torch.Tensor:
+        """The recording's (C, N) samples on the wavelet's device, restricted
+        to the ``picks`` channel names (order kept) when given."""
+        data = self._host_data()
+        if picks is not None:
+            data = data[[self.raw.ch_names.index(ch) for ch in picks]]
+        return torch.from_numpy(np.ascontiguousarray(data)).to(
+            self.wavelet.device)
+
+    def filter(self, f_lo=None, f_hi=None, notch_hz=None,
+               picks=None) -> np.ndarray:
+        """(C, N) zero-phase filtered copy of the recording
+        (``ops.filtering``), host numpy as in the JAX package: a band, low
+        or high pass from whichever of ``f_lo`` / ``f_hi`` is given, then
+        each ``notch_hz`` (a line frequency or a list of them) in turn.
+        Wrap the result in a new ``RawWavelet`` for further analysis."""
+        out = self._picked(picks)
+        sfreq = self.wavelet.sfreq
+        if f_lo is not None and f_hi is not None:
+            out = _flt.bandpass(out, sfreq, f_lo, f_hi)
+        elif f_hi is not None:
+            out = _flt.lowpass(out, sfreq, f_hi)
+        elif f_lo is not None:
+            out = _flt.highpass(out, sfreq, f_lo)
+        if notch_hz is not None:
+            for f0 in np.atleast_1d(notch_hz):
+                out = _flt.notch(out, sfreq, float(f0))
+        return out.cpu().numpy()
+
+    def resample(self, new_sfreq: float, picks=None):
+        """``(data, new_sfreq)``: the FFT-resampled recording
+        (``ops.filtering.resample``) as host numpy, as in the JAX
+        package."""
+        y, sf = _flt.resample(self._picked(picks), self.wavelet.sfreq,
+                              new_sfreq)
+        return y.cpu().numpy(), sf
+
+    def modwt_denoise(self, picks=None, wavelet: str = "db4", level=None,
+                      mode: str = "soft") -> np.ndarray:
+        """(C, N) MODWT-shrinkage-denoised copy of the recording
+        (``ops.dwt.modwt_denoise``, each channel reflect-padded to a power
+        of two and cropped), host numpy as in the JAX package."""
+        return _dwt.modwt_denoise(self._picked(picks), wavelet, level, mode,
+                                  pad_pow2=True).cpu().numpy()
+
+    def modwt_var(self, ch_name: str, wavelet: str = "db4",
+                  level=None) -> np.ndarray:
+        """(J,) wavelet variance by scale of one channel
+        (``ops.dwt.modwt_var`` of the channel reflect-padded to a power of
+        two; level j covers ``[sfreq / 2^{j+1}, sfreq / 2^j]`` Hz), host
+        numpy as in the JAX package."""
+        padded, _ = pow2_pad(self._picked([ch_name])[0])
+        return _dwt.modwt_var(padded, wavelet, level).cpu().numpy()
 
     # -- event-locked epochs -------------------------------------------------
 

@@ -1,0 +1,167 @@
+"""The port's zero-phase filters and FFT resampling
+(``ninwavelets_tpu_torch.ops.filtering``) against the JAX package on the same
+seeded signals, on the CPU, and against ``tests/test_filtering.py``'s
+known answers and scipy's ``resample``.
+
+Gates, each with its reason:
+
+* filtered and resampled signals: max|d| <= 1e-5 x max|ref| (float32 rfft
+  pipelines of the same gain, or the same truncation and the same float32
+  output positions; apart in the FFT's round-off);
+* validation: the JAX package's exception type;
+* the any-ratio resample's float32 positions: both packages err from the
+  exact sine by more than 1e-3 at 600,000 samples (1000 -> 300 Hz) and by
+  less than 2e-3 at 20,000, and the port equals JAX's result there at
+  the 1e-5 gate: the fault is reproduced, not repaired (ROADMAP, queue 3).
+"""
+import numpy as np
+import pytest
+import torch
+from scipy import signal as sps
+
+from ninwavelets_tpu.ops import filtering as jf
+from ninwavelets_tpu_torch.ops import filtering as tf
+
+from test_torch_dwt import _close
+
+SFREQ = 500.0
+N = 4096
+T = np.arange(N) / SFREQ
+CPU = "cpu"
+
+
+def _tone(f, amp=1.0, n=N, sfreq=SFREQ):
+    return (amp * np.sin(2 * np.pi * f * np.arange(n) / sfreq)).astype(
+        np.float32)
+
+
+def _gain(y, ref):
+    mid = slice(N // 8, -N // 8)
+    return abs(np.dot(y[mid], ref[mid]) / np.dot(ref[mid], ref[mid]))
+
+
+@pytest.mark.parametrize("n", [N, 3000, 4097])
+@pytest.mark.parametrize("kind", ["bandpass", "lowpass", "highpass",
+                                  "notch"])
+def test_filters_match_jax(kind, n):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    args = {"bandpass": (12.0, 35.0), "lowpass": (30.0,),
+            "highpass": (30.0,), "notch": (50.0,)}[kind]
+    got = getattr(tf, kind)(x, SFREQ, *args, device=CPU)
+    _close(got, getattr(jf, kind)(x, SFREQ, *args))
+    assert got.shape == (2, n) and got.dtype == torch.float32
+
+
+def test_bandpass_gains():
+    x = _tone(5.0) + _tone(20.0) + _tone(80.0)
+    y = tf.bandpass(x, SFREQ, 12.0, 35.0, device=CPU).numpy()
+    for f, lo, hi in ((20.0, 0.95, 1.05), (5.0, 0.0, 0.05),
+                      (80.0, 0.0, 0.05)):
+        assert lo <= _gain(y, _tone(f)) <= hi, f
+
+
+def test_low_high_complementary():
+    x = np.random.default_rng(0).standard_normal(N).astype(np.float32)
+    lo = tf.lowpass(x, SFREQ, 30.0, device=CPU).numpy()
+    hi = tf.highpass(x, SFREQ, 30.0, device=CPU).numpy()
+    np.testing.assert_allclose(lo + hi, x, atol=1e-4)
+
+
+def test_notch_kills_line_and_matches_jax():
+    x = _tone(10.0) + _tone(50.0, 2.0)
+    y = tf.notch(x, SFREQ, 50.0, width=4.0, device=CPU)
+    _close(y, jf.notch(x, SFREQ, 50.0, width=4.0))
+    assert _gain(y.numpy(), _tone(50.0)) < 0.02
+    assert 0.95 < _gain(y.numpy(), _tone(10.0)) < 1.05
+
+
+@pytest.mark.parametrize("call", [
+    ("bandpass", (SFREQ, 40.0, 10.0)), ("bandpass", (SFREQ, 0.0, 10.0)),
+    ("bandpass", (SFREQ, 10.0, 250.0)), ("lowpass", (SFREQ, 400.0)),
+    ("highpass", (SFREQ, 0.0)), ("notch", (SFREQ, 249.0, 5.0)),
+    ("resample", (SFREQ, -1.0)), ("resample", (SFREQ, 0.0))])
+def test_validation_matches_jax(call):
+    name, args = call
+    x = np.stack([_tone(20.0), _tone(30.0)])
+    with pytest.raises(ValueError):
+        getattr(jf, name)(x, *args)
+    with pytest.raises(ValueError):
+        getattr(tf, name)(x, *args, device=CPU)
+
+
+def test_too_short_a_signal_is_rejected_by_both():
+    with pytest.raises(ValueError):
+        jf.lowpass(np.zeros(3, np.float32), SFREQ, 30.0)
+    with pytest.raises(ValueError):
+        tf.lowpass(np.zeros(3, np.float32), SFREQ, 30.0, device=CPU)
+
+
+def _sig(n=1024, seed=0):
+    rng = np.random.default_rng(seed)
+    k = sps.firwin(129, 0.2)
+    s = np.convolve(rng.standard_normal(n + 256), k, mode="same")
+    return s[128:128 + n].astype(np.float32)
+
+
+@pytest.mark.parametrize("new", [256.0, 512.0, 2048.0, 300.0, 700.0, 999.0,
+                                 1300.0])
+def test_resample_matches_jax_and_scipy(new):
+    x = _sig(seed=int(new))
+    y, sf = tf.resample(x, 1024.0, new, device=CPU)
+    yj, sfj = jf.resample(x, 1024.0, new)
+    assert sf == sfj == new
+    _close(y, yj)
+    ref = sps.resample(x.astype(np.float64), int(round(new)))
+    assert np.abs(y.numpy() - ref).max() / np.abs(ref).max() < 3e-3
+
+
+@pytest.mark.parametrize("n,new", [(3000, 250.0), (3000, 300.0),
+                                   (2048, 1000.0), (4097, 125.0)])
+def test_resample_of_padded_lengths_matches_jax(n, new):
+    x = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+    y, _ = tf.resample(x, 500.0, new, device=CPU)
+    _close(y, jf.resample(x, 500.0, new)[0])
+    assert y.shape == (3, max(1, int(round(n * new / 500.0))))
+
+
+def test_downsample_antialiases():
+    x = (_tone(10.0) + _tone(180.0))[:2048]
+    y, _ = tf.resample(x, SFREQ, 125.0, device=CPU)
+    _close(y, jf.resample(x, SFREQ, 125.0)[0])
+    y = y.numpy()
+    ref10 = np.sin(2 * np.pi * 10.0 * np.arange(y.shape[-1]) / 125.0)
+    mid = slice(64, -64)
+    g10 = abs(np.dot(y[mid], ref10[mid]) / np.dot(ref10[mid], ref10[mid]))
+    assert 0.9 < g10 < 1.1
+    resid = y[mid] - g10 * ref10[mid]
+    assert np.sqrt(np.mean(resid ** 2)) < 0.05 * np.sqrt(
+        np.mean(ref10[mid] ** 2))
+
+
+def test_tone_roundtrip():
+    x = _tone(12.0)
+    y, _ = tf.resample(x, SFREQ, 200.0, device=CPU)
+    z, _ = tf.resample(y, 200.0, SFREQ)
+    z = z.numpy()
+    mid = slice(N // 8, min(z.shape[-1], N) - N // 8)
+    assert np.max(np.abs(z[mid] - x[mid])) < 0.02
+
+
+def test_resample_float32_positions_fault_in_both_packages():
+    """1000 -> 300 Hz takes the any-ratio route; its output positions are
+    float32 in both packages (``ninwavelets_tpu/ops/filtering.py:148``),
+    so past about 2^21 oversampled samples the cubic is evaluated at the
+    wrong fraction.  A 100 Hz tone shows it over the interior 80%."""
+    errs = {}
+    for n in (20_000, 600_000):
+        x = _tone(100.0, n=n, sfreq=1000.0)
+        y, _ = tf.resample(x, 1000.0, 300.0, device=CPU)
+        yj = np.asarray(jf.resample(x, 1000.0, 300.0)[0])
+        _close(y, yj)
+        exact = np.sin(2 * np.pi * 100.0 * np.arange(y.shape[-1]) / 300.0)
+        mid = slice(y.shape[-1] // 10, -(y.shape[-1] // 10))
+        errs[n] = (np.abs(y.numpy()[mid] - exact[mid]).max(),
+                   np.abs(yj[mid] - exact[mid]).max())
+    assert all(e < 2e-3 for e in errs[20_000]), errs
+    assert all(e > 1e-3 for e in errs[600_000]), errs
