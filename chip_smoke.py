@@ -449,6 +449,64 @@ extensions_bench.py``):
    ``StreamingCWT(use_fused=False)`` (1e-5).  Then each user call of these
    paths timed as in 46.
 
+Slice 11, the decompositions (``decomposition_phase``; plain torch, no
+kernel of its own), at the JAX bench's shapes
+(``benchmarks/extensions_bench.py``):
+
+49. Each call timed: the median host time of 5 runs after a warm-up, the
+   input renewed before each run, with its peak memory: ``matching_pursuit``
+   on 8 x 4 x 1024, 20 atoms (``:358``); ``irasa`` on 16 x 60,000
+   (``:368``; 1/f^2 noise plus a 10 Hz tone); ``emd`` on 64 x 2048, 6 IMFs,
+   and ``eemd`` with 64 ensembles of 2048 samples (``:377-390``);
+   ``cp_decompose`` rank 3 on 64 x 100 x 512, 100 sweeps (``:392``);
+   ``cycle_features`` on 64 x 4096 (``:400``); ``hmm_fit`` on 8 x 6000 x
+   12, K = 4, 50 iterations (``:411``; frames sampled from a 4-state HMM);
+   ``specparam`` of 64 spectra, 500 steps (``:749``); ``vmd`` and ``ewt``
+   on 4096 samples, 3 modes (``:784-795``).  Each call runs under TF32
+   allowed and not, with identical results (gate 0: the products of
+   ``cp_decompose``, ``hmm_fit`` and ``mp_tfr`` run in
+   ``fp32_matmul("exact")``; the rest has none).  No kernel may launch
+   during these calls.
+50. Each result against the port's own CPU run of the same input (the CPU
+   run is tied to JAX by ``tests/test_torch_*.py``), with the draws made on
+   the card handed to the CPU (``_eemd_from_noise``, ``_cp_from_factors``,
+   ``_hmm_from_perms``): the spectra, modes, features and the CP fit at
+   1e-5 of the max; the CP model (``cp_reconstruct``) at 1e-4 and its
+   weights and factors at 1e-3 (a rank-3 model of |noise| is ill-posed:
+   ALS drifts along flat directions of the fit by round-off, 1.9e-4 of a
+   factor's max in the first run, while the fit agreed to 2.4e-7);
+   ``emd`` on 8 rows and the 64 realizations of ``eemd`` sifted on both,
+   each row within 1e-4 of its max|x| for all but one row in eight (an
+   extremum that compares two samples within round-off can flip and
+   change every later sifting of its row: 1 of 64 realizations did in the
+   first runs), the averaged EEMD IMFs printed; the atoms of
+   ``matching_pursuit`` equal in scale and frequency, at most one sample
+   apart in time (a wide atom's correlation peak is flat), the rest within
+   1e-4; the HMM on 2 sequences at JAX's sharded gates (gamma 1e-4, means
+   1e-3 absolute, log-likelihood rtol 1e-5, the paths equal);
+   ``specparam`` (500 Adam steps) at the CPU tests' default-steps gates.
+   Known answers: EMD and EEMD completeness (atol 2e-5), the energies of
+   the atoms plus the residual's summing to the signal's (1e-4), the IRASA
+   exponent of the 1/f^2 rows (within 0.35) and their 10 Hz peak, its
+   parts summing to the PSD (1e-6), the CP fit of an exact rank-3 tensor
+   above 0.999, the median cycle frequency of a 10 Hz rhythm within 0.5
+   Hz, an HMM log-likelihood trace that never decreases (beyond 1e-5
+   relative), specparam's exponent within 0.15 of the planted 1.2 and its
+   largest peak within 1 Hz of 10 Hz, the VMD centers near 5 and 25 Hz and
+   the EWT modes summing to the signal.
+51. The adapter paths at full width, the counters zeroed before and read
+   after each one's first call: ``EpochsWavelet.cp_power`` "cfn" (K1
+   "power" once) and "efn" (K4 "power_each" once), ``specparam`` (K1
+   "power" once) and ``matching_pursuit`` (no kernel) on the serving data;
+   ``RawWavelet.states`` (its delta band starts at 1 Hz, whose halo needs
+   a window of 16384 minus twice it to reach K4: "power_each" once per
+   window batch) and ``specparam`` (window 11524, 7 launches) and
+   ``irasa`` / ``psd`` (no kernel) on the 64 x 600,000 recording; nothing
+   else may launch; each TF32 on and off identical and timed as in 49 with
+   its peak memory; sanity of each
+   result (finite; fits in [0, 1]; the HMM trace non-decreasing; IRASA's
+   parts summing to the PSD within 1e-6 of its max).
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -3320,12 +3378,26 @@ def stat_call(name, fn, fresh, card):
     the warm-up and give the peak memory.  Then the median host time of 5
     runs (3 for a call over 1 s), ``fresh()`` giving new input values
     before each, called an even number of times.  Returns the result."""
+    return timed_call(name, fn, fresh, card, slow_reps=3)[0]
+
+
+def timed_call(name, fn, fresh, card, slow_reps=None):
+    """``stat_call``'s measurement: two warm-up runs under the float32
+    matmul precision "high" (TF32 allowed) and "highest", whose results
+    must be identical and which must leave the caller's setting as they
+    found it, the launches of the first run and the peak memory of both;
+    then the median host time of REPS runs (``slow_reps`` when a warm-up
+    run took over 1 s), ``fresh()`` giving new input values before each
+    and called an even number of times.  Returns (result, launches,
+    median ms)."""
     import torch
-    prev = torch.get_float32_matmul_precision()
+    from ninwavelets_tpu_torch import kernels
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    outs, first = [], []
+    before = dict(kernels.launches)
+    prev = torch.get_float32_matmul_precision()
+    outs, first, counts = [], [], None
     for setting in ("high", "highest"):
         torch.set_float32_matmul_precision(setting)
         try:
@@ -3338,11 +3410,15 @@ def stat_call(name, fn, fresh, card):
             torch.set_float32_matmul_precision(prev)
         check(after == setting, f"{name}: the matmul precision {setting!r} "
               f"came back as {after!r}")
+        if counts is None:
+            counts = {k: v - before.get(k, 0)
+                      for k, v in kernels.launches.items()
+                      if v != before.get(k, 0)}
     peak = torch.cuda.max_memory_allocated()
     ok = same_result(*outs)
     print(f"check {name} TF32 on / off: identical {ok} (gate: identical)")
     check(ok, f"{name}: TF32 on and off differ")
-    reps = 3 if min(first) > 1.0 else REPS
+    reps = slow_reps if slow_reps and min(first) > 1.0 else REPS
     times = []
     for _ in range(reps):
         fresh()
@@ -3353,10 +3429,11 @@ def stat_call(name, fn, fresh, card):
         times.append((time.perf_counter() - t0) * 1e3)
     if reps % 2:
         fresh()      # an even count: a negating fresh() leaves the input
-    print(f"time {name}: {sorted(times)[reps // 2]} ms (median of {reps}); "
-          f"peak {peak} bytes allocated, {peak - held} above the {held} "
-          f"held before the call, on {card}")
-    return outs[1]
+    ms = sorted(times)[reps // 2]
+    print(f"time {name}: {ms} ms (median of {reps}); peak {peak} bytes "
+          f"allocated, {peak - held} above the {held} held before the "
+          f"call, on {card}")
+    return outs[1], counts, ms
 
 
 def negate(*adapters):
@@ -4067,6 +4144,427 @@ def transforms_phase(data):
     print(f"transforms phase {time.perf_counter() - t_phase} s")
 
 
+# -- slice 11: the decompositions -------------------------------------------
+
+DEC_CPU_ROWS = 4
+EMD_CPU_ROWS = 8
+HMM_K, HMM_D = 4, 12
+
+
+def close(name, got, ref, gate=POWER_RTOL, scale=None):
+    """max|d| <= gate x ``scale`` (default max|ref|), on the host."""
+    import torch
+    got = torch.as_tensor(got).detach().cpu().double()
+    ref = torch.as_tensor(ref).detach().cpu().double()
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
+          f"{tuple(ref.shape)}")
+    check(bool(got.isfinite().all()), f"{name}: non-finite values")
+    scale = ref.abs().max().item() if scale is None else scale
+    err = (got - ref).abs().max().item()
+    print(f"check {name}: max|d| {err}, / scale {err / scale} (gate "
+          f"{gate})")
+    check(err <= gate * scale, f"{name}: {err / scale} > {gate}")
+
+
+def rows_agree(name, got, ref, x):
+    """Rows of IMFs (R, M, N) on the card against the CPU's: a row agrees
+    when it is within 1e-4 of its signal's max|x|; all rows but one in
+    eight must.  An extremum that compares two samples within round-off
+    can flip between the two and change every later sifting of its
+    row."""
+    import torch
+    got = got.detach().cpu().double()
+    ref = ref.double()
+    d = (got - ref).abs().flatten(1).amax(-1)
+    scale = torch.from_numpy(np.abs(x)).double().flatten(1).amax(-1)
+    ok = d <= 1e-4 * scale
+    need = len(ok) - len(ok) // 8
+    print(f"check {name}: card vs CPU, {int(ok.sum())} of {len(ok)} rows "
+          f"within 1e-4 of max|x| (gate >= {need}); max|d| / max|x| "
+          f"{(d / scale).max().item()}")
+    check(int(ok.sum()) >= need and bool(got.isfinite().all()),
+          f"{name}: {int(ok.sum())} rows agree")
+
+
+def fractal_rows(rows, n, seed):
+    """1/f^2 rows (a detrended random walk) plus a 10 Hz tone at 500 Hz:
+    ``tests/test_irasa.py``'s signal."""
+    rng = np.random.default_rng(seed)
+    w = np.cumsum(rng.standard_normal((rows, n)), -1)
+    w -= w[:, :1] + (w[:, -1:] - w[:, :1]) * np.linspace(0.0, 1.0, n)
+    t = np.arange(n) / 500.0
+    return (5.0 * w / np.abs(w).max(-1, keepdims=True)
+            + 0.8 * np.sin(2 * np.pi * 10.0 * t)).astype(np.float32)
+
+
+def hmm_frames(b, t, seed):
+    """(b, t, HMM_D) frames sampled from a sticky HMM_K-state chain."""
+    rng = np.random.default_rng(seed)
+    means = 1.5 * rng.standard_normal((HMM_K, HMM_D))
+    a = np.full((HMM_K, HMM_K), 0.02 / (HMM_K - 1))
+    np.fill_diagonal(a, 0.98)
+    s = np.zeros((b, t), np.int64)
+    s[:, 0] = rng.integers(0, HMM_K, b)
+    u = rng.random((b, t))
+    cum = np.cumsum(a, 1)
+    for i in range(1, t):
+        s[:, i] = (u[:, i, None] > cum[s[:, i - 1]]).sum(-1).clip(
+            max=HMM_K - 1)
+    return (means[s] + 0.8 * rng.standard_normal((b, t, HMM_D))).astype(
+        np.float32)
+
+
+def decomposition_phase(data):
+    """Slice 11: the decompositions (Welch / IRASA, specparam, EWT, VMD,
+    EMD / EEMD, matching pursuit, CP / PARAFAC, cycle features, HMM
+    states) at the JAX package's bench shapes, each against the port's own
+    CPU run and the known answers, timed with its peak memory, no kernel
+    launched; then the adapter paths at full width, whose power rides K1
+    and K4 (launches printed and required).  Plain torch but for those
+    kernels: nothing joins the kernels' record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch.ops.cpd import (_cp_from_factors,
+                                               cp_decompose, cp_reconstruct)
+    from ninwavelets_tpu_torch.ops.cycles import cycle_features
+    from ninwavelets_tpu_torch.ops.emd import _eemd_from_noise, eemd, emd
+    from ninwavelets_tpu_torch.ops.ewt import ewt
+    from ninwavelets_tpu_torch.ops.hmm import _hmm_from_perms, hmm_fit
+    from ninwavelets_tpu_torch.ops.irasa import aperiodic_fit, irasa
+    from ninwavelets_tpu_torch.ops.mp import matching_pursuit
+    from ninwavelets_tpu_torch.ops.specparam import specparam
+    from ninwavelets_tpu_torch.ops.vmd import vmd
+    from ninwavelets_tpu_torch.parallel.chunked import halo_samples
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(11)
+    launched = {}
+
+    def none_launched(name, counts):
+        launched.update(counts)
+        check(not counts, f"{name} launched {counts}")
+
+    # -- matching pursuit (extensions_bench.py:358) ---------------------------
+    xh = gen.standard_normal((8, 4, 1024), dtype=np.float32)
+    x = torch.from_numpy(xh).cuda()
+    res, counts, _ = timed_call(
+        "matching_pursuit 8 x 4 x 1024, 20 atoms, 250 Hz",
+        lambda: matching_pursuit(x, 20, 250.0), x.normal_, card)
+    none_launched("matching_pursuit", counts)
+    ref = matching_pursuit(torch.from_numpy(xh[0]), 20, 250.0, device="cpu")
+    for f in ("scale_s", "freq_hz"):
+        same = torch.equal(getattr(res, f)[0].cpu(), getattr(ref, f))
+        print(f"check matching_pursuit {f}: card == CPU {same}")
+        check(same, f"matching_pursuit {f} differs from the CPU run")
+    # a wide atom's correlation peak is flat: its neighbouring translations
+    # are within round-off of each other
+    shift = ((res.time_s[0].cpu() - ref.time_s).abs().max() * 250.0).item()
+    print(f"check matching_pursuit time_s: card vs CPU at most {shift} "
+          "samples apart (gate 1)")
+    check(shift <= 1.0 + 1e-3, f"matching_pursuit time_s {shift} samples")
+    for f in ("amplitude", "energy", "residual"):
+        close(f"matching_pursuit {f}: card vs CPU", getattr(res, f)[0],
+              getattr(ref, f), 1e-4)
+    x0 = torch.from_numpy(xh).cuda().double()
+    removed = res.energy.double().sum(-1) + res.residual.double().square(
+        ).sum(-1)
+    e_rel = ((removed - x0.square().sum(-1)).abs()
+             / x0.square().sum(-1)).max().item()
+    print(f"check matching_pursuit energies + residual energy = signal "
+          f"energy: max rel {e_rel} (gate 1e-4)")
+    check(e_rel <= 1e-4, f"matching_pursuit energy {e_rel}")
+    del x, x0, res
+
+    # -- IRASA (:368) ---------------------------------------------------------
+    xh = fractal_rows(16, 60_000, 3)
+    x = torch.from_numpy(xh).cuda()
+    res, counts, _ = timed_call("irasa 16 x 60,000, 500 Hz",
+                                 lambda: irasa(x, 500.0), x.neg_, card)
+    none_launched("irasa", counts)
+    ref = irasa(torch.from_numpy(xh[:2]), 500.0, device="cpu")
+    for f in ("psd", "fractal", "oscillatory"):
+        close(f"irasa {f}: card vs CPU", getattr(res, f)[:2],
+              getattr(ref, f), scale=ref.psd.abs().max().item())
+    close("irasa fractal + oscillatory vs psd", res.fractal
+          + res.oscillatory, res.psd, 1e-6)
+    _, chi = aperiodic_fit(res.freqs, res.fractal)
+    peak = res.freqs[res.oscillatory.argmax(-1)]
+    print(f"check irasa exponent of the 1/f^2 rows: {chi.min().item()} .. "
+          f"{chi.max().item()} (gate 2 +- 0.35); oscillatory peak "
+          f"{peak.min().item()} .. {peak.max().item()} Hz (gate 10 +- 0.5)")
+    check(bool(((chi - 2.0).abs() < 0.35).all()), "irasa exponent")
+    check(bool(((peak - 10.0).abs() < 0.5).all()), "irasa peak")
+    del x, res
+
+    # -- EMD / EEMD (:377-390) ------------------------------------------------
+    xh = gen.standard_normal((64, 2048), dtype=np.float32)
+    x = torch.from_numpy(xh).cuda()
+    (imfs, resid), counts, _ = timed_call(
+        "emd 64 x 2048, 6 IMFs", lambda: emd(x, n_imfs=6), x.normal_, card)
+    none_launched("emd", counts)
+    x0 = torch.from_numpy(xh).cuda()
+    done = (imfs.sum(-2) + resid - x0).abs().max().item()
+    print(f"check emd completeness: max|sum(imfs) + residual - x| {done} "
+          "(gate 2e-5)")
+    check(done <= 2e-5, f"emd completeness {done}")
+    ri, _ = emd(torch.from_numpy(xh[:EMD_CPU_ROWS]), n_imfs=6,
+                device="cpu")
+    rows_agree("emd imfs", imfs[:EMD_CPU_ROWS], ri, xh[:EMD_CPU_ROWS])
+    e1 = torch.from_numpy(xh[0]).cuda()
+    (ei, er), counts, _ = timed_call(
+        "eemd 2048 samples, 6 IMFs, 64 ensembles",
+        lambda: eemd(e1, n_imfs=6, n_ensembles=64), e1.normal_, card)
+    none_launched("eemd", counts)
+    noise = torch.randn((64, 1, 2048), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    e0 = torch.from_numpy(xh[:1]).cuda()
+    ci, cr = _eemd_from_noise(e0, noise, n_imfs=6, n_siftings=10,
+                              spline="natural", noise_strength=0.2)
+    done = (ci.sum(-2) + cr - e0).abs().max().item()
+    print(f"check eemd completeness: {done} (gate 2e-5)")
+    check(done <= 2e-5, f"eemd completeness {done}")
+    # the ensemble's realizations, sifted on the card and on the CPU
+    ens = (e0 + 0.2 * e0.std(-1, correction=0, keepdim=True) * noise)[:, 0]
+    ei, _ = emd(ens, n_imfs=6)
+    hi, _ = emd(ens.cpu(), n_imfs=6, device="cpu")
+    rows_agree("eemd realizations", ei, hi, ens.cpu().numpy())
+    hi, _ = _eemd_from_noise(e0.cpu(), noise.cpu(), n_imfs=6, n_siftings=10,
+                             spline="natural", noise_strength=0.2)
+    d = (ci.cpu() - hi).abs().max().item() / float(np.abs(xh[0]).max())
+    print(f"eemd imfs (the card's noise): card vs CPU max|d| / max|x| {d} "
+          "(not gated: the mean over the realizations above)")
+    del x, x0, imfs, resid, e1, ei, er, ci, cr, noise
+
+    # -- CP / PARAFAC (:392) --------------------------------------------------
+    xh = np.abs(gen.standard_normal((64, 100, 512), dtype=np.float32))
+    x = torch.from_numpy(xh).cuda()
+    (w, facs, fit), counts, _ = timed_call(
+        "cp_decompose rank 3, 64 x 100 x 512, 100 sweeps",
+        lambda: cp_decompose(x, 3, n_iter=100),
+        lambda: x.normal_().abs_(), card)
+    none_launched("cp_decompose", counts)
+    x.copy_(torch.from_numpy(xh))
+    f0 = [torch.randn((s, 3), device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(m)) for m, s in enumerate(xh.shape)]
+    w, facs, fit = _cp_from_factors(x, f0, n_iter=100, nonneg=False,
+                                    ridge=1e-6)
+    wr, fr, fitr = _cp_from_factors(torch.from_numpy(xh),
+                                    [f.cpu() for f in f0], n_iter=100,
+                                    nonneg=False, ridge=1e-6)
+    close("cp fit: card vs CPU", fit, fitr, scale=1.0)
+    close("cp model (cp_reconstruct): card vs CPU", cp_reconstruct(w, facs),
+          cp_reconstruct(wr, fr), 1e-4)
+    # a rank-3 model of |noise| is ill-posed: its components drift along
+    # flat directions of the fit, where ALS accumulates round-off
+    close("cp weights: card vs CPU", w, wr, 1e-3)
+    for m in range(3):
+        close(f"cp factor {m}: card vs CPU", facs[m], fr[m], 1e-3)
+    planted = [torch.from_numpy(np.abs(gen.standard_normal(
+        (s, 3))).astype(np.float32) + 0.1).cuda() for s in xh.shape]
+    exact = cp_reconstruct(torch.tensor([3.0, 2.0, 1.0], device="cuda"),
+                           planted)
+    fit3 = float(cp_decompose(exact, 3, n_iter=100)[2])
+    print(f"check cp fit of an exact rank-3 tensor: {fit3} (gate > 0.999)")
+    check(fit3 > 0.999, f"cp exact fit {fit3}")
+    del x, w, facs, exact, planted, f0
+
+    # -- cycle features (:400) ------------------------------------------------
+    t = np.arange(4096) / SFREQ
+    xh = (np.sin(2 * np.pi * 10.0 * t)
+          + 0.1 * gen.standard_normal((64, 4096))).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    tab, counts, _ = timed_call(
+        "cycle_features 64 x 4096, 6-15 Hz",
+        lambda: cycle_features(x, SFREQ, (6.0, 15.0)), x.neg_, card)
+    none_launched("cycle_features", counts)
+    ref = cycle_features(torch.from_numpy(xh[:DEC_CPU_ROWS]), SFREQ,
+                         (6.0, 15.0), device="cpu")
+    for f, a, b in zip(tab._fields, tab, ref):
+        if a.dtype in (torch.bool, torch.int32):
+            same = torch.equal(a[:DEC_CPU_ROWS].cpu(), b)
+            print(f"check cycle_features {f}: card == CPU {same}")
+            check(same, f"cycle_features {f} differs from the CPU run")
+        else:
+            close(f"cycle_features {f}: card vs CPU", a[:DEC_CPU_ROWS], b)
+    valid = torch.arange(tab.freq_hz.shape[-1], device="cuda") \
+        < tab.n_cycles[:, None]
+    fmed = tab.freq_hz[valid].median().item()
+    print(f"check cycle_features median cycle frequency {fmed} Hz (gate "
+          "10 +- 0.5)")
+    check(abs(fmed - 10.0) < 0.5, f"cycle frequency {fmed}")
+    del x, tab, valid
+
+    # -- HMM states (:411) ----------------------------------------------------
+    xh = hmm_frames(8, 6000, 4)
+    x = torch.from_numpy(xh).cuda()
+    res, counts, hmm_ms = timed_call(
+        f"hmm_fit 8 x 6000 x {HMM_D}, K = {HMM_K}, 50 iterations",
+        lambda: hmm_fit(x, HMM_K, n_iter=50), x.neg_, card)
+    none_launched("hmm_fit", counts)
+    ll = res.loglik.double()
+    drop = (ll[:-1] - ll[1:]).clamp(min=0) / ll[1:].abs()
+    print(f"check hmm loglik trace: {ll[0].item()} -> {ll[-1].item()}, "
+          f"largest relative drop {drop.max().item()} (gate 1e-5)")
+    check(drop.max().item() <= 1e-5 and ll[-1] > ll[0], "hmm loglik trace")
+    perms = torch.randperm(2 * 6000, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    two = torch.from_numpy(xh[:2])
+    rc = _hmm_from_perms(two.cuda(), perms[None], n_states=HMM_K, n_iter=50,
+                         stickiness=0.9)
+    rh = _hmm_from_perms(two, perms[None].cpu(), n_states=HMM_K, n_iter=50,
+                         stickiness=0.9)
+    close("hmm gamma (2 sequences): card vs CPU", rc.gamma, rh.gamma, 1e-4,
+          1.0)
+    close("hmm means: card vs CPU", rc.means, rh.means, 1e-3, 1.0)
+    close("hmm loglik: card vs CPU", rc.loglik, rh.loglik, 1e-5,
+          rh.loglik.abs().max().item())
+    same = torch.equal(rc.states.cpu(), rh.states)
+    print(f"check hmm Viterbi paths: card == CPU {same}")
+    check(same, "hmm Viterbi paths differ from the CPU run")
+    del x, res, rc, rh
+
+    # -- specparam (:749) -----------------------------------------------------
+    sp_f = np.linspace(2.0, 60.0, 117)
+    xh = (10.0 / sp_f[None, :] ** 1.2
+          + 2.0 * np.exp(-0.5 * ((sp_f[None, :] - 10.0) / 1.5) ** 2)
+          + 0.05 * gen.random((64, sp_f.size))).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    fit, counts, sp_ms = timed_call(
+        "specparam 64 spectra x 117 freqs, 500 steps",
+        lambda: specparam(x, sp_f, n_steps=500), lambda: x.mul_(1.001),
+        card)
+    none_launched("specparam", counts)
+    ref = specparam(torch.from_numpy(xh), sp_f, n_steps=500, device="cpu")
+    close("specparam model: card vs CPU", fit.model, ref.model, 5e-3)
+    close("specparam exponent: card vs CPU", fit.exponent, ref.exponent,
+          2e-3)
+    close("specparam r2: card vs CPU", fit.r_squared, ref.r_squared, 1e-4,
+          1.0)
+    top = np.take_along_axis(fit.centers, fit.amplitudes.argmax(-1)[:, None],
+                             -1)[:, 0]
+    print(f"check specparam exponent {fit.exponent.min()} .. "
+          f"{fit.exponent.max()} (gate 1.2 +- 0.15), largest peak "
+          f"{top.min()} .. {top.max()} Hz (gate 10 +- 1)")
+    check(bool((np.abs(fit.exponent - 1.2) < 0.15).all()),
+          "specparam exponent")
+    check(bool((np.abs(top - 10.0) < 1.0).all()), "specparam peak")
+    del x
+
+    # -- VMD and EWT (:784-795) -----------------------------------------------
+    t = np.arange(4096) / 250.0
+    xh = (np.sin(2 * np.pi * 5 * t) + np.sin(2 * np.pi * 25 * t)
+          + 0.1 * gen.standard_normal(4096)).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    (modes, centers), counts, _ = timed_call(
+        "vmd 4096 samples, 3 modes, 200 iterations",
+        lambda: vmd(x, 250.0, n_modes=3), x.neg_, card)
+    none_launched("vmd", counts)
+    rm, rc = vmd(torch.from_numpy(xh), 250.0, n_modes=3, device="cpu")
+    close("vmd modes: card vs CPU", modes, rm)
+    close("vmd centers: card vs CPU", centers, rc)
+    cen = sorted(centers.tolist())
+    print(f"check vmd centers {cen} (two within 1 Hz of 5 and 25 Hz)")
+    check(min(abs(c - 5.0) for c in cen) < 1.0
+          and min(abs(c - 25.0) for c in cen) < 1.0, f"vmd centers {cen}")
+    (modes, bounds), counts, _ = timed_call(
+        "ewt 4096 samples, 3 modes", lambda: ewt(x, 250.0, n_modes=3),
+        x.neg_, card)
+    none_launched("ewt", counts)
+    rm, rb = ewt(torch.from_numpy(xh), 250.0, n_modes=3, device="cpu")
+    check(np.array_equal(bounds, rb), f"ewt boundaries {bounds} != {rb}")
+    close("ewt modes: card vs CPU", modes, rm)
+    close("ewt modes sum to the signal", modes.sum(-2), x)
+    del x, modes
+
+    # -- the adapter paths at full width --------------------------------------
+    freqs = np.arange(1.0, F + 1.0)
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ),
+                          nt.Morse(SFREQ, interpolate=True, device="cuda"))
+    rec = recording(2)
+    rw = nt.RawWavelet(ArrayRaw(rec), nt.Morse(
+        SFREQ, interpolate=True, device="cuda"), window=REC_WINDOW,
+        batch=REC_BATCH)
+    n_batches = -(-REC_N // (REC_WINDOW * REC_BATCH))
+    # states' delta band starts at 1 Hz, whose halo is about twice 2 Hz's:
+    # the window that extends to 16384 (K4) is shorter
+    morse_s = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    st_window = (REC_EXT - 2 * halo_samples(morse_s._wdef(), 1.0, SFREQ)) \
+        // 2 * 2
+    rw_s = nt.RawWavelet(ArrayRaw(rec), morse_s, window=st_window,
+                         batch=REC_BATCH)
+    st_batches = -(-REC_N // (st_window * REC_BATCH))
+    shape = f"{E} x {C} x {N} x {F}"
+    adapter = {}
+
+    def path(name, fn, fresh, want):
+        out, counts, ms = timed_call(name, fn, fresh, card)
+        adapter[name] = counts
+        check(counts == want, f"{name} launched {counts}, want {want}")
+        return out, ms
+
+    (w, facs, fit), _ = path(
+        f"EpochsWavelet.cp_power cfn rank 3 ({shape})",
+        lambda: ew.cp_power(freqs, 3), negate(ew), {"power": 1})
+    print(f"check cp_power cfn: fit {float(fit)}, factor shapes "
+          f"{[tuple(f.shape) for f in facs]}")
+    check(0.0 < float(fit) <= 1.0, f"cp_power cfn fit {float(fit)}")
+    (w, facs, fit), _ = path(
+        f"EpochsWavelet.cp_power efn rank 3, ch0 ({shape})",
+        lambda: ew.cp_power(freqs, 3, tensor="efn", ch_name="ch0"),
+        negate(ew), {"power_each": 1})
+    check(0.0 < float(fit) <= 1.0, f"cp_power efn fit {float(fit)}")
+    fit, ep_sp_ms = path(f"EpochsWavelet.specparam ch0 ({shape}), 2000 "
+                         "steps", lambda: ew.specparam("ch0", freqs),
+                         negate(ew), {"power": 1})
+    print(f"check EpochsWavelet.specparam: exponent {fit.exponent}, r2 "
+          f"{fit.r_squared}")
+    check(bool(np.isfinite(fit.model).all()), "specparam model")
+    res, _ = path(f"EpochsWavelet.matching_pursuit ch0 ({E} x {N}), 20 "
+                  "atoms", lambda: ew.matching_pursuit("ch0"), negate(ew),
+                  {})
+    check(bool(res.residual.isfinite().all()), "matching_pursuit residual")
+    del ew, res
+    torch.cuda.empty_cache()
+
+    rshape = f"{REC_C} x {REC_N}"
+    res, states_ms = path(
+        f"RawWavelet.states K = 4 ({rshape}, 16 rows, window {st_window}, "
+        "50 iterations)", lambda: rw_s.states(), negate(rw_s),
+        {"power_each": st_batches})
+    ll = res.loglik.double()
+    drop = ((ll[:-1] - ll[1:]).clamp(min=0) / ll[1:].abs()).max().item()
+    print(f"check RawWavelet.states: {tuple(res.gamma.shape)} gamma, "
+          f"{tuple(res.means.shape)} means, loglik {ll[0].item()} -> "
+          f"{ll[-1].item()}, largest relative drop {drop} (gate 1e-5)")
+    check(drop <= 1e-5 and bool(res.gamma.isfinite().all()),
+          "RawWavelet.states")
+    rec_freqs = np.linspace(2.0, 100.0, REC_F)
+    fit, raw_sp_ms = path(
+        f"RawWavelet.specparam ({rshape} x {REC_F}), 2000 steps",
+        lambda: rw.specparam(rec_freqs), negate(rw),
+        {"power_each": n_batches})
+    check(fit.exponent.shape == (REC_C,) and bool(np.isfinite(
+        fit.r_squared).all()), "RawWavelet.specparam")
+    res, _ = path(f"RawWavelet.irasa ({rshape})", lambda: rw.irasa(),
+                  negate(rw), {})
+    close("RawWavelet.irasa fractal + oscillatory vs psd", res.fractal
+          + res.oscillatory, res.psd, 1e-6)
+    (pf, pp), _ = path(f"RawWavelet.psd ({rshape})", lambda: rw.psd(),
+                       negate(rw), {})
+    check(pp.shape == (REC_C, 513) and bool(np.isfinite(pp).all()),
+          "RawWavelet.psd")
+    print(f"decomposition adapter launches {adapter}, on {card}")
+    print(f"decomposition phase {time.perf_counter() - t_phase} s; "
+          f"hmm_fit {hmm_ms} ms, RawWavelet.states {states_ms} ms, "
+          f"specparam (500 steps, 64 spectra) {sp_ms} ms, "
+          f"EpochsWavelet.specparam {ep_sp_ms} ms, RawWavelet.specparam "
+          f"{raw_sp_ms} ms")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4226,6 +4724,10 @@ def main() -> int:
 
     # -- slice 10: the other transforms ----------------------------------------
     transforms_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 11: the decompositions -----------------------------------------
+    decomposition_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

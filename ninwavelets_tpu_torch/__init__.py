@@ -24,7 +24,12 @@ of single-trial planes, and the other transforms (MODWT / DWT and
 shrinkage, wavelet packets, the 2-D DWT, zero-phase filters and
 resampling, the S-transform and the directional 2-D CWT in ``ops``, with
 ``EpochsWavelet.tfr_power2d`` / ``modwt_denoise`` and
-``RawWavelet.filter`` / ``resample``).  On a
+``RawWavelet.filter`` / ``resample``), and the decompositions (Welch and
+IRASA, specparam, EWT, VMD, EMD / EEMD, matching pursuit, CP / PARAFAC,
+cycle features and HMM states in ``ops``, with
+``EpochsWavelet.specparam`` / ``cp_power`` / ``matching_pursuit`` /
+``cycles`` / ``psd`` and ``RawWavelet.states`` / ``specparam`` /
+``irasa`` / ``psd``).  On a
 CUDA tensor the epoch reductions (for real and complex banks) and the
 per-signal power run the fused kernels of ``csrc/fused_cwt.cu``, the power's
 gradient the fused backward of ``csrc/fused_cwt_bwd.cu`` (real and complex

@@ -1,6 +1,7 @@
-"""Carry a wavelet and its bank across from the JAX package.
+"""Carry a wavelet, its bank and fitted results across from the JAX package.
 
-A wavelet's "weights" are its hyper-parameters and its (F, N) bank.  Both are
+A wavelet's "weights" are its hyper-parameters and its (F, N) bank; a fitted
+HMM or a matching-pursuit decomposition is a tuple of arrays.  All are
 read here as plain Python and numpy values, so this module imports neither
 ``jax`` nor ``ninwavelets_tpu``: hand it the JAX object or arrays, or anything
 with the same attributes.
@@ -17,6 +18,8 @@ import torch
 from .device import resolve_device
 from .models import zoo
 from .ops.bank import WaveletMode
+from .ops.hmm import HMMResult
+from .ops.mp import MPResult
 
 _CLASSES = {cls.__name__: cls for cls in
             (zoo.Morse, zoo.MorseMNE, zoo.Morlet, zoo.MexicanHat,
@@ -69,3 +72,23 @@ def bank_from_jax(bank_r, bank_i=None, device=None) -> torch.Tensor:
         return torch.from_numpy(real.copy()).to(device)
     bank = real + 1j * np.asarray(bank_i, dtype=np.float32)
     return torch.from_numpy(bank.astype(np.complex64)).to(device)
+
+
+def _result_from_jax(cls, res, device):
+    device = resolve_device(device)
+    return cls(*(torch.from_numpy(np.array(getattr(res, f))).to(device)
+                 for f in cls._fields))
+
+
+def hmm_result_from_jax(res, device=None) -> HMMResult:
+    """The port's ``ops.hmm.HMMResult`` with the fields of a JAX-package
+    ``HMMResult`` (or anything with the same attributes) as tensors on
+    ``device`` (the card when None): a fitted model for ``ops.viterbi``."""
+    return _result_from_jax(HMMResult, res, device)
+
+
+def mp_result_from_jax(res, device=None) -> MPResult:
+    """The port's ``ops.mp.MPResult`` with the fields of a JAX-package
+    ``MPResult`` as tensors on ``device`` (the card when None): atoms for
+    ``ops.mp_tfr``."""
+    return _result_from_jax(MPResult, res, device)

@@ -17,7 +17,15 @@ confidence bounds, oscillatory bursts), the Paul / DOG / Bump spectra,
 multitaper Morse spectrograms and superlets, and the other transforms: the
 MODWT / DWT with wavelet variance and shrinkage, wavelet packets and best
 bases, the 2-D DWT, zero-phase filters and FFT resampling, the S-transform
-and the directional 2-D CWT.
+and the directional 2-D CWT, and the decompositions: Welch spectra and
+IRASA, specparam, the empirical wavelet transform, (multivariate) VMD with
+instantaneous attributes and the Hilbert spectrum, EMD / EEMD, matching
+pursuit, CP / PARAFAC, cycle-by-cycle features and HMM states.
+
+As in the JAX package, ``ops.ewt`` and ``ops.vmd`` are the submodules: the
+transforms are ``empirical_wavelet_transform``,
+``variational_mode_decomposition`` and ``empirical_mode_decomposition``
+(``ops.emd`` is the submodule too).
 """
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
                    make_time_wavelet, pad_spectrum_to)
@@ -35,7 +43,9 @@ from .cluster import (ClusterResult, TfceResult, cluster_mass,
                       max_stat_test_regression, t_independent, t_one_sample,
                       t_regression, t_threshold, tfce_map,
                       tfce_test_independent, tfce_test_one_sample)
+from .cpd import cp_decompose, cp_reconstruct
 from .cwt2d import cwt2, morlet2d_bank, pow2_pad2, power2d
+from .cycles import CycleTable, cycle_features
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
                   itc_from_bank, mean_power_from_bank, power_from_bank)
 from .connectivity import (PAC_METHODS, PHASE_LAG_METHODS,
@@ -63,7 +73,11 @@ from .dwt import (imodwt, max_level, modwt, modwt_corr, modwt_cov,
                   modwt_denoise, modwt_mra, modwt_var, modwt_var_ci,
                   pow2_pad, wavedec, waverec, wavelet_filter)
 from .dwt2d import dwt2, idwt2, max_level2, wavedec2, waverec2
+from .emd import eemd
+from .emd import emd as empirical_mode_decomposition
 from .envelope import env_corr_matrix, env_corr_matrix_from_bank
+from .ewt import ewt_boundaries, ewt_filterbank, ewt_reconstruct
+from .ewt import ewt as empirical_wavelet_transform
 from .extensions import (ar1_filter, bicoherence, bicoherence_from_banks,
                          bump_spectrum, cfd, cfd_from_banks,
                          coherence_from_sums, coherence_sums,
@@ -96,7 +110,10 @@ from .fused import (fused_coherence, fused_coherence_sums,
                     fused_ssq_mean_power, fused_ssq_power_from_bank,
                     itc_auto, mean_power_auto, mean_power_bwd, power_auto,
                     power_itc_auto, supports, supports_ssq)
+from .hmm import HMMResult, hmm_fit, viterbi
 from .icwt import coverage, icwt_from_bank
+from .irasa import IrasaResult, aperiodic_fit, irasa, welch_psd
+from .mp import MPResult, gabor_dictionary, matching_pursuit, mp_tfr
 from .multitaper import (morse_taper_def, multitaper_banks,
                          multitaper_coherence_matrix, multitaper_mean_power,
                          multitaper_partial_coherence, multitaper_power,
@@ -104,6 +121,8 @@ from .multitaper import (morse_taper_def, multitaper_banks,
 from .reassign import reassigned_mean_power, reassigned_power
 from .ridge import (extract_modes, extract_modes_ri, extract_ridge,
                     ridge_frequencies)
+from .specparam import (SpectralFit, aperiodic_model, peaks_model,
+                        specparam)
 from .signal_utils import (SizeError, hamming_window, interpolate_alias,
                            normalize, pad_last_axis_to, pad_to)
 from .sst import (ssq_mean_power, ssq_mean_power_from_bank, ssq_power,
@@ -111,5 +130,7 @@ from .sst import (ssq_mean_power, ssq_mean_power_from_bank, ssq_power,
 from .stockwell import istockwell, stockwell
 from .superlets import (superlet_banks, superlet_mean_power, superlet_power,
                         superlet_power_from_banks, superlet_weights)
+from .vmd import hilbert_spectrum, instantaneous, mvmd
+from .vmd import vmd as variational_mode_decomposition
 from .wpt import (best_basis, best_basis_reconstruct, imodwpt, modwpt,
                   node_band)

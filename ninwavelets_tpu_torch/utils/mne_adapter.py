@@ -34,7 +34,14 @@ run the kernels); ``RawWavelet.filter``, ``resample``, ``modwt_denoise``
 and ``modwt_var``, which return host numpy, as the JAX package's do.  A continuous recording streams through ``parallel.StreamingCWT`` in
 overlap-discard windows; ``RawWavelet.epochs`` cuts event-locked windows
 out of it into an ``EpochsWavelet``, whose epoch reductions then run the
-kernels (``epoch_power``, ``itc``).  Both need only the duck-typed MNE
+kernels (``epoch_power``, ``itc``).  The decompositions are plain torch
+on top of the planes: ``EpochsWavelet.specparam`` (the time mean of
+``power``, K1 on the card), ``cp_power`` (``power_all`` for "cfn", K1;
+``single_trial_power(_all)`` for "efn" / "ecfn", K4), ``cycles``,
+``matching_pursuit`` and ``psd``; ``RawWavelet.states`` and ``specparam``
+(``power``, K4 where the extended window is at most 16384), ``irasa`` and
+``psd``.  ``psd``, ``_welch_of`` and the ``SpectralFit`` of ``specparam``
+are host numpy, as in the JAX package.  Both need only the duck-typed MNE
 surface ``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
 """
 from __future__ import annotations
@@ -58,18 +65,55 @@ from ..ops import graph as _graph
 from ..ops.baseline import _correct, _tf_stats, baseline_tf
 from ..ops.bursts import burst_summary, burst_table
 from ..ops.cwt import cwt_from_bank
+from ..ops.cpd import cp_decompose
 from ..ops.cwt2d import pow2_pad2, power2d
+from ..ops.cycles import cycle_features
 from ..ops.dwt import pow2_pad
 from ..ops.fused import itc_auto, mean_power_auto, power_auto, power_itc_auto
 from ..ops.envelope import env_corr_matrix
+from ..ops.hmm import hmm_fit
+from ..ops.irasa import irasa as _irasa
+from ..ops.irasa import welch_psd
+from ..ops.mp import matching_pursuit as _mp
 from ..ops.multitaper import (multitaper_coherence_matrix,
                               multitaper_mean_power,
                               multitaper_partial_coherence)
 from ..ops.signal_utils import pad_to
 from ..ops.reassign import reassigned_mean_power
+from ..ops.specparam import specparam as _specparam
 from ..ops.sst import ssq_mean_power
 from ..ops.superlets import superlet_mean_power
 from ..parallel.streaming import StreamingCWT
+
+
+def _welch_of(data, ch_names, sfreq, picks, nperseg, band,
+              epoch_mean=False, device=None):
+    """Welch PSD for the adapters (``ops.irasa.welch_psd`` on ``device``):
+    channels picked on the host, ``nperseg`` clamped to the largest power
+    of two that fits the record (the JAX package's frequency grid),
+    optionally the epoch mean and a band crop; ``(freqs, psd)`` as host
+    numpy."""
+    if picks is not None:
+        data = data[..., [ch_names.index(ch) for ch in picks], :]
+    n = data.shape[-1]
+    seg = 1 << min(int(nperseg).bit_length() - 1, int(n).bit_length() - 1)
+    if seg < 4:
+        raise ValueError(f"record too short for Welch PSD (N={n})")
+    psd = welch_psd(np.ascontiguousarray(data), sfreq=float(sfreq),
+                           nperseg=seg, device=device)
+    if epoch_mean and psd.ndim == 3:
+        psd = psd.mean(0)
+    freqs = np.arange(seg // 2 + 1) * float(sfreq) / seg
+    psd = psd.cpu().numpy()
+    if band is not None:
+        lo, hi = float(band[0]), float(band[1])
+        keep = (freqs >= lo) & (freqs <= hi)
+        if not keep.any():
+            raise ValueError(f"band {band} outside the PSD grid "
+                             f"(0..{freqs[-1]:g} Hz)")
+        psd = psd[..., keep]
+        freqs = freqs[keep]
+    return freqs, psd
 
 
 class EpochsWavelet:
@@ -453,6 +497,78 @@ class EpochsWavelet:
                                factor, min_area)
         return burst_summary(trials, threshold, self.wavelet.sfreq, step,
                              factor, min_area)
+
+    # -- decompositions -------------------------------------------------------
+
+    def specparam(self, ch_name: str, freqs: Numbers, max_peaks: int = 4,
+                  fit_knee: bool = False, **kw):
+        """FOOOF-style spectral fit (``ops.specparam``) of the channel's
+        time-averaged epoch-mean power (``power``, the "power" kernel on the
+        card): a host ``SpectralFit``."""
+        power = self.power(ch_name, freqs).mean(-1)
+        return _specparam(power, np.asarray(freqs, np.float64),
+                          max_peaks=max_peaks, fit_knee=fit_knee, **kw)
+
+    def psd(self, picks=None, nperseg: int = 1024, band=None,
+            average: bool = True):
+        """``(freqs, psd)``: the Welch power spectral density
+        (``ops.irasa.welch_psd``; Hamming, 50% overlap, density scaling) as
+        host numpy, the (C, F) epoch mean (``average=True``) or (E, C, F);
+        ``band=(lo, hi)`` Hz crops the frequency axis.  The segment length
+        is clamped to the largest power of two that fits the epoch."""
+        return _welch_of(self._host_data(), self.epochs.ch_names,
+                         self.wavelet.sfreq, picks, nperseg, band,
+                         epoch_mean=average, device=self.wavelet.device)
+
+    def cycles(self, ch_name: str, f_range, **kw):
+        """Cycle-by-cycle waveform features of one channel
+        (``ops.cycles``, bycycle): a ``CycleTable`` of per-epoch padded
+        (E, K) features and burst flags; the thresholds pass through to
+        ``cycle_features``."""
+        return cycle_features(self._channel_data(ch_name),
+                              self.wavelet.sfreq, f_range, **kw)
+
+    def cp_power(self, freqs: Numbers, rank: int, tensor: str = "cfn",
+                 ch_name=None, nonneg=None, n_iter: int = 100,
+                 seed: int = 0, baseline=None,
+                 baseline_method: str = "zscore", decim: int = 1):
+        """Rank-R PARAFAC model (``ops.cpd``) of a power tensor:
+        ``"cfn"`` (channel x freq x time of the epoch-mean power,
+        ``power_all``), ``"efn"`` (epoch x freq x time of ``ch_name``,
+        ``single_trial_power``) or ``"ecfn"`` (4-way single-trial,
+        ``single_trial_power_all``).  Returns ``(weights, factors, fit)``.
+        ``nonneg`` defaults True for raw power and False under a
+        ``baseline`` (signed tensors); ``nonneg=True`` with a baseline
+        raises."""
+        if nonneg is None:
+            nonneg = baseline is None
+        elif nonneg and baseline is not None:
+            raise ValueError(
+                "nonneg=True with a baseline correction: baselined "
+                "power is signed and HALS would clamp the negative "
+                "half; pass nonneg=False (or drop the baseline)")
+        if tensor == "cfn":
+            x = self.power_all(freqs, baseline, baseline_method, decim)
+        elif tensor == "efn":
+            if ch_name is None:
+                raise ValueError("tensor='efn' needs ch_name")
+            x = self.single_trial_power(ch_name, freqs, baseline,
+                                        baseline_method, decim)
+        elif tensor == "ecfn":
+            x = self.single_trial_power_all(freqs, baseline,
+                                            baseline_method, decim)
+        else:
+            raise ValueError("tensor must be 'cfn', 'efn' or 'ecfn'")
+        return cp_decompose(x, rank, n_iter=n_iter, nonneg=nonneg,
+                            seed=seed)
+
+    def matching_pursuit(self, ch_name: str, n_atoms: int = 20,
+                         scales_s=None, freqs=None):
+        """Per-epoch greedy Gabor decomposition of one channel
+        (``ops.mp``): an ``MPResult`` of (E, n_atoms) atom parameters and
+        the (E, N) residuals; render with ``ops.mp_tfr``."""
+        return _mp(self._channel_data(ch_name), n_atoms, self.wavelet.sfreq,
+                   scales_s=scales_s, freqs=freqs)
 
     # -- synchrosqueezing ---------------------------------------------------
 
@@ -1172,6 +1288,63 @@ class RawWavelet:
         numpy as in the JAX package."""
         padded, _ = pow2_pad(self._picked([ch_name])[0])
         return _dwt.modwt_var(padded, wavelet, level).cpu().numpy()
+
+    # -- decompositions -------------------------------------------------------
+
+    def irasa(self, band=(1.0, 40.0), picks=None, hset=None,
+              nperseg: int = 1024):
+        """Fractal / oscillatory split of each channel's Welch spectrum
+        (``ops.irasa``): an ``IrasaResult`` of (C, Fb) tensors on the
+        wavelet's device; ``ops.aperiodic_fit`` gives its 1/f exponent."""
+        return _irasa(self._picked(picks), self.wavelet.sfreq,
+                            band=band, hset=hset, nperseg=nperseg)
+
+    def psd(self, picks=None, nperseg: int = 1024, band=None):
+        """``(freqs, psd)``: the (C, F) Welch power spectral density of the
+        recording as host numpy (``ops.irasa.welch_psd``; ``band=(lo, hi)``
+        Hz crops; the segment length is clamped to a power of two)."""
+        return _welch_of(self._host_data(), self.raw.ch_names,
+                         self.wavelet.sfreq, picks, nperseg, band,
+                         device=self.wavelet.device)
+
+    def states(self, n_states: int = 4,
+               bands=((1.0, 4.0), (4.0, 8.0), (8.0, 13.0), (13.0, 30.0)),
+               picks=None, decim=None, n_iter: int = 50,
+               stickiness: float = 0.9, seed: int = 0):
+        """Recurring spectral states of the recording (``ops.hmm``): the
+        per-channel log band-power envelopes of ``power`` (4 rows a band,
+        averaged; decimated to about 20 Hz unless ``decim`` is given),
+        z-scored, segmented by a K-state Gaussian HMM.  Returns the
+        ``HMMResult``: ``means`` rows are the state profiles over the
+        (channel x band) features, ``states`` / ``gamma`` the decoded time
+        course at the decimated rate."""
+        bands = [(float(lo), float(hi)) for lo, hi in bands]
+        rows = 4                       # freq rows averaged per band
+        freqs = np.concatenate([np.linspace(lo, hi, rows)
+                                for lo, hi in bands]).astype(np.float32)
+        p = self.power(freqs, picks)                     # (C, F, N)
+        c, _, n = p.shape
+        if decim is None:
+            decim = max(1, int(self.wavelet.sfreq // 20))
+        nt = n // decim
+        p = p[:, :, :nt * decim].reshape(c, len(bands), rows, nt, decim)
+        p = p.mean((2, 4))                               # (C, B, nt)
+        feats = torch.log(p + 1e-12).reshape(c * len(bands), nt).T
+        feats = ((feats - feats.mean(0))
+                 / (feats.std(0, correction=0) + 1e-6))
+        return hmm_fit(feats, n_states, n_iter=n_iter,
+                       stickiness=stickiness, seed=seed)
+
+    def specparam(self, freqs: Numbers, picks=None, max_peaks: int = 4,
+                  fit_knee: bool = False, **kw):
+        """FOOOF-style spectral fit (``ops.specparam``) of the recording's
+        time-averaged ``power``, batched over channels; the mean is taken
+        on the device, so only the (C, F) spectra cross to the host for
+        the seeding.  A host ``SpectralFit`` whose leading axis is the
+        channels."""
+        power = self.power(freqs, picks=picks).mean(-1)
+        return _specparam(power, np.asarray(freqs, np.float64),
+                          max_peaks=max_peaks, fit_knee=fit_knee, **kw)
 
     # -- event-locked epochs -------------------------------------------------
 
