@@ -507,6 +507,64 @@ kernel of its own), at the JAX bench's shapes
    result (finite; fits in [0, 1]; the HMM trace non-decreasing; IRASA's
    parts summing to the PSD within 1e-6 of its max).
 
+Slice 12, sensor-space preprocessing and decoding (``sensor_space_phase``;
+plain torch, every product in ``fp32_matmul("exact")``, no kernel of its
+own), at the JAX bench's shapes (``benchmarks/extensions_bench.py``):
+
+52. Each call timed as in 49, TF32 allowed and not identical, no kernel
+   launched: ``fastica`` on 64 x 250,000 Laplace samples, 100 iterations
+   (``:419-424``; its ms a step printed: one K x K ``eigh`` and its host
+   sync a step); ``ssd`` and ``csp_decode`` (9-13 Hz, 5 folds) on 64 + 64
+   x 64 x 2048 at 1 kHz with an 11 Hz rhythm on channel 0 of one class and
+   63 of the other (``:473-495``); ``find_bad_channels`` and
+   ``ledoit_wolf`` on 64 x 120,000 (``:599-613``; a flat channel 7 and a
+   noisy 30); ``asr_process`` on 64 x 150,000 at 250 Hz, calibrated on the
+   first 30,000 samples (``:632-639``; eight rank-one bursts), and its
+   batched ``eigh`` of 2421 64 x 64 matrices alone by CUDA events;
+   ``tangent_decode`` and ``mdm_decode`` on 80 x 32 x 512 (``:641-656``);
+   ``autoreject_global`` on 128 x 64 x 1024 with a transient in every 16th
+   trial (``:680-687``); ``trf_fit`` on 64 x 250,000, 64 lags, a kernel
+   planted in 4 channels (``:714-721``); ``ssvep_cca`` on 200 x 8 x 1000
+   at 250 Hz with planted stimulus frequencies (``:731-737``); ``csd`` on
+   64 x 120,000 (``:898-907``); ``tf_decode`` on 24 + 24 x 8 x 30 x 256
+   (``:935-942``); ``xdawn`` on 32 x 100,000, 200 events with a planted
+   response (``:945-958``).
+53. Each result against the port's own CPU run of the same input (tied to
+   JAX by ``tests/test_torch_*.py``): FastICA on 6 x 25,000 mixed sources
+   well apart in non-Gaussianity from the card's draw
+   (``_fastica_from_w0``), converged below 5e-6 on both, at 1e-4; values at 1e-5 of the max (the ASR output of max|x|, on
+   the samples only agreeing windows cover, at least 95% of the windows
+   agreeing); filters and patterns at the eigenvector gate (1e-5 + 1e-6 x
+   max|lam| / gap, xDAWN up to sign); the autoreject grid within 2 ulps
+   and its decisions equal; the AUCs by the near-tie rule of
+   ``tests/test_torch_riemann_decoding.py``; SSVEP labels equal where the
+   winner leads by 1e-5.  Known answers: the planted bad channels, SSD's
+   top pattern on channel 0, CSP AUC above 0.95, the covariance decoders
+   above 0.95, the planted trials dropped, the TRF kernel recovered (r >
+   0.99), SSVEP accuracy above 0.9, CSD blind to a reference shift,
+   xDAWN's top ratio 3x the next, ASR shrinking the bursts 4x.
+54. The adapter chain over a 64-EEG + EOG recording, 250,000 samples at
+   250 Hz (``sensor_recording``: a flat and a noisy electrode, blinks
+   mixed into frontal channels, eight bursts, a stimulus driving central
+   channels, events every 2.1 s whose code 2 adds an 11 Hz burst 0.2-0.6
+   s after onset on posterior channels): ``find_bad_channels``,
+   ``interpolate_bads``, ``ica(n_components=20)``, ``ica_find_bads(ref=
+   "EOG")``, ``ica_clean``, ``asr_clean``, ``trf``, ``epochs`` (512
+   samples), ``regress_out(["EOG"]).drop_bad()``, ``split``, ``decode``
+   (100 rows, decim 1) and ``decode_generalization`` (K4 "power_each"
+   twice each), ``csp_decode``, ``riemann_decode`` (tangent and MDM, on
+   the 64 channels and on 4 GED components), ``ged``, ``ssd``,
+   ``spatial_epochs(ged).power_all`` (K1 "power" once); nothing else may
+   launch; each timed as in 52.  Known answers: the two planted bad
+   channels and no other EEG channel, the blink's |r| with the EOG on the
+   frontal channels falling below 0.3 of its value, the bursts halved,
+   TRF r above 0.3 on the driven channels and below 0.15 elsewhere, the
+   AUC peak in 9-13 Hz and 0.2-0.6 s, the diagonal of the generalization
+   matrix peaking there, CSP above 0.8, the GED components' Riemannian
+   decoders above 0.6, SSD's top pattern on the posterior channels.  Then
+   the serving data split 100 / 100 through ``decode`` (5.2 GB of planes a
+   class; K4 twice; its peak printed; noise AUC mean 0.5 +- 0.02).
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -3357,7 +3415,7 @@ def planted(data):
 
 def same_result(a, b):
     """Bit-for-bit equality of two results (tensors, arrays, tuples, lists,
-    dicts, numbers)."""
+    dicts, numbers, ``EpochsWavelet`` adapters by their data)."""
     import torch
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
@@ -3368,6 +3426,10 @@ def same_result(a, b):
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(same_result(a[k], b[k])
                                             for k in a)
+    if hasattr(a, "_host_data") and hasattr(a, "epochs"):
+        # two EpochsWavelet adapters: their trials and channels
+        return (same_result(a._host_data(), b._host_data())
+                and list(a.epochs.ch_names) == list(b.epochs.ch_names))
     return a == b
 
 
@@ -4565,6 +4627,720 @@ def decomposition_phase(data):
           f"{raw_sp_ms} ms")
 
 
+# -- slice 12: sensor-space preprocessing and decoding ------------------------
+
+SENSOR_SF = 250.0
+CHAIN_C, CHAIN_N = 64, 250_000
+CHAIN_TMIN, CHAIN_TMAX = -0.5, 1.544          # 512-sample epochs at 250 Hz
+CHAIN_STEP = 2.1                              # s between events
+CHAIN_FLAT, CHAIN_NOISY = 5, 20
+TIE_MARGIN = 1e-5
+
+
+def near_tie_slack(sa, sb, tr_a, tr_b):
+    """Per output cell, the most a fold-mean AUC can move by held-out pairs
+    whose two scores are within TIE_MARGIN of the fold's largest |score|
+    (each worth 1 / (na nb)): ``tests/test_torch_riemann_decoding.py``'s
+    rule."""
+    import torch
+    out = 0.0
+    for f in range(tr_a.shape[0]):
+        a = sa[f][tr_a[f] == 0]
+        b = sb[f][tr_b[f] == 0]
+        scale = torch.cat([a.abs().flatten(), b.abs().flatten()]).max()
+        step = max(1, (1 << 28) // max(b.numel() * 4, 1))
+        close = sum(((a[i:i + step, None] - b[None]).abs()
+                     <= TIE_MARGIN * scale).sum((0, 1)).double()
+                    for i in range(0, a.shape[0], step))
+        out = out + close / (a.shape[0] * b.shape[0])
+    return (out / tr_a.shape[0]).cpu().numpy()
+
+
+def auc_agree(name, got, ref, slack):
+    """AUCs on the card against the CPU run's: equal (1e-6) where no pair
+    is near a tie, else within the near-tie pairs' worth; at least 90% of
+    the cells sound."""
+    import torch
+    got = torch.as_tensor(got).detach().cpu().double().numpy()
+    ref = torch.as_tensor(ref).detach().cpu().double().numpy()
+    slack = np.broadcast_to(slack, ref.shape)
+    d = np.abs(got - ref)
+    sound = float((slack == 0).mean())
+    print(f"check {name}: card vs CPU max|d| {d.max()} (gate 1e-6 + near-tie "
+          f"slack, max slack {slack.max()}), sound cells {sound} (gate 0.9)")
+    check(sound >= 0.9 and bool((d <= 1e-6 + slack).all()),
+          f"{name}: AUCs differ beyond the near-tie rule")
+
+
+def lda_slack(xa, xb, scores, n_folds=5, lam=1e-3):
+    from ninwavelets_tpu_torch.ops import decoding as dec
+    tr_a = dec._fold_masks(xa.shape[0], n_folds, xa.device)
+    tr_b = dec._fold_masks(xb.shape[0], n_folds, xb.device)
+    sa, sb = [], []
+    for f in range(n_folds):
+        w = dec._lda_weights(xa, xb, tr_a[f], tr_b[f], lam)
+        sa.append(scores(xa, w))
+        sb.append(scores(xb, w))
+    return near_tie_slack(sa, sb, tr_a, tr_b)
+
+
+def eig_gaps(spectrum):
+    v = np.asarray(spectrum, np.float64)
+    return (np.abs(v[:, None] - v[None, :])
+            + np.diag(np.full(v.size, np.inf))).min(1)
+
+
+def cols_agree(name, got, ref, spectrum, pick):
+    """Columns at the eigenvector gate of their eigenvalue: 1e-5 + 1e-6 x
+    max|lam| / gap_k of the column's max (``tests/test_torch_spatial.py``);
+    the gaps asserted above 1e-3 of the spectrum's range."""
+    import torch
+    spectrum = np.asarray(torch.as_tensor(spectrum).cpu(), np.float64)
+    gaps = eig_gaps(spectrum)[pick]
+    gate = 1e-5 + 1e-6 * np.abs(spectrum).max() / gaps
+    got = torch.as_tensor(got).detach().cpu().double().numpy()
+    ref = torch.as_tensor(ref).detach().cpu().double().numpy()
+    d = np.abs(got - ref).max(0) / np.abs(ref).max(0)
+    print(f"check {name}: card vs CPU per column max|d| / max {d} (gates "
+          f"{gate}; gaps / range {gaps / np.ptp(spectrum)})")
+    check(bool((gaps > 1e-3 * np.ptp(spectrum)).all() and (d <= gate).all()),
+          f"{name}: columns differ beyond the eigenvector gate")
+
+
+def signed_rows(got, ref):
+    import torch
+    got = torch.as_tensor(got).detach().cpu()
+    ref = torch.as_tensor(ref).detach().cpu()
+    return got * torch.sign((got * ref).sum(1, keepdim=True))
+
+
+def asr_split_gaps(x, keep, win):
+    """(W,) each ASR window's nearest distance between a kept and a
+    rejected eigenvalue of its covariance, relative to its largest (inf
+    where nothing or everything is rejected), from the card's frames as
+    ``ops.asr._process_jit`` forms them."""
+    import torch
+    hop = win // 2
+    xc = x - x.mean(-1, keepdim=True)
+    fr = torch.nn.functional.pad(xc, (hop, win)).unfold(-1, win, hop)
+    hann = 0.5 - 0.5 * torch.cos(2.0 * torch.pi * (torch.arange(
+        win, device=x.device, dtype=torch.float32) + 0.5) / win)
+    frw = fr.transpose(0, 1) * hann
+    cov = frw @ frw.transpose(1, 2)
+    d = torch.linalg.eigvalsh(0.5 * (cov + cov.transpose(1, 2))).double()
+    pair = (d[:, :, None] - d[:, None, :]).abs()
+    mask = keep[:, :, None] & ~keep[:, None, :]
+    pair = torch.where(mask, pair, torch.full_like(pair, float("inf")))
+    return (pair.amin((1, 2)) / d.abs().amax(-1)).cpu().numpy()
+
+
+def sensor_positions(c):
+    """(c, 3) unit vectors over the upper hemisphere, a golden-angle spiral
+    from the vertex to the rim (y is front-to-back)."""
+    k = np.arange(c) + 0.5
+    z = 1.0 - k / c
+    r = np.sqrt(1.0 - z * z)
+    phi = k * np.pi * (3.0 - np.sqrt(5.0))
+    return np.stack([r * np.cos(phi), r * np.sin(phi), z], 1)
+
+
+def sensor_recording(seed=0, n=CHAIN_N):
+    """64 EEG + EOG at 250 Hz with planted ground truth: a volume-conducted
+    background (shared 6 Hz, slow drift and broadband sources with
+    positive gains), a flat electrode and a noisy one, blinks on the EOG
+    channel mixed into the frontal channels, eight high-amplitude bursts,
+    a stimulus whose response (a 0-0.25 s kernel) drives eight central
+    channels, and events every 2.1 s alternating codes 1 and 2, code 2
+    adding an 11 Hz burst 0.2-0.6 s after the event on the posterior
+    channels.  Returns (data (65, n) float32, names, positions (65, 3),
+    truth dict)."""
+    rng = np.random.default_rng(seed)
+    sf, c = SENSOR_SF, CHAIN_C
+    t = np.arange(n) / sf
+    pos = sensor_positions(c)
+    front = np.argsort(-pos[:, 1])[:6]
+    post = np.argsort(pos[:, 1])[:12]
+    central = np.argsort(np.abs(pos[:, 1]) + np.abs(pos[:, 0]))[:8]
+    x = 10.0 * rng.standard_normal((c + 1, n))
+    sources = np.stack([np.sin(2 * np.pi * 6.0 * t),
+                        np.sin(2 * np.pi * 0.7 * t + 1.0),
+                        rng.standard_normal(n)])
+    x[:c] += (rng.uniform(0.5, 1.0, (c, 3)) * [8.0, 5.0, 8.0]) @ sources
+    onsets = np.arange(int(2 * sf), n - int(3 * sf), int(CHAIN_STEP * sf))
+    codes = np.where(np.arange(onsets.size) % 2, 2, 1)
+    burst = np.zeros(n)
+    for o in onsets[codes == 2]:
+        burst[o + int(0.2 * sf):o + int(0.6 * sf)] = 1.0
+    x[post] += 10.0 * burst * np.sin(2 * np.pi * 11.0 * t)
+    blink = np.zeros(n)
+    for c0 in rng.integers(int(sf), n - int(sf), int(n / sf // 4)):
+        blink[c0:c0 + 50] += np.hanning(50)
+    x[c] = 150.0 * blink + 5.0 * rng.standard_normal(n)
+    x[front] += np.linspace(0.6, 0.2, front.size)[:, None] * 80.0 * blink
+    stim = np.convolve(rng.standard_normal(n), np.hanning(9), "same")
+    stim = (stim / stim.std()).astype(np.float32)
+    tk = np.arange(int(0.25 * sf)) / sf
+    kern = np.sin(2 * np.pi * tk / 0.25) * np.exp(-tk / 0.08)
+    x[central] += 2.0 * np.convolve(stim, kern)[:n]
+    art = rng.choice(np.arange(10 * int(sf), n - 10 * int(sf), int(sf)), 8,
+                     replace=False)
+    for s in art:
+        d = rng.standard_normal(c)
+        x[:c, s:s + 125] += 400.0 * (d / np.linalg.norm(d))[:, None] \
+            * np.hanning(125)
+    x[CHAIN_FLAT] = 1e-4 * rng.standard_normal(n)
+    x[CHAIN_NOISY] *= 60.0
+    names = [f"EEG{i:03d}" for i in range(c)] + ["EOG"]
+    eog_pos = np.array([[0.0, 0.95, 0.3]]) / np.linalg.norm([0.0, 0.95, 0.3])
+    truth = dict(onsets=onsets, codes=codes, front=front, post=post,
+                 central=central, stim=stim, artifacts=art)
+    return (x.astype(np.float32), names, np.concatenate([pos, eog_pos]),
+            truth)
+
+
+class NamedRaw:
+    """A duck-typed ``mne.io.Raw`` with its own rate and channel names."""
+
+    def __init__(self, data, sfreq, names):
+        self._data = data
+        self.info = {"sfreq": sfreq}
+        self.ch_names = list(names)
+
+    def get_data(self):
+        return self._data
+
+
+def sensor_chain(rec, names, pos, truth, device, freqs, call):
+    """The full-width adapter chain: channel QC, spline repair, ICA against
+    the EOG, ASR, TRF, event-locked epochs split by condition, EOG
+    regression and autoreject, TF decoding and temporal generalization
+    (K4), CSP / Riemannian decoding, GED, SSD and the components' power
+    (K1).  ``call(name, fn, fresh, want)`` runs one step (``want``: the
+    kernel launches it must make on the card) and returns its result.
+    Returns the results to check."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    sf = SENSOR_SF
+    out = {}
+
+    def raw(data):
+        return nt.RawWavelet(NamedRaw(data, sf, names),
+                             nt.Morse(sf, device=device))
+
+    rw = raw(rec)
+    qc = call("RawWavelet.find_bad_channels", rw.find_bad_channels,
+              negate(rw), {})
+    out["qc"] = qc
+    eeg_bads = [b for b in qc["bads"] if b != "EOG"]
+    repaired = call("RawWavelet.interpolate_bads",
+                    lambda: rw.interpolate_bads(pos, eeg_bads), negate(rw),
+                    {})
+    rw2 = raw(repaired)
+    ica = call("RawWavelet.ica(n_components=20)",
+               lambda: rw2.ica(n_components=20), negate(rw2), {})
+    bads, scores = call("RawWavelet.ica_find_bads(ref='EOG')",
+                        lambda: rw2.ica_find_bads(ica, ref="EOG"),
+                        negate(rw2), {})
+    out["ica_bads"], out["ica_scores"] = bads, scores
+    cleaned = call("RawWavelet.ica_clean",
+                   lambda: rw2.ica_clean(ica, bads), negate(rw2), {})
+    eog = repaired[-1]
+    front = truth["front"]
+    out["blink_corr"] = [
+        float(np.abs([np.corrcoef(d[i], eog)[0, 1] for i in front]).max())
+        for d in (repaired, cleaned)]
+    rw3 = raw(cleaned)
+    # cutoff 20 (clean_rawdata's burst criterion): the planted 11 Hz burst
+    # is brain signal, the eight bursts are artifacts
+    asr = call("RawWavelet.asr_clean(cutoff=20)",
+               lambda: rw3.asr_clean(cutoff=20.0), negate(rw3), {})
+    out["asr"] = (cleaned, asr)
+    rw4 = raw(asr)
+    stim = truth["stim"]
+    trf = call("RawWavelet.trf (0-0.25 s)", lambda: rw4.trf(stim),
+               negate(rw4), {})
+    out["trf"] = trf
+    ew = call("RawWavelet.epochs", lambda: rw4.epochs(
+        truth["onsets"], CHAIN_TMIN, CHAIN_TMAX, codes=truth["codes"]),
+        lambda: None, {})
+    ew2 = call("EpochsWavelet.regress_out(['EOG']).drop_bad()",
+               lambda: ew.regress_out(["EOG"]).drop_bad(), negate(ew), {})
+    out["kept"] = (ew._host_data().shape[0], ew2._host_data().shape[0])
+    parts = ew2.split()
+    a, b = parts[2], parts[1]
+    out["decode"] = call(
+        f"EpochsWavelet.decode ({a._host_data().shape[0]} + "
+        f"{b._host_data().shape[0]} x {CHAIN_C} x {len(freqs)} x 512)",
+        lambda: a.decode(b, freqs), negate(a, b), {"power_each": 2})
+    out["decode_generalization"] = call(
+        "EpochsWavelet.decode_generalization (decim 4)",
+        lambda: a.decode_generalization(b, freqs), negate(a, b),
+        {"power_each": 2})
+    labels = ew2.event_codes
+    out["csp_decode"] = float(call(
+        f"EpochsWavelet.csp_decode (9-13 Hz), {CHAIN_C} channels",
+        lambda: ew2.csp_decode(labels, f_lo=9.0, f_hi=13.0), negate(ew2),
+        {}))
+    # the recording is rank-deficient after the spline repair and the ICA
+    # cleaning (the 64-channel CSP's bottom eigenvalues are its null
+    # directions): decode on 8 narrowband-vs-broadband GED components of
+    # all trials (no labels used), which the components' power rides K1
+    out["ged"] = call("EpochsWavelet.ged (9-13 Hz, 8 components)",
+                      lambda: ew2.ged(9.0, 13.0, n_components=8),
+                      negate(ew2), {})
+    comps = ew2.spatial_epochs(out["ged"])
+    out["csp_decode_ged"] = float(call(
+        "EpochsWavelet.csp_decode (9-13 Hz), 8 GED components",
+        lambda: comps.csp_decode(labels, f_lo=9.0, f_hi=13.0),
+        negate(comps), {}))
+    ca, cb = comps.split()[2], comps.split()[1]
+    for method in ("tangent", "mdm"):
+        out[f"{method}_ged"] = call(
+            f"EpochsWavelet.riemann_decode {method}, 8 GED components",
+            lambda: ca.riemann_decode(cb, method=method), negate(ca, cb), {})
+    out["ssd"] = call("EpochsWavelet.ssd (9-13 Hz)",
+                      lambda: a.ssd(9.0, 13.0, n_components=4), negate(a),
+                      {})
+    out["comp_power"] = call(
+        "EpochsWavelet.spatial_epochs(ged).power_all",
+        lambda: comps.power_all(freqs), negate(comps), {"power": 1})
+    out["post_idx"] = truth["post"]
+    return out
+
+
+def sensor_space_phase(data):
+    """Slice 12: sensor-space preprocessing and decoding (channel QC and
+    spline repair, ICA, ASR, regression and trial rejection, spatial
+    filters, TF / CSP / Riemannian decoding, SSVEP, TRF) at the JAX
+    package's bench shapes, each against the port's own CPU run and known
+    answers, timed with its peak memory, no kernel launched; then the
+    adapter chain over a 64-channel recording at full width, whose
+    ``decode`` / ``decode_generalization`` ride K4 and whose components'
+    ``power_all`` rides K1, and the serving data through ``decode``.
+    Plain torch but for those kernels: nothing joins the kernels'
+    record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch.ops import asr as asr_mod
+    from ninwavelets_tpu_torch.ops import csd as csd_mod
+    from ninwavelets_tpu_torch.ops import decoding as dec
+    from ninwavelets_tpu_torch.ops import ica as ica_mod
+    from ninwavelets_tpu_torch.ops import reject as rej
+    from ninwavelets_tpu_torch.ops import riemann as riem
+    from ninwavelets_tpu_torch.ops import spatial as sp
+    from ninwavelets_tpu_torch.ops.scattering import sym_eigh
+    from ninwavelets_tpu_torch.ops import trf as trf_mod
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(12)
+    times = {}
+
+    def bench(name, fn, fresh, slow_reps=None):
+        out, counts, ms = timed_call(name, fn, fresh, card, slow_reps)
+        check(not counts, f"{name} launched {counts}")
+        times[name] = ms
+        return out
+
+    def cpu(x):
+        return torch.as_tensor(x).detach().cpu()
+
+    # -- FastICA 64 x 250,000, 100 iterations (extensions_bench.py:419-424)
+    xh = gen.laplace(size=(64, 250_000)).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    res = bench("fastica 64 x 250,000, 100 iterations",
+                lambda: ica_mod.fastica(x, n_iter=100), x.neg_)
+    print(f"fastica convergence after 100 iterations "
+          f"{res.convergence[-1].item()}; "
+          f"{times['fastica 64 x 250,000, 100 iterations'] / 100} ms a step")
+    check(bool(res.sources.isfinite().all()), "fastica sources")
+    # card vs CPU: six sources well apart in non-Gaussianity (square,
+    # sawtooth, sine, Laplace, sparse spikes, exponential), the card's draw
+    # handed over, both converged to the metric's float32 floor
+    # (tests/test_torch_ica_asr.py's gate): short of it, 1 - cos(step) =
+    # 1e-5 is still a 4.5e-3 rad step
+    n_ica = 25_000
+    t_ica = np.arange(n_ica) / SENSOR_SF
+    src = np.stack([np.sign(np.sin(2 * np.pi * 1.3 * t_ica)),
+                    2.0 * ((2.1 * t_ica) % 1.0) - 1.0,
+                    np.sin(2 * np.pi * 0.9 * t_ica),
+                    gen.laplace(size=n_ica),
+                    (gen.random(n_ica) < 0.02) * 5.0
+                    * gen.standard_normal(n_ica),
+                    gen.exponential(size=n_ica) - 1.0])
+    xm = (gen.standard_normal((6, 6)) @ src).astype(np.float32)
+    w0 = torch.randn((6, 6), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(1))
+    rc = ica_mod._fastica_from_w0(torch.from_numpy(xm).cuda(), w0,
+                                  n_iter=300)
+    rh = ica_mod._fastica_from_w0(torch.from_numpy(xm), w0.cpu(), n_iter=300)
+    print(f"fastica 6 x 25,000 convergence: card {rc.convergence[-1].item()}"
+          f", CPU {rh.convergence[-1].item()} (gate 5e-6)")
+    check(max(rc.convergence[-1].item(), rh.convergence[-1].item()) < 5e-6,
+          "fastica did not converge")
+    for f in ("unmixing", "mixing", "sources"):
+        close(f"fastica {f}: card vs CPU", getattr(rc, f), getattr(rh, f),
+              1e-4)
+    del x, res, rc
+
+    # -- SSD and CSP decoding, 128 x 64 x 2048 at 1 kHz (:473-495) ----------
+    e_sp, c_sp, n_sp = 64, 64, 2048
+    t_sp = np.arange(n_sp) / SFREQ
+    osc = np.sin(2 * np.pi * 11.0 * t_sp[None, :]
+                 + gen.uniform(0, 2 * np.pi, (e_sp, 1)))
+    xa_h = (2.0 * np.eye(c_sp)[0][None, :, None] * osc[:, None, :]
+            + gen.standard_normal((e_sp, c_sp, n_sp))).astype(np.float32)
+    xb_h = (2.0 * np.eye(c_sp)[c_sp - 1][None, :, None] * osc[:, None, :]
+            + gen.standard_normal((e_sp, c_sp, n_sp))).astype(np.float32)
+    xa, xb = torch.from_numpy(xa_h).cuda(), torch.from_numpy(xb_h).cuda()
+    res = bench(f"ssd {e_sp} x {c_sp} x {n_sp}, 9-13 Hz, 8 components",
+                lambda: sp.ssd(xa, SFREQ, 9.0, 13.0, n_components=8), xa.neg_)
+    # card vs CPU in two steps: the band-filtered covariances (cuFFT
+    # against the CPU's FFT), then the GED of the card's covariances (the
+    # whitening amplifies the FFTs' round-off by the noise covariance's
+    # conditioning)
+    covs = []
+    for xx in (xa, torch.from_numpy(xa_h)):
+        xs = nt.ops.bandpass(xx, SFREQ, 9.0, 13.0)
+        xn = nt.ops.notch(nt.ops.bandpass(xx, SFREQ, 7.0, 15.0), SFREQ,
+                          11.0, 6.0)
+        covs.append((sp.covariance(xs), sp.covariance(xn)))
+    for k, nm in enumerate(("signal", "noise")):
+        close(f"ssd {nm} covariance: card vs CPU", covs[0][k], covs[1][k])
+    d, f, p = sp._ged_jit(*covs[0], n_components=64, shrink=0.01)
+    dh, fh, ph = sp._ged_jit(*(c.cpu() for c in covs[0]), n_components=64,
+                             shrink=0.01)
+    close("ssd: the card's result is the GED of its covariances",
+          res.eigvals, d[:8], 0.0, 1.0)
+    close("ssd eigenvalues (same covariances): card vs CPU", d, dh)
+    cols_agree("ssd top pattern (same covariances)", p[:, :1], ph[:, :1],
+               dh, [0])
+    top = int(res.patterns[:, 0].abs().argmax())
+    print(f"check ssd top pattern peaks at channel {top} (planted 0)")
+    check(top == 0, f"ssd top pattern at channel {top}")
+    auc = bench(f"csp_decode {2 * e_sp} x {c_sp} x {n_sp}, 5 folds, 9-13 Hz",
+                lambda: dec.csp_decode(xa, xb, f_lo=9.0, f_hi=13.0,
+                                       sfreq=SFREQ), xa.neg_)
+    ha, hb = torch.from_numpy(xa_h), torch.from_numpy(xb_h)
+    ref = dec.csp_decode(ha, hb, f_lo=9.0, f_hi=13.0, sfreq=SFREQ)
+    fa = nt.ops.bandpass(xa, SFREQ, 9.0, 13.0)
+    fb = nt.ops.bandpass(xb, SFREQ, 9.0, 13.0)
+    filt = dec._fold_ged_jit(dec._fold_covs_jit(fa, n_folds=5),
+                             dec._fold_covs_jit(fb, n_folds=5),
+                             n_components=4, shrink=0.01)
+    auc_agree("csp_decode AUC", auc, ref, near_tie_slack(
+        *dec._csp_fold_scores(fa, fb, filt, n_folds=5, lam=1e-3)))
+    print(f"check csp_decode AUC {float(auc)} (gate > 0.95)")
+    check(float(auc) > 0.95, f"csp_decode AUC {float(auc)}")
+    del xa, xb, fa, fb, ha, hb
+
+    # -- channel QC and Ledoit-Wolf, 64 x 120,000 (:599-613) ----------------
+    xh = gen.standard_normal((64, 120_000)).astype(np.float32)
+    xh += 0.8 * gen.standard_normal(120_000).astype(np.float32)
+    xh[7] = 1e-14
+    xh[30] *= 40.0
+    x = torch.from_numpy(xh).cuda()
+    qc = bench("find_bad_channels 64 x 120,000",
+               lambda: rej.find_bad_channels(x, SFREQ), x.neg_)
+    qh = rej.find_bad_channels(torch.from_numpy(xh), SFREQ)
+    print(f"check find_bad_channels: card {qc['bads']}, CPU {qh['bads']} "
+          "(planted flat 7, noisy 30)")
+    check(qc == qh and qc["bads"] == [7, 30], f"find_bad_channels {qc}")
+    (cov, alpha) = bench("ledoit_wolf 64 x 120,000",
+                         lambda: sp.ledoit_wolf(x), x.neg_)
+    covh, alphah = sp.ledoit_wolf(torch.from_numpy(xh))
+    close("ledoit_wolf cov: card vs CPU", cov, covh)
+    print(f"check ledoit_wolf shrinkage: card {alpha}, CPU {alphah}")
+    check(abs(alpha - alphah) <= 1e-5 * abs(alphah), "ledoit_wolf weight")
+    del x, cov
+
+    # -- ASR, 64 x 150,000 at 250 Hz (:632-639) ------------------------------
+    xh = gen.standard_normal((64, 150_000)).astype(np.float32)
+    art = np.arange(40_000, 140_000, 12_500)
+    for s in art:
+        d = gen.standard_normal(64)
+        xh[:, s:s + 125] += (30.0 * d[:, None] * np.hanning(125)).astype(
+            np.float32)
+    x = torch.from_numpy(xh).cuda()
+    model = asr_mod.asr_calibrate(x[:, :30_000], SENSOR_SF)
+    (out, keep) = bench("asr_process 64 x 150,000 at 250 Hz",
+                        lambda: asr_mod.asr_process(x, SENSOR_SF, model),
+                        x.neg_, slow_reps=3)
+    hmodel = asr_mod.ASRModel(*(cpu(v) for v in model))
+    outh, keeph = asr_mod.asr_process(torch.from_numpy(xh), SENSOR_SF, hmodel)
+    same = (keep.cpu() == keeph).all(-1).numpy()
+    print(f"check asr keep flags: card == CPU on {same.mean()} of "
+          f"{same.size} windows (gate 0.95: a window with an eigenvalue "
+          "within round-off of its limit may decide either way)")
+    check(same.mean() >= 0.95, "asr keep flags differ")
+    # a window's reconstruction turns with its eigenvectors, by about
+    # eps x max(d) / gap where gap is the nearest distance between a kept
+    # and a rejected eigenvalue: each sample is held to 1e-5 x max|x| x
+    # (1 + max(d) / gap) of the two windows covering it (windows that
+    # disagree left out)
+    gaps = asr_split_gaps(x, keep, 124)
+    gate = 1e-5 * (1.0 + 1.0 / gaps)
+    gate[~same] = np.inf
+    n_s = xh.shape[1]
+    sample_gate = np.zeros(n_s)
+    for w in range(gate.size):      # window w covers [62 w - 62, 62 w + 62)
+        lo, hi = max(0, 62 * w - 62), min(n_s, max(0, 62 * w + 62))
+        sample_gate[lo:hi] = np.maximum(sample_gate[lo:hi], gate[w])
+    mx = float(np.abs(xh).max())
+    err = (out.cpu() - outh).abs().amax(0).numpy() / mx
+    print(f"check asr output: card vs CPU max|d| / max|x| {err.max()}, "
+          f"worst against its window gate {(err / sample_gate).max()} (gate "
+          f"1; the median kept / rejected gap {np.median(gaps)})")
+    check(bool((err <= sample_gate).all()), "asr output beyond the gate")
+    seg = np.zeros(xh.shape[1], bool)
+    for s in art:
+        seg[s:s + 125] = True
+    before = float(np.abs(xh[:, seg]).mean())
+    after = out.cpu()[:, seg].abs().mean().item()
+    print(f"check asr: mean |x| on the artifacts {before} -> {after} (gate "
+          "< 0.25 x)")
+    check(after < 0.25 * before, "asr left the artifacts")
+    frw = torch.randn((2421, 64, 124), device="cuda")
+    covs = frw @ frw.transpose(1, 2)
+    sym_eigh(covs)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sym_eigh(covs)
+    stop.record()
+    torch.cuda.synchronize()
+    eig_ms = start.elapsed_time(stop)
+    print(f"time asr's batched eigh alone (2421 x 64 x 64, solved in "
+          f"float64 by ops.scattering.sym_eigh): {eig_ms} ms on {card}")
+    times["asr batched eigh"] = eig_ms
+    del x, out, frw, covs
+
+    # -- Riemannian decoding, 80 x 32 x 512 (:641-656) -----------------------
+    ra = gen.standard_normal((40, 32, 512)).astype(np.float32)
+    rb = gen.standard_normal((40, 32, 512)).astype(np.float32)
+    ra[:, 0] *= 2.5
+    rb[:, 1] *= 2.5
+    xa, xb = torch.from_numpy(ra).cuda(), torch.from_numpy(rb).cuda()
+    for name, fn in (("tangent_decode", riem.tangent_decode),
+                     ("mdm_decode", riem.mdm_decode)):
+        got = bench(f"{name} 80 x 32 x 512, 5 folds",
+                    lambda fn=fn: fn(xa, xb), xa.neg_)
+        want = fn(torch.from_numpy(ra), torch.from_numpy(rb))
+        print(f"check {name}: card {got}, CPU {want} (gate: equal within "
+              "1e-6 and > 0.95)")
+        check(abs(got - want) <= 1e-6 and got > 0.95, f"{name} {got}")
+    del xa, xb
+
+    # -- autoreject, 128 x 64 x 1024 (:680-687) -------------------------------
+    xh = gen.standard_normal((128, 64, 1024)).astype(np.float32)
+    xh[::16, 3, 100:160] += 40.0      # the bench plants 12: kept by the CV
+    x = torch.from_numpy(xh).cuda()
+    res = bench("autoreject_global 128 x 64 x 1024, 30 candidates, 5 folds",
+                lambda: rej.autoreject_global(x), x.neg_)
+    ref = rej.autoreject_global(torch.from_numpy(xh))
+    fin = ref.cv_error.isfinite()
+    close("autoreject thresholds: card vs CPU", res.thresholds,
+          ref.thresholds, 2.5e-7)
+    close("autoreject cv_error: card vs CPU", res.cv_error.cpu()[fin],
+          ref.cv_error[fin])
+    planted = np.zeros(128, bool)
+    planted[::16] = True
+    print(f"check autoreject: threshold card {res.threshold}, CPU "
+          f"{ref.threshold}; drops {int(res.drop_mask.sum())}, all planted "
+          f"{bool(res.drop_mask.cpu().numpy()[planted].all())}")
+    check(torch.equal(res.drop_mask.cpu(), ref.drop_mask)
+          and bool(res.drop_mask.cpu().numpy()[planted].all()),
+          "autoreject drop mask")
+    del x, res
+
+    # -- TRF, 64 x 250,000, 64 lags (:714-721) --------------------------------
+    stim_h = gen.standard_normal(250_000).astype(np.float32)
+    kern = (np.sin(2 * np.pi * np.arange(32) / 32)
+            * np.exp(-np.arange(32) / 12.0)).astype(np.float32)
+    resp_h = gen.standard_normal((64, 250_000)).astype(np.float32)
+    resp_h[:4] += np.convolve(stim_h, kern)[:250_000]
+    stim, resp = torch.from_numpy(stim_h).cuda(), torch.from_numpy(
+        resp_h).cuda()
+    res = bench("trf_fit 64 x 250,000, 64 lags",
+                lambda: trf_mod.trf_fit(stim, resp, range(0, 64)), resp.neg_)
+    ref = trf_mod.trf_fit(torch.from_numpy(stim_h), torch.from_numpy(resp_h),
+                          range(0, 64))
+    close("trf weights: card vs CPU", res.weights, ref.weights)
+    r = float(np.corrcoef(res.weights[0, 0, :32].cpu().numpy(), kern)[0, 1])
+    print(f"check trf kernel recovery: r {r} (gate > 0.99)")
+    check(r > 0.99, f"trf kernel r {r}")
+    del stim, resp, res
+
+    # -- SSVEP CCA, 200 x 8 x 1000 at 250 Hz (:731-737) ----------------------
+    stim_f = [8.0, 10.0, 12.0, 15.0]
+    lab = np.arange(200) % 4
+    t_sv = np.arange(1000) / SENSOR_SF
+    mix = gen.standard_normal(8)
+    xh = np.stack([0.4 * mix[:, None] * np.sin(2 * np.pi * stim_f[k] * t_sv)
+                   + gen.standard_normal((8, 1000)) for k in lab]).astype(
+        np.float32)
+    x = torch.from_numpy(xh).cuda()
+    labels, rho = bench("ssvep_cca 200 x 8 x 1000, 4 frequencies",
+                        lambda: dec.ssvep_cca(x, stim_f, SENSOR_SF), x.neg_)
+    lh, rhoh = dec.ssvep_cca(torch.from_numpy(xh), stim_f, SENSOR_SF)
+    close("ssvep rho: card vs CPU", rho, rhoh)
+    top2 = rhoh.sort(-1).values[:, -2:]
+    sound = (top2[:, 1] - top2[:, 0]) > 1e-5
+    acc = float((labels.cpu().numpy() == lab).mean())
+    print(f"check ssvep: labels card == CPU on {int(sound.sum())} trials "
+          f"with a margin; accuracy {acc} (gate > 0.9)")
+    check(torch.equal(labels.cpu()[sound], lh[sound]) and acc > 0.9,
+          "ssvep labels")
+    del x
+
+    # -- CSD, 64 x 120,000 (:898-907) -----------------------------------------
+    th = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    pos_ring = np.stack([np.cos(th) * 0.9, np.sin(th) * 0.9,
+                         np.full(64, 0.436)], 1)
+    xh = gen.standard_normal((64, 120_000)).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    out = bench("csd 64 x 120,000", lambda: csd_mod.csd(x, pos_ring), x.neg_)
+    close("csd: card vs CPU", out, csd_mod.csd(torch.from_numpy(xh),
+                                               pos_ring))
+    shifted = csd_mod.csd(x + 5.0, pos_ring)
+    close("csd of a re-referenced recording (+5 everywhere)", shifted, out,
+          1e-5, scale=out.abs().max().item())
+    del x, out, shifted
+
+    # -- tf_decode 48 x 8 x 30 x 256 (:935-942) -------------------------------
+    da = gen.standard_normal((24, 8, 30, 256)).astype(np.float32)
+    db = gen.standard_normal((24, 8, 30, 256)).astype(np.float32) + 0.3
+    xa, xb = torch.from_numpy(da).cuda(), torch.from_numpy(db).cuda()
+    auc = bench("tf_decode 24 + 24 x 8 x 30 x 256, 5 folds",
+                lambda: dec.tf_decode(xa, xb), xa.neg_)
+    ref = dec.tf_decode(torch.from_numpy(da), torch.from_numpy(db))
+    auc_agree("tf_decode map", auc, ref, lda_slack(xa, xb, dec._scores))
+    print(f"check tf_decode mean AUC {auc.mean().item()} (class b shifted "
+          "by 0.3 in all 8 channels, d' 0.85: about 0.73 with every trial "
+          "to train on; gate > 0.6)")
+    check(auc.mean().item() > 0.6, "tf_decode AUC")
+    del xa, xb
+
+    # -- xDAWN, 32 x 100,000, 200 events (:945-958) ---------------------------
+    xh = gen.standard_normal((32, 100_000)).astype(np.float32)
+    ev = np.sort(gen.choice(np.arange(200, 99_000), 200, replace=False))
+    wave = np.exp(-0.5 * ((np.arange(128) / SENSOR_SF - 0.3) / 0.06) ** 2)
+    topo = gen.standard_normal(32)
+    for s in ev:
+        xh[:, s:s + 128] += (topo[:, None] * wave).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    w, evoked, ratios = bench("xdawn 32 x 100,000, 200 events, window 128",
+                              lambda: sp.xdawn(x, ev, 128), x.neg_)
+    wh, evh, rh_ = sp.xdawn(torch.from_numpy(xh), ev, 128, n_components=32)
+    close("xdawn ratios: card vs CPU", ratios, rh_[:4])
+    cols_agree("xdawn top filter (up to sign)",
+               signed_rows(w[:1], wh[:1]).T, wh[:1].T, rh_, [0])
+    print(f"check xdawn top ratio {ratios[0].item()} > next "
+          f"{ratios[1].item()} x 3")
+    check(ratios[0].item() > 3 * ratios[1].item(), "xdawn ratios")
+    del x
+    torch.cuda.empty_cache()
+
+    # -- the adapter chain at full width --------------------------------------
+    rec, names, pos, truth = sensor_recording(3)
+    chain_freqs = np.linspace(2.0, 60.0, F)
+    launched = {}
+
+    def call(name, fn, fresh, want):
+        out, counts, ms = timed_call(name, fn, fresh, card, slow_reps=3)
+        launched[name] = counts
+        check(counts == want, f"{name} launched {counts}, want {want}")
+        times[name] = ms
+        return out
+
+    out = sensor_chain(rec, names, pos, truth, "cuda", chain_freqs, call)
+    qc = out["qc"]
+    want_bads = {names[CHAIN_FLAT], names[CHAIN_NOISY]}
+    print(f"check chain QC: bads {qc['bads']} (planted {sorted(want_bads)})")
+    check(want_bads <= set(qc["bads"]) and len(
+        [b for b in qc["bads"] if b != "EOG"]) == 2, "chain QC bads")
+    print(f"check chain ICA: components {out['ica_bads']} flagged against "
+          f"the EOG; blink |r| with the EOG on the frontal channels "
+          f"{out['blink_corr'][0]} -> {out['blink_corr'][1]} (gate < 0.3 x)")
+    check(bool(out["ica_bads"])
+          and out["blink_corr"][1] < 0.3 * out["blink_corr"][0],
+          "chain ICA blink")
+    before, after = out["asr"]
+    seg = np.zeros(before.shape[1], bool)
+    for s in truth["artifacts"]:
+        seg[s:s + 125] = True
+    ab, aa = np.abs(before[:64, seg]).mean(), np.abs(after[:64, seg]).mean()
+    print(f"check chain ASR: mean |x| on the bursts {ab} -> {aa} (gate < "
+          "0.5 x)")
+    check(aa < 0.5 * ab, "chain ASR bursts")
+    res, r, lam = out["trf"]
+    central = truth["central"]
+    rest = np.setdiff1d(np.arange(64), central)
+    print(f"check chain TRF: r on the driven channels {r[central].min()}.."
+          f"{r[central].max()}, others at most {np.abs(r[rest]).max()}, "
+          f"lam {lam}")
+    check(r[central].min() > 0.3 and np.abs(r[rest]).max() < 0.15,
+          "chain TRF r")
+    print(f"check chain autoreject: kept {out['kept'][1]} of {out['kept'][0]}"
+          " epochs")
+    check(out["kept"][1] > 0.8 * out["kept"][0], "chain drop_bad")
+    auc = out["decode"].cpu().numpy()
+    tt = CHAIN_TMIN + np.arange(auc.shape[1]) / SENSOR_SF
+    pk = divmod(int(auc.argmax()), auc.shape[1])
+    box = (((chain_freqs >= 9.0) & (chain_freqs <= 13.0))[:, None]
+           & ((tt >= 0.25) & (tt <= 0.55))[None])
+    high = float(np.median(auc[chain_freqs > 30.0]))
+    print(f"check chain decode: AUC peak {auc.max()} at "
+          f"{chain_freqs[pk[0]]} Hz, {tt[pk[1]]} s (planted 11 Hz, 0.2-0.6 "
+          f"s; gates 9-13 Hz, 0.2-0.6 s); mean in 9-13 Hz x 0.25-0.55 s "
+          f"{auc[box].mean()} (gate > 0.8); median above 30 Hz {high} "
+          "(gate 0.5 +- 0.05)")
+    check(9.0 <= chain_freqs[pk[0]] <= 13.0 and 0.2 <= tt[pk[1]] <= 0.6
+          and auc[box].mean() > 0.8 and abs(high - 0.5) < 0.05,
+          "chain decode map")
+    tg = out["decode_generalization"].cpu().numpy()
+    diag = np.diag(tg)
+    t4 = CHAIN_TMIN + 4 * np.arange(diag.size) / SENSOR_SF
+    print(f"check chain decode_generalization {tg.shape}: diagonal peak "
+          f"{diag.max()} at {t4[diag.argmax()]} s (gates > 0.6, 0.2-0.6 s)")
+    check(tg.shape == (128, 128) and diag.max() > 0.6
+          and 0.2 <= t4[diag.argmax()] <= 0.6, "chain tgen")
+    print(f"check chain csp_decode on 64 channels {out['csp_decode']} (in "
+          f"[0, 1]); on the 8 GED components csp_decode "
+          f"{out['csp_decode_ged']}, tangent {out['tangent_ged']}, mdm "
+          f"{out['mdm_ged']} (gate > 0.8 each)")
+    check(0.0 <= out["csp_decode"] <= 1.0
+          and min(out["csp_decode_ged"], out["tangent_ged"],
+                  out["mdm_ged"]) > 0.8, "chain covariance decoders")
+    top = set(np.argsort(-out["ssd"].patterns[:, 0].abs().cpu().numpy())[:6])
+    print(f"check chain ssd top pattern's largest channels {sorted(top)} "
+          f"(posterior {sorted(truth['post'][:12])})")
+    check(len(top & set(truth["post"])) >= 4, "chain ssd pattern")
+    check(bool(out["comp_power"].isfinite().all()), "chain comp power")
+    del out
+    torch.cuda.empty_cache()
+
+    # -- the serving data through decode (100 + 100 x 64 x 2048 x 100) -------
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(data, SFREQ),
+                          nt.Morse(SFREQ, interpolate=True, device="cuda"))
+    a, b = ew.subset(np.arange(E // 2)), ew.subset(np.arange(E // 2, E))
+    freqs = np.arange(1.0, F + 1.0)
+    auc = call(f"EpochsWavelet.decode serving {E // 2} + {E // 2} x {C} x "
+               f"{N} x {F}", lambda: a.decode(b, freqs), negate(a, b),
+               {"power_each": 2})
+    print(f"check serving decode: noise AUC mean {auc.mean().item()} (gate "
+          "0.5 +- 0.02)")
+    check(abs(auc.mean().item() - 0.5) < 0.02, "serving decode mean")
+    del ew, a, b, auc
+    torch.cuda.empty_cache()
+    print(f"sensor-space adapter launches {launched}, on {card}")
+    print(f"sensor-space phase {time.perf_counter() - t_phase} s; times "
+          f"(ms) {json.dumps(times)}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4728,6 +5504,10 @@ def main() -> int:
 
     # -- slice 11: the decompositions -----------------------------------------
     decomposition_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 12: sensor-space preprocessing and decoding --------------------
+    sensor_space_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

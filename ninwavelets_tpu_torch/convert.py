@@ -1,7 +1,8 @@
 """Carry a wavelet, its bank and fitted results across from the JAX package.
 
 A wavelet's "weights" are its hyper-parameters and its (F, N) bank; a fitted
-HMM or a matching-pursuit decomposition is a tuple of arrays.  All are
+HMM, a matching-pursuit decomposition, an ICA, ASR, spatial-filter or TRF
+model and a rejection search are tuples of arrays.  All are
 read here as plain Python and numpy values, so this module imports neither
 ``jax`` nor ``ninwavelets_tpu``: hand it the JAX object or arrays, or anything
 with the same attributes.
@@ -17,9 +18,14 @@ import torch
 
 from .device import resolve_device
 from .models import zoo
+from .ops.asr import ASRModel
 from .ops.bank import WaveletMode
 from .ops.hmm import HMMResult
+from .ops.ica import ICAResult
 from .ops.mp import MPResult
+from .ops.reject import RejectResult
+from .ops.spatial import SpatialResult
+from .ops.trf import TRFResult
 
 _CLASSES = {cls.__name__: cls for cls in
             (zoo.Morse, zoo.MorseMNE, zoo.Morlet, zoo.MexicanHat,
@@ -92,3 +98,45 @@ def mp_result_from_jax(res, device=None) -> MPResult:
     ``MPResult`` as tensors on ``device`` (the card when None): atoms for
     ``ops.mp_tfr``."""
     return _result_from_jax(MPResult, res, device)
+
+
+def ica_result_from_jax(res, device=None) -> ICAResult:
+    """The port's ``ops.ica.ICAResult`` of a JAX-package FastICA fit, on
+    ``device`` (the card when None): a model for ``ica_remove`` /
+    ``ica_transform``."""
+    return _result_from_jax(ICAResult, res, device)
+
+
+def asr_model_from_jax(model, device=None) -> ASRModel:
+    """The port's ``ops.asr.ASRModel`` of a JAX-package calibration, on
+    ``device`` (the card when None): a model for ``asr_process``."""
+    return _result_from_jax(ASRModel, model, device)
+
+
+def spatial_result_from_jax(res, device=None) -> SpatialResult:
+    """The port's ``ops.spatial.SpatialResult`` (filters, patterns,
+    eigenvalues) of a JAX-package GED / CSP / SSD fit, on ``device`` (the
+    card when None): filters for ``spatial_apply``."""
+    return _result_from_jax(SpatialResult, res, device)
+
+
+def trf_result_from_jax(res, device=None) -> TRFResult:
+    """The port's ``ops.trf.TRFResult`` of a JAX-package TRF fit: the
+    weights as a tensor on ``device`` (the card when None), the lags as
+    host numpy and the ridge as a float, as both packages keep them."""
+    weights = torch.from_numpy(np.array(res.weights, np.float32)).to(
+        resolve_device(device))
+    return TRFResult(weights=weights, lags=np.asarray(res.lags),
+                     lam=float(res.lam))
+
+
+def reject_result_from_jax(res, device=None) -> RejectResult:
+    """The port's ``ops.reject.RejectResult`` of a JAX-package threshold
+    search: the threshold as a float, the drop mask, grid and errors as
+    tensors on ``device`` (the card when None)."""
+    device = resolve_device(device)
+    return RejectResult(
+        threshold=float(res.threshold),
+        drop_mask=torch.from_numpy(np.array(res.drop_mask, bool)).to(device),
+        thresholds=torch.from_numpy(np.array(res.thresholds)).to(device),
+        cv_error=torch.from_numpy(np.array(res.cv_error)).to(device))

@@ -20,13 +20,23 @@ bases, the 2-D DWT, zero-phase filters and FFT resampling, the S-transform
 and the directional 2-D CWT, and the decompositions: Welch spectra and
 IRASA, specparam, the empirical wavelet transform, (multivariate) VMD with
 instantaneous attributes and the Hilbert spectrum, EMD / EEMD, matching
-pursuit, CP / PARAFAC, cycle-by-cycle features and HMM states.
+pursuit, CP / PARAFAC, cycle-by-cycle features and HMM states, and
+sensor-space preprocessing and decoding: peak-to-peak and cross-validated
+trial rejection, regression of reference channels, PREP-style channel QC,
+spherical-spline CSD and channel interpolation, FastICA, artifact subspace
+reconstruction, spatial filters (covariances, Ledoit-Wolf, GED, CSP, SSD,
+correlated components, xDAWN), Riemannian covariance geometry and
+decoders, time-frequency / temporal-generalization / CSP decoding, CCA
+SSVEP recognition and temporal response functions.
 
 As in the JAX package, ``ops.ewt`` and ``ops.vmd`` are the submodules: the
 transforms are ``empirical_wavelet_transform``,
 ``variational_mode_decomposition`` and ``empirical_mode_decomposition``
-(``ops.emd`` is the submodule too).
+(``ops.emd`` is the submodule too).  The bare ``csd`` function is not
+exported either: it would shadow the ``ops.csd`` submodule; reach it as
+``ops.csd.csd`` or through ``EpochsWavelet.csd``.
 """
+from .asr import ASRModel, asr_calibrate, asr_process
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
                    make_time_wavelet, pad_spectrum_to)
 from .baseline import (Baseline, baseline_correct, baseline_of, baseline_tf,
@@ -44,6 +54,8 @@ from .cluster import (ClusterResult, TfceResult, cluster_mass,
                       t_regression, t_threshold, tfce_map,
                       tfce_test_independent, tfce_test_one_sample)
 from .cpd import cp_decompose, cp_reconstruct
+from .csd import (csd_transform, interpolate_channels,
+                  interpolation_matrix, spline_matrices)
 from .cwt2d import cwt2, morlet2d_bank, pow2_pad2, power2d
 from .cycles import CycleTable, cycle_features
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
@@ -100,6 +112,8 @@ from .graph import (char_path_length, clustering_onnela, global_efficiency,
                     strength)
 from .grids import (analytic_mask, fft_bin_freqs, log_freqs,
                     reverse_timeline, wavelet_timeline)
+from .decoding import (cca_reference, csp_decode, decode_auc,
+                       ssvep_cca, temporal_generalization, tf_decode)
 from .denoise import denoise_from_bank
 from .fused import (fused_coherence, fused_coherence_sums,
                     fused_epoch_coherence, fused_imcoh, fused_itc_from_bank,
@@ -111,6 +125,8 @@ from .fused import (fused_coherence, fused_coherence_sums,
                     itc_auto, mean_power_auto, mean_power_bwd, power_auto,
                     power_itc_auto, supports, supports_ssq)
 from .hmm import HMMResult, hmm_fit, viterbi
+from .ica import (ICAResult, fastica, ica_find_bads, ica_kurtosis,
+                  ica_remove, ica_scores, ica_transform)
 from .icwt import coverage, icwt_from_bank
 from .irasa import IrasaResult, aperiodic_fit, irasa, welch_psd
 from .mp import MPResult, gabor_dictionary, matching_pursuit, mp_tfr
@@ -119,10 +135,19 @@ from .multitaper import (morse_taper_def, multitaper_banks,
                          multitaper_partial_coherence, multitaper_power,
                          multitaper_power_from_banks)
 from .reassign import reassigned_mean_power, reassigned_power
+from .reject import (RejectResult, autoreject_global,
+                     find_bad_channels, ptp, ptp_reject, regress_out)
+from .riemann import (epoch_covariances, mdm_decode,
+                      riemannian_distance, riemannian_mean,
+                      spd_expm, spd_logm, spd_sqrtm,
+                      tangent_decode, tangent_space)
 from .ridge import (extract_modes, extract_modes_ri, extract_ridge,
                     ridge_frequencies)
 from .specparam import (SpectralFit, aperiodic_model, peaks_model,
                         specparam)
+from .spatial import (SpatialResult, corrca, covariance, csp,
+                      csp_features, ged, ledoit_wolf, spatial_apply,
+                      ssd, xdawn)
 from .signal_utils import (SizeError, hamming_window, interpolate_alias,
                            normalize, pad_last_axis_to, pad_to)
 from .sst import (ssq_mean_power, ssq_mean_power_from_bank, ssq_power,
@@ -130,6 +155,8 @@ from .sst import (ssq_mean_power, ssq_mean_power_from_bank, ssq_power,
 from .stockwell import istockwell, stockwell
 from .superlets import (superlet_banks, superlet_mean_power, superlet_power,
                         superlet_power_from_banks, superlet_weights)
+from .trf import (TRFResult, lagged_design, trf_cv, trf_fit,
+                  trf_predict)
 from .vmd import hilbert_spectrum, instantaneous, mvmd
 from .vmd import vmd as variational_mode_decomposition
 from .wpt import (best_basis, best_basis_reconstruct, imodwpt, modwpt,

@@ -41,8 +41,17 @@ on top of the planes: ``EpochsWavelet.specparam`` (the time mean of
 ``matching_pursuit`` and ``psd``; ``RawWavelet.states`` and ``specparam``
 (``power``, K4 where the extended window is at most 16384), ``irasa`` and
 ``psd``.  ``psd``, ``_welch_of`` and the ``SpectralFit`` of ``specparam``
-are host numpy, as in the JAX package.  Both need only the duck-typed MNE
-surface ``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
+are host numpy, as in the JAX package.  Sensor-space preprocessing and
+decoding is plain torch on the wavelet's device: ``EpochsWavelet.decode``
+and ``decode_generalization`` (the planes of ``single_trial_power_all``,
+K4 on the card), ``ssvep``, ``riemann_decode``, ``csp``, ``csp_decode``,
+``ged``, ``ssd``, and the new adapters of ``regress_out``, ``drop_bad``
+(with ``.reject_result``), ``csd``, ``interpolate_bads`` and
+``spatial_epochs`` (whose reductions run the kernels); ``RawWavelet``'s
+``find_bad_channels``, ``interpolate_bads``, ``ica``, ``ica_clean``,
+``ica_find_bads``, ``trf`` and ``asr_clean`` (host numpy recordings, as in
+the JAX package).  Both need only the duck-typed MNE surface
+``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
 """
 from __future__ import annotations
 
@@ -54,14 +63,22 @@ from ..io.edf import EDFRaw
 from ..io.native import f32_gather
 from ..io.stream import EDFSource
 from ..models.base import Numbers, WaveletBase
+from ..ops import asr as _asr
 from ..ops import bank as _bank
 from ..ops import cluster as _cl
 from ..ops import connectivity as _conn
+from ..ops import csd as _csd
+from ..ops import decoding as _dec
 from ..ops import dwt as _dwt
 from ..ops import extensions as _ext
 from ..ops import filtering as _flt
 from ..ops import granger as _granger
 from ..ops import graph as _graph
+from ..ops import ica as _ica
+from ..ops import reject as _rej
+from ..ops import riemann as _riem
+from ..ops import spatial as _sp
+from ..ops import trf as _trf
 from ..ops.baseline import _correct, _tf_stats, baseline_tf
 from ..ops.bursts import burst_summary, burst_table
 from ..ops.cwt import cwt_from_bank
@@ -1031,6 +1048,199 @@ class EpochsWavelet:
                                interpolate=self.wavelet.interpolate, log=log,
                                time_range=self._samples(time_range))
 
+    # -- sensor-space preprocessing and decoding ------------------------------
+
+    def _derived(self, data: torch.Tensor, names=None, sel=None
+                 ) -> "EpochsWavelet":
+        """A NEW adapter over ``data`` ((E, C, N), copied to the host), on
+        the same wavelet and time axis, with the event codes carried."""
+        times = getattr(self.epochs, "times", None)
+        out = EpochsWavelet(
+            ArrayEpochs(data.cpu().numpy(), self.wavelet.sfreq,
+                        list(self.epochs.ch_names) if names is None
+                        else names, times=times),
+            self.wavelet)
+        return self._carry_codes(out, sel)
+
+    def _channel_index(self, names) -> list:
+        all_names = list(self.epochs.ch_names)
+        for ch in names:
+            if ch not in all_names:
+                raise ValueError(f"channel {ch!r} not in ch_names")
+        return [all_names.index(ch) for ch in names]
+
+    def _two_classes(self, labels):
+        """The (E, C, N) block split into the two classes of ``labels``
+        (class A the smaller label), on the wavelet's device."""
+        data = self._all_data()
+        y = np.asarray(labels)
+        if y.shape != (data.shape[0],):
+            raise ValueError("labels must be one value per epoch")
+        classes = np.unique(y)
+        if classes.size != 2:
+            raise ValueError(f"need exactly 2 classes, got {classes}")
+        return tuple(data.index_select(0, torch.from_numpy(
+            np.flatnonzero(y == cl)).to(data.device)) for cl in classes)
+
+    def decode(self, other, freqs: Numbers, n_folds: int = 5,
+               lam: float = 1e-3, log_power: bool = True, baseline=None,
+               baseline_method: str = "zscore",
+               decim: int = 1) -> torch.Tensor:
+        """(F, N) cross-validated decoding AUC between this adapter's trials
+        and ``other``'s from the all-channel power pattern at every TF pixel
+        (``ops.decoding.tf_decode``); the planes are
+        ``single_trial_power_all`` (K4 on the card).  ``log_power`` applies
+        log1p before the optional baseline correction."""
+        xa = self.single_trial_power_all(freqs, None, decim=decim)
+        xb = other.single_trial_power_all(freqs, None, decim=decim)
+        if log_power:
+            # the planes are fresh: take the log in place (a full-width
+            # class holds gigabytes)
+            xa.log1p_()
+            xb.log1p_()
+        if baseline is not None:
+            sf = self.wavelet.sfreq / max(int(decim), 1)
+            xa = baseline_tf(xa, sf, baseline[0], baseline[1],
+                             baseline_method)
+            xb = baseline_tf(xb, sf, baseline[0], baseline[1],
+                             baseline_method)
+        return _dec.tf_decode(xa, xb, n_folds=n_folds, lam=lam)
+
+    def decode_generalization(self, other, freqs: Numbers,
+                              n_folds: int = 5, lam: float = 1e-3,
+                              decim: int = 4,
+                              log_power: bool = True) -> torch.Tensor:
+        """(T, T) temporal generalization matrix (King & Dehaene) from the
+        band-mean power per channel of ``single_trial_power_all`` (K4 on
+        the card), decimated by ``decim``."""
+        xa = self.single_trial_power_all(freqs, decim=decim).mean(-2)
+        xb = other.single_trial_power_all(freqs, decim=decim).mean(-2)
+        if log_power:
+            xa, xb = torch.log1p(xa), torch.log1p(xb)
+        return _dec.temporal_generalization(xa, xb, n_folds=n_folds,
+                                            lam=lam)
+
+    def ssvep(self, stim_freqs, n_harmonics: int = 3):
+        """CCA-based SSVEP frequency recognition per trial
+        (``ops.decoding.ssvep_cca``): ``(labels (E,), rho (E, F))``."""
+        return _dec.ssvep_cca(self._all_data(), list(stim_freqs),
+                              self.wavelet.sfreq, n_harmonics=n_harmonics)
+
+    def riemann_decode(self, other: "EpochsWavelet",
+                       method: str = "tangent", n_folds: int = 5,
+                       shrink: float = 0.05, **kw) -> float:
+        """Cross-validated Riemannian covariance decoding against ``other``
+        (``ops.riemann``): ``"tangent"`` (tangent-space LDA, an AUC) or
+        ``"mdm"`` (minimum distance to the Karcher mean, an accuracy)."""
+        fn = {"tangent": _riem.tangent_decode,
+              "mdm": _riem.mdm_decode}.get(method)
+        if fn is None:
+            raise ValueError("method must be 'tangent' or 'mdm'")
+        return fn(self._all_data(), other._all_data(), n_folds=n_folds,
+                  shrink=shrink, **kw)
+
+    def regress_out(self, ref_names) -> "EpochsWavelet":
+        """A NEW adapter with the listed reference channels (EOG / ECG)
+        regressed out of every other channel per epoch
+        (``ops.reject.regress_out``) and the references dropped."""
+        names = list(self.epochs.ch_names)
+        ref_idx = self._channel_index(ref_names)
+        keep_idx = [i for i in range(len(names)) if i not in ref_idx]
+        if not keep_idx:
+            raise ValueError("no data channels left after removing refs")
+        data = self._all_data()
+        dev = data.device
+        cleaned = _rej.regress_out(
+            data.index_select(1, torch.tensor(keep_idx, device=dev)),
+            data.index_select(1, torch.tensor(ref_idx, device=dev)))
+        return self._derived(cleaned, [names[i] for i in keep_idx])
+
+    def drop_bad(self, threshold=None, **kw) -> "EpochsWavelet":
+        """A NEW adapter without the trials whose worst-channel
+        peak-to-peak exceeds ``threshold``; with ``threshold=None`` the
+        threshold is chosen by cross-validation
+        (``ops.reject.autoreject_global``; ``n_folds=`` / ``n_candidates=``
+        / ``seed=`` pass through) and its ``RejectResult`` attached as
+        ``.reject_result``.  Raises if every trial would be dropped."""
+        data = self._all_data()
+        res = None
+        if threshold is None:
+            res = _rej.autoreject_global(data, **kw)
+            mask = res.drop_mask.cpu().numpy()
+        else:
+            mask = _rej.ptp_reject(data, float(threshold)).cpu().numpy()
+        if mask.all():
+            raise ValueError("drop_bad would reject every trial — "
+                             "threshold too low for this data")
+        out = self._derived(data.index_select(0, torch.from_numpy(
+            np.flatnonzero(~mask)).to(data.device)), sel=~mask)
+        out.reject_result = res
+        return out
+
+    def csd(self, positions, **kw) -> "EpochsWavelet":
+        """A NEW adapter over the current-source density of every trial
+        (``ops.csd``, Perrin spherical splines); ``positions`` (C, 3) in
+        this adapter's channel order; ``stiffness=`` / ``lam=`` /
+        ``head_radius=`` pass through."""
+        data = self._all_data()
+        if np.asarray(positions).shape[0] != data.shape[1]:
+            raise ValueError("positions must match the channel count")
+        return self._derived(_csd.csd(data, positions, **kw))
+
+    def interpolate_bads(self, positions, bads, **kw) -> "EpochsWavelet":
+        """A NEW adapter with the listed channel NAMES replaced by
+        spherical-spline interpolations from the good ones
+        (``ops.csd.interpolate_channels``)."""
+        idx = self._channel_index(bads)
+        return self._derived(_csd.interpolate_channels(
+            self._all_data(), positions, idx, **kw))
+
+    def csp(self, labels, n_components: int = 4, f_lo=None, f_hi=None,
+            shrink: float = 0.01):
+        """Common spatial patterns over all channels (``ops.spatial.csp``)
+        for the two classes of ``labels``: a ``SpatialResult`` for
+        ``spatial_epochs`` or ``ops.spatial.csp_features``."""
+        xa, xb = self._two_classes(labels)
+        return _sp.csp(xa, xb, n_components=n_components, f_lo=f_lo,
+                       f_hi=f_hi, sfreq=self.wavelet.sfreq, shrink=shrink)
+
+    def csp_decode(self, labels, n_folds: int = 5, n_components: int = 4,
+                   f_lo=None, f_hi=None, **kw):
+        """Scalar cross-validated CSP + LDA decoding AUC between the two
+        classes of ``labels`` (``ops.decoding.csp_decode``)."""
+        xa, xb = self._two_classes(labels)
+        return _dec.csp_decode(xa, xb, n_folds=n_folds,
+                               n_components=n_components, f_lo=f_lo,
+                               f_hi=f_hi, sfreq=self.wavelet.sfreq, **kw)
+
+    def ged(self, f_lo: float, f_hi: float, n_components=None,
+            shrink: float = 0.01):
+        """Narrowband-vs-broadband GED over all channels
+        (``ops.spatial.ged``): components maximize [f_lo, f_hi] power
+        relative to the raw trials."""
+        data = self._all_data()
+        xs = _flt.bandpass(data, self.wavelet.sfreq, f_lo, f_hi)
+        return _sp.ged(_sp.covariance(xs), _sp.covariance(data),
+                       n_components=n_components, shrink=shrink)
+
+    def ssd(self, f_lo: float, f_hi: float, n_components=None,
+            flank: float = 2.0, gap: float = 1.0, shrink: float = 0.01):
+        """Spatio-spectral decomposition over all channels
+        (``ops.spatial.ssd``)."""
+        return _sp.ssd(self._all_data(), self.wavelet.sfreq, f_lo, f_hi,
+                       n_components=n_components, flank=flank, gap=gap,
+                       shrink=shrink)
+
+    def spatial_epochs(self, result, n_components=None) -> "EpochsWavelet":
+        """A NEW adapter over the spatially filtered component time series
+        (channels ``comp0, comp1, ...``): its reductions (``power_all``,
+        K1 on the card) run on the components."""
+        filters = result.filters if hasattr(result, "filters") else result
+        if n_components is not None:
+            filters = filters[:, :n_components]
+        src = _sp.spatial_apply(self._all_data(), filters)
+        return self._derived(src, [f"comp{k}" for k in range(src.shape[1])])
+
     # -- trial groups ------------------------------------------------------
 
     def _carry_codes(self, out: "EpochsWavelet", sel=None
@@ -1345,6 +1555,99 @@ class RawWavelet:
         power = self.power(freqs, picks=picks).mean(-1)
         return _specparam(power, np.asarray(freqs, np.float64),
                           max_peaks=max_peaks, fit_knee=fit_knee, **kw)
+
+    # -- sensor-space preprocessing -------------------------------------------
+
+    def _raw_index(self, names) -> list:
+        for ch in names:
+            if ch not in self.raw.ch_names:
+                raise ValueError(f"channel {ch!r} not in ch_names")
+        return [self.raw.ch_names.index(ch) for ch in names]
+
+    def interpolate_bads(self, positions, bads) -> np.ndarray:
+        """(C, N) host copy of the recording with the listed channel NAMES
+        replaced by spherical-spline interpolations from the good ones
+        (``ops.csd.interpolate_channels``, on the wavelet's device)."""
+        idx = self._raw_index(bads)
+        return _csd.interpolate_channels(self._picked(None), positions,
+                                         idx).cpu().numpy()
+
+    def find_bad_channels(self, **kw) -> dict:
+        """Channel QC of the recording (``ops.reject.find_bad_channels``,
+        PREP-style): flat / noisy / high-frequency / uncorrelated channels
+        and bridged pairs, as channel NAMES; keywords pass through."""
+        r = _rej.find_bad_channels(self._picked(None), self.wavelet.sfreq,
+                                   **kw)
+        names = self.raw.ch_names
+        out = {k: [names[i] for i in v] for k, v in r.items()
+               if k != "bridged"}
+        out["bridged"] = [(names[i], names[j]) for i, j in r["bridged"]]
+        return out
+
+    def ica(self, n_components=None, picks=None, **kw):
+        """FastICA of the recording (``ops.ica.fastica``): an ``ICAResult``
+        on the wavelet's device; ``n_iter=`` / ``fun=`` / ``seed=`` pass
+        through."""
+        return _ica.fastica(self._picked(picks), n_components, **kw)
+
+    def ica_clean(self, result, exclude, picks=None) -> np.ndarray:
+        """(C, N) host copy of the recording with the ``exclude``d ICA
+        components removed (``ops.ica.ica_remove``); ``picks`` must match
+        the fit's, and the other channels pass through."""
+        if picks is None:
+            return _ica.ica_remove(self._picked(None), result,
+                                   exclude).cpu().numpy()
+        out = np.array(self._host_data(), copy=True)
+        out[self._raw_index(picks)] = _ica.ica_remove(
+            self._picked(picks), result, exclude).cpu().numpy()
+        return out
+
+    def ica_find_bads(self, result, ref=None, threshold: float = 3.0,
+                      measure: str = "zscore"):
+        """``(bad_indices, scores)``: artifact components by correlation
+        with the ``ref`` channel NAME(s) (EOG / ECG), or by excess kurtosis
+        with ``ref=None`` (``ops.ica.ica_find_bads``)."""
+        trace = None
+        if ref is not None:
+            trace = self._picked([ref] if isinstance(ref, str)
+                                 else list(ref))
+        return _ica.ica_find_bads(result, trace, threshold=float(threshold),
+                                  measure=measure)
+
+    def trf(self, stim, tmin_s: float = 0.0, tmax_s: float = 0.25,
+            lams=(1e-4, 1e-3, 1e-2, 1e-1, 1.0), n_folds: int = 5,
+            picks=None):
+        """Cross-validated temporal response function from a continuous
+        (N,) or (K, N) stimulus to the recording (``ops.trf.trf_cv``,
+        contiguous folds), lags ``tmin_s``..``tmax_s`` seconds: ``(TRFResult,
+        r, best_lam)``."""
+        sf = self.wavelet.sfreq
+        lags = range(int(round(tmin_s * sf)), int(round(tmax_s * sf)) + 1)
+        return _trf.trf_cv(stim, self._picked(picks), lags, lams=lams,
+                           n_folds=n_folds, device=self.wavelet.device)
+
+    def asr_clean(self, cutoff: float = 5.0, win_s: float = 0.5,
+                  calib_frac: float = 0.25, return_keep: bool = False):
+        """(C, N) ASR-cleaned host copy of the recording (``ops.asr``):
+        the model calibrates on the ``calib_frac`` cleanest ``win_s``
+        windows (lowest worst-channel peak-to-peak, picked on the host as
+        in the JAX package), then every window's high-variance components
+        are reconstructed.  ``return_keep=True`` also returns the (W, C)
+        survival flags."""
+        data = self._picked(None)
+        sfreq = self.wavelet.sfreq
+        win = max(2, int(round(win_s * sfreq)))
+        nw_ = data.shape[-1] // win
+        frames = data[:, :nw_ * win].reshape(data.shape[0], nw_, win)
+        score = _rej.ptp(frames).amax(0).cpu().numpy()         # (W,)
+        n_keep = max(4, int(round(calib_frac * nw_)))
+        order = torch.from_numpy(np.sort(np.argsort(score)[:n_keep]))
+        calib = frames.index_select(1, order.to(data.device)).reshape(
+            data.shape[0], -1)
+        model = _asr.asr_calibrate(calib, sfreq, cutoff=cutoff, win_s=win_s)
+        cleaned, keep = _asr.asr_process(data, sfreq, model, win_s=win_s)
+        cleaned = cleaned.cpu().numpy()
+        return (cleaned, keep) if return_keep else cleaned
 
     # -- event-locked epochs -------------------------------------------------
 
