@@ -565,6 +565,59 @@ own), at the JAX bench's shapes (``benchmarks/extensions_bench.py``):
    the serving data split 100 / 100 through ``decode`` (5.2 GB of planes a
    class; K4 twice; its peak printed; noise AUC mean 0.5 +- 0.02).
 
+Slice 13, the last seven modules (``slice13_phase``; plain torch, every
+product in ``fp32_matmul("exact")``, no kernel of its own), at the JAX
+bench's shapes (``benchmarks/extensions_bench.py``):
+
+55. Each call timed as in 52, TF32 allowed and not identical (NaN equal to
+   NaN), no kernel launched: ``microstate_fit`` on 64 x 120,000, K 4, 8
+   restarts, 40 steps (``:588-596``), and its per-step batched ``eigh`` of
+   32 64 x 64 scatters alone by CUDA events; ``sphere_leadfield`` of 64
+   electrodes over the 6 mm grid, 200 terms (``:615-629``);
+   ``sample_entropy`` and ``permutation_entropy`` on 16 x 8 x 2048
+   (``:657-668``); ``detect_spindles`` on 8 x 921,600 at 256 Hz, kmax 1024
+   (``:690-696``; a 13 Hz spindle planted every 60 s); ``jackknife_onsets``
+   on 64 x 64 x 1024 over (100, 900) (``:697-703``); ``dfa`` on 64 x
+   65,536 (``:705-711``); ``lcmv`` with 5000 sources and 64 channels
+   (``:723-729``); ``fit_dipole`` and ``fit_dipole_meg`` on 64 sensors
+   (``:800-823``; the median of 1 after the warm-ups);
+   ``detect_slow_oscillations`` on 8 x 30 min at 128 Hz (``:825-836``; a
+   0.8 Hz wave planted every 20 s); ``microstate_syntax_test`` with 500
+   shuffles (``:837-847``, host numpy); ``iaaft_surrogates`` with 19
+   surrogates, 100 iterations, N = 4096 (``:911-917``; a random walk); a
+   free-orientation ``lcmv`` over the 6 mm grid and ``dics`` at 10 Hz on a
+   ``wavelet_csd`` of 16 x 64 x 2048 with a planted 10 Hz dipole.
+56. Each result against the port's own CPU run (tied to JAX by
+   ``tests/test_torch_*.py``) at those tests' gates: values at 1e-5 of the
+   max; microstates on a planted 64 x 12,000 recording from the card's
+   draws (``_fit_from_idx``), labels equal, maps up to sign; event tables
+   and jackknife onsets equal except at decisions within 1e-5 of their
+   threshold; dipole fits on the same grid point, 1 um and 1e-4 of the
+   moment apart (the moment follows the position); free orientations up
+   to sign (1e-4); the beamformers' solves at 1e-5 or their float32
+   bound, 2 x the loaded matrix's condition x 2^-24, where larger; IAAFT's first
+   iteration from the card's shuffles equal except at rank near-ties, its
+   100-iteration spectra within 1.1 x the CPU's error.  Known answers: the
+   planted dipole within 1 mm at GOF above 0.99 (EEG and MEG), the NAI
+   peaks of LCMV and DICS on the planted source, every planted spindle and
+   slow wave found (and nothing else), none in pure noise, the four
+   planted microstate maps at |r| above 0.95, IAAFT's sorted values
+   exact, DFA alpha 0.5 +- 0.1 for white noise and 1.5 +- 0.15 for its
+   cumsum, white-noise SampEn about 2.2 and PE about 1.
+57. The adapter chain: the serving data with an evoked response (a dipole
+   at (0.03, 0.02, 0.05) on a 64-electrode cap, a Gaussian wave 0.3 s
+   after the event) through ``EpochsWavelet.evoked``, ``erp_peak``,
+   ``erp_onset``, the three entropies and ``fit_dipole``; a 64-channel 20
+   min sleep recording at 256 Hz (planted microstates, spindles on
+   channels 0-7, slow waves on 8-15) through ``RawWavelet.dfa`` (window
+   12,000, whose extended window of 16,384 reaches K4: "power_each" once
+   per window batch, the envelope against the plain stream at 1e-5),
+   ``spindles``, ``slow_oscillations`` and ``microstates``; nothing else
+   may launch; each timed as in 52.  Known answers: the evoked peak
+   within 5 ms of 0.3 s, the jackknife onset within 10 ms of the wave's
+   half-peak, the fitted dipole within 5 mm at GOF above 0.9, every
+   planted event found.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -3415,9 +3468,12 @@ def planted(data):
 
 def same_result(a, b):
     """Bit-for-bit equality of two results (tensors, arrays, tuples, lists,
-    dicts, numbers, ``EpochsWavelet`` adapters by their data)."""
+    dicts, numbers, ``EpochsWavelet`` adapters by their data); NaN equals
+    NaN in the same place."""
     import torch
     if isinstance(a, torch.Tensor):
+        if a.is_floating_point() and a.shape == b.shape:
+            return bool(((a == b) | (a.isnan() & b.isnan())).all())
         return torch.equal(a, b)
     if isinstance(a, np.ndarray):
         return np.array_equal(a, b, equal_nan=True)
@@ -5341,6 +5397,632 @@ def sensor_space_phase(data):
           f"(ms) {json.dumps(times)}")
 
 
+DEV = "cuda"                                 # the slice-13 phase's device
+SLEEP_SF, SO_SF = 256.0, 128.0
+SPINDLE_N, SO_N = 921_600, 230_400          # 1 h at 256 Hz, 30 min at 128 Hz
+MS_T, MS_CPU_T = 120_000, 12_000             # microstate samples: card, CPU
+ENT_SHAPE, JK_SHAPE = (16, 8, 2048), (64, 64, 1024)
+DFA_SHAPE, LCMV_S, IAAFT_N = (64, 65_536), 5000, 4096
+CSD_SHAPE, GRID_STEP, SLEEP_REC_MIN = (16, 64, 2048), 0.006, 20
+SPINDLE_EVERY, SO_EVERY = 60.0, 20.0         # s between planted events
+ERP_T0, ERP_WIDTH = 0.3, 0.03                # s after the event, s
+DIPOLE = np.array([0.03, 0.02, 0.05])        # extensions_bench.py:806
+HEAD_R = 0.09
+
+
+def onset_margin(seg, crit):
+    """Smallest |seg_t - crit x peak| over the samples that decide a
+    fractional-peak onset (from the last one below the criterion to the
+    peak), and the peak's own gap to the runner-up, per row (float64):
+    ``tests/test_torch_erp_complexity.py``'s margin."""
+    pk = seg.argmax(-1)
+    thr = crit * np.take_along_axis(seg, pk[..., None], -1)
+    t = np.arange(seg.shape[-1])
+    below = (seg < thr) & (t <= pk[..., None])
+    last = np.where(below.any(-1), seg.shape[-1] - 1
+                    - np.argmax(below[..., ::-1], -1), 0)
+    rel = (t >= last[..., None]) & (t <= pk[..., None])
+    m = np.where(rel, np.abs(seg - thr), np.inf).min(-1)
+    s = np.sort(seg, axis=-1)
+    return np.minimum(m, s[..., -1] - s[..., -2])
+
+
+def equal_but_ties(name, got, ref, margin, tol):
+    """Equal, except where a decision's margin is below ``tol``."""
+    import torch
+    got = torch.as_tensor(got).cpu().numpy()
+    ref = torch.as_tensor(ref).cpu().numpy()
+    diff = got != ref
+    worst = float(np.max(margin[diff], initial=0.0))
+    print(f"check {name}: card vs CPU {int(diff.sum())} of {diff.size} "
+          f"differ, at margins up to {worst} (gate: only below {tol})")
+    check(got.shape == ref.shape and (not diff.any() or worst < tol),
+          f"{name}: differs beyond near-ties")
+
+
+def events_agree(name, got, ref, margin, tol=1e-5):
+    """Two event tables: the same valid events, start and stop, except an
+    event with a boundary within 2 samples of a sample whose decision
+    margin (relative, from ``margin`` (B, N)) is below ``tol``; the valid
+    events' values at 1e-5 of the max."""
+    import torch
+    n_bad = 0
+    for b in range(ref.valid.shape[0]):
+        sets = []
+        for tab in (got, ref):
+            v = tab.valid[b].cpu().numpy()
+            sets.append(set(zip(tab.start[b].cpu().numpy()[v].tolist(),
+                                tab.stop[b].cpu().numpy()[v].tolist())))
+        for s, e in sets[0] ^ sets[1]:
+            near = [margin[b, max(i - 2, 0):i + 3].min() for i in (s, e)]
+            ok = min(near) < tol
+            n_bad += not ok
+            print(f"  {name} row {b}: event {s}..{e} in one table only, "
+                  f"boundary margin {min(near)} (gate < {tol})")
+    same = all(torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu())
+               for f in ("start", "stop", "valid"))
+    n_valid = int(ref.valid.sum())
+    print(f"check {name}: card vs CPU {n_valid} CPU events, tables equal "
+          f"{same}; unexplained differences {n_bad} (gate 0)")
+    check(n_bad == 0, f"{name}: event tables differ beyond near-ties")
+    if same:
+        for f in ("duration", "peak_amp", "freq"):
+            close(f"{name} {f}", getattr(got, f), getattr(ref, f))
+
+
+def planted_spindles(rows, n, sf, seed, planted=True):
+    """(rows, n) white noise with a 13 Hz spindle (Hann-shaped, amplitude
+    4, 1 s) every SPINDLE_EVERY s from 30 s; returns (x, starts in s)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    t = np.arange(n) / sf
+    starts = np.arange(30.0, n / sf - 2.0, SPINDLE_EVERY)
+    if planted:
+        for t0 in starts:
+            m = (t >= t0) & (t < t0 + 1.0)
+            x[:, m] += (4.0 * np.sin(np.pi * (t[m] - t0)) ** 2
+                        * np.sin(2 * np.pi * 13.0 * (t[m] - t0))).astype(
+                            np.float32)
+    return x, starts
+
+
+def planted_slow_waves(rows, n, sf, seed, planted=True):
+    """(rows, n) background of 0.15 x white noise with a 0.8 Hz single
+    cycle (trough first, amplitude 3) every SO_EVERY s from 10 s
+    (``tests/test_sleep.py``'s shape); returns (x, starts in s)."""
+    rng = np.random.default_rng(seed)
+    x = 0.15 * rng.standard_normal((rows, n))
+    t = np.arange(n) / sf
+    starts = np.arange(10.0, n / sf - 3.0, SO_EVERY)
+    if planted:
+        for t0 in starts:
+            m = (t >= t0) & (t < t0 + 1.25)
+            x[:, m] += -3.0 * np.sin(2 * np.pi * (t[m] - t0) / 1.25)
+    return x.astype(np.float32), starts
+
+
+def planted_found(name, tab, starts, sf, atol):
+    """Every row finds each planted start within ``atol`` s, nothing else."""
+    import torch
+    worst, counts = 0.0, []
+    for b in range(tab.valid.shape[0]):
+        v = tab.valid[b].cpu().numpy()
+        got = tab.start[b].cpu().numpy()[v] / sf
+        counts.append(int(v.sum()))
+        if got.size == starts.size:
+            worst = max(worst, float(np.abs(got - starts).max()))
+        else:
+            worst = np.inf
+    print(f"check {name}: events per row {counts} (planted {starts.size}), "
+          f"worst start error {worst} s (gate {atol})")
+    check(worst <= atol, f"{name}: planted events not found")
+
+
+def microstate_recording(c, t, seed, dwell=50):
+    """(C, T) recording of 4 orthonormal average-referenced maps with
+    geometric dwell times, modulated amplitude, random polarity, 5% white
+    noise (``tests/test_microstates.py``'s ``_planted``)."""
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal((4, c))
+    m -= m.mean(axis=1, keepdims=True)
+    q, _ = np.linalg.qr(m.T)
+    maps = q.T[:4]
+    labels = np.zeros(t, np.int64)
+    pos, state = 0, int(rng.integers(4))
+    while pos < t:
+        seg = max(3, int(rng.geometric(1.0 / dwell)))
+        labels[pos:pos + seg] = state
+        pos += seg
+        state = int((state + 1 + rng.integers(3)) % 4)
+    amp = 1.0 + 0.5 * np.sin(2 * np.pi * np.arange(t) / 97.0)
+    x = maps[labels].T * (amp * rng.choice([-1.0, 1.0], t))[None, :]
+    x = x + 0.05 * rng.standard_normal((c, t))
+    return x.astype(np.float32), maps
+
+
+def maps_recovered(name, got, maps):
+    """Each planted map's best |r| with a fitted map (greedy match)."""
+    import torch
+    got = torch.as_tensor(got).cpu().numpy().astype(np.float64)
+    r = np.abs(got @ maps.T)
+    score = min(r[:, j].max() for j in range(maps.shape[0]))
+    print(f"check {name}: every planted map found at |r| >= {score} "
+          "(gate > 0.95)")
+    check(score > 0.95, f"{name}: planted maps not recovered")
+
+
+def slice13_phase(data):
+    """Slice 13: ERP measures, entropy and DFA, sleep events, microstates,
+    simulation and IAAFT, dipole fits and beamformers at the JAX
+    package's bench shapes, each against the port's own CPU run and known
+    answers, timed with its peak memory, no kernel launched; then the
+    adapter chain on the serving data with a planted evoked response and
+    on a 64-channel sleep recording, whose ``dfa`` rides K4.  Plain torch
+    but for that kernel: nothing joins the kernels' record."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch.ops import beamformer as bf
+    from ninwavelets_tpu_torch.ops import complexity as cx
+    from ninwavelets_tpu_torch.ops import erp
+    from ninwavelets_tpu_torch.ops import leadfield as lf
+    from ninwavelets_tpu_torch.ops import microstates as ms
+    from ninwavelets_tpu_torch.ops import sim
+    from ninwavelets_tpu_torch.ops import sleep
+    from ninwavelets_tpu_torch.ops.cycles import _bandpass
+    from ninwavelets_tpu_torch.ops.denoise import _median
+    from ninwavelets_tpu_torch.ops.scattering import sym_eigh
+    from ninwavelets_tpu_torch.parallel.streaming import StreamingCWT
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(13)
+    times = {}
+
+    def bench(name, fn, fresh, slow_reps=None):
+        out, counts, ms_ = timed_call(name, fn, fresh, card, slow_reps)
+        check(not counts, f"{name} launched {counts}")
+        times[name] = ms_
+        return out
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+
+    def flip(a):
+        return lambda: np.negative(a, out=a)
+
+    # -- microstates 64 x 120,000, K 4, 8 restarts, 40 steps (:588-596) -------
+    xh = gen.standard_normal((64, MS_T)).astype(np.float32)
+    x = cuda(xh)
+    res = bench(f"microstate_fit 64 x {MS_T}, K 4, 8 restarts, 40 steps",
+                lambda: ms.microstate_fit(x, 4, n_init=8, n_iter=40), x.neg_)
+    check(0.0 <= float(res.gev) <= 1.0 and bool(res.maps.isfinite().all()),
+          "microstate_fit on noise")
+    s = torch.randn((32, 64, 200), device=DEV)
+    s = s @ s.transpose(1, 2)
+    sym_eigh(s)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sym_eigh(s)
+    stop.record()
+    torch.cuda.synchronize()
+    eig_ms = start.elapsed_time(stop)
+    print(f"time microstate_fit's batched eigh alone (8 restarts x 4 states,"
+          f" 64 x 64, float64 sym_eigh): {eig_ms} ms a step, "
+          f"{40 * eig_ms} ms for 40 steps, on {card}")
+    times["microstate eigh a step"] = eig_ms
+    del x, res, s
+    # card vs CPU: a planted 64-channel recording, the card's draws handed
+    # over, 12,000 samples (the CPU's products at 120,000 take minutes)
+    xm, maps = microstate_recording(64, MS_CPU_T, 1)
+    xmc = cuda(xm)
+    g = ms.gfp(ms._avg_ref(xmc))
+    idx = torch.multinomial(ms._peak_mask(g).expand(8, -1), 4,
+                            generator=torch.Generator(DEV).manual_seed(3))
+    rc = ms._fit_from_idx(xmc, idx, n_states=4, n_iter=40)
+    rh = ms._fit_from_idx(xm, idx.cpu(), n_states=4, n_iter=40,
+                          device="cpu")
+    same = torch.equal(rc.labels.cpu(), rh.labels)
+    print(f"check microstate labels (64 x {MS_CPU_T}, the card's draws): "
+          f"card vs CPU equal {same}")
+    check(same, "microstate labels differ")
+    close("microstate maps up to sign: card vs CPU",
+          signed_rows(rc.maps, rh.maps), rh.maps)
+    close("microstate gev: card vs CPU", rc.gev, rh.gev)
+    maps_recovered("microstate_fit of the planted recording", rc.maps, maps)
+    del xmc
+
+    # -- sphere leadfield, 64 electrodes, 6 mm grid, 200 terms (:615-629) ----
+    elec = lf.fibonacci_electrodes(64, HEAD_R)
+    grid = lf.source_grid(HEAD_R, spacing=GRID_STEP, max_eccentricity=0.8)
+    out = bench(f"sphere_leadfield 64 x {grid.shape[0]}, 200 terms",
+                lambda: lf.sphere_leadfield(elec, grid, HEAD_R, n_terms=200,
+                                            device=DEV), flip(elec))
+    close("sphere_leadfield: card vs CPU", out, lf.sphere_leadfield(
+        elec, grid, HEAD_R, n_terms=200, device="cpu"))
+    del out
+
+    # -- sample / permutation entropy 16 x 8 x 2048 (:657-668) ---------------
+    xh = gen.standard_normal(ENT_SHAPE).astype(np.float32)
+    x = cuda(xh)
+    se = bench(f"sample_entropy {ENT_SHAPE}, m 2", lambda:
+               cx.sample_entropy(x), x.neg_)
+    close("sample_entropy (2 x 8 rows): card vs CPU", se[:2],
+          cx.sample_entropy(xh[:2], device="cpu"))
+    pe = bench(f"permutation_entropy {ENT_SHAPE}, m 3", lambda:
+               cx.permutation_entropy(x), x.neg_)
+    close("permutation_entropy: card vs CPU", pe,
+          cx.permutation_entropy(xh, device="cpu"))
+    print(f"check white-noise entropies: SampEn mean {se.mean().item()} "
+          f"(about 2.2), PE mean {pe.mean().item()} (about 1)")
+    check(abs(se.mean().item() - 2.2) < 0.2 and pe.min().item() > 0.99,
+          "white-noise entropies")
+    del x
+
+    # -- spindles, 8 x 921,600 at 256 Hz, kmax 1024 (:690-696) --------------
+    xh, starts = planted_spindles(8, SPINDLE_N, SLEEP_SF, 2)
+    x = cuda(xh)
+    tab = bench(f"detect_spindles 8 x {SPINDLE_N} at 256 Hz, kmax 1024",
+                lambda: sleep.detect_spindles(x, SLEEP_SF, kmax=1024),
+                x.neg_)
+    ref = sleep.detect_spindles(xh, SLEEP_SF, kmax=1024, device="cpu")
+    xf = _bandpass(torch.from_numpy(xh), SLEEP_SF, 11.0, 16.0)
+    env = sleep._moving_rms(xf, 51)
+    thr = 3.0 * _median(env)
+    events_agree("detect_spindles", tab, ref,
+                 (torch.abs(env - thr[:, None]) / thr[:, None]).numpy())
+    planted_found("detect_spindles, planted 13 Hz spindles", tab, starts,
+                  SLEEP_SF, 0.35)
+    quiet, _ = planted_spindles(8, SPINDLE_N // 6, SLEEP_SF, 3,
+                                planted=False)
+    nq = int(sleep.detect_spindles(cuda(quiet), SLEEP_SF,
+                                   kmax=1024).valid.sum())
+    print(f"check detect_spindles on 8 x 10 min of white noise: {nq} events "
+          "(gate 0)")
+    check(nq == 0, "spindles found in pure noise")
+    del x, tab, xf, env
+
+    # -- jackknife onsets, 64 x 64 x 1024 over (100, 900) (:697-703) ---------
+    xh = gen.standard_normal(JK_SHAPE).astype(np.float32)
+    x = cuda(xh)
+    ons = bench(f"jackknife_onsets {JK_SHAPE}, window (100, 900)", lambda:
+                erp.jackknife_onsets(x, (100, 900)), x.neg_)
+    refo = erp.jackknife_onsets(xh, (100, 900), device="cpu")
+    x64 = xh.astype(np.float64)
+    loo = (x64.sum(0, keepdims=True) - x64) / (x64.shape[0] - 1.0)
+    seg = loo[..., 100:900]
+    equal_but_ties("jackknife onsets", ons[0], refo[0],
+                   onset_margin(seg, 0.5), 1e-5 * np.abs(seg).max())
+    del x, loo, seg
+
+    # -- DFA, 64 x 65,536 (:705-711) ------------------------------------------
+    xh = gen.standard_normal(DFA_SHAPE).astype(np.float32)
+    x = cuda(xh)
+    alpha, fl = bench(f"dfa {DFA_SHAPE}, 12 scales", lambda: cx.dfa(x),
+                      x.neg_)
+    ah, fh = cx.dfa(xh, device="cpu")
+    close("dfa alpha: card vs CPU", alpha, ah)
+    close("dfa fluctuations: card vs CPU", fl, fh)
+    brown = cx.dfa(torch.cumsum(x, -1))[0]
+    print(f"check dfa: white noise alpha {alpha.min().item()}.."
+          f"{alpha.max().item()} (gate 0.5 +- 0.1), its cumsum "
+          f"{brown.min().item()}..{brown.max().item()} (gate 1.5 +- 0.15)")
+    check(bool((alpha - 0.5).abs().max() < 0.1)
+          and bool((brown - 1.5).abs().max() < 0.15), "dfa exponents")
+    del x
+
+    # -- LCMV, 5000 sources x 64 channels (:723-729) --------------------------
+    lead = cuda(gen.standard_normal((LCMV_S, 64)).astype(np.float32))
+    cov = cuda((np.eye(64) + 0.1).astype(np.float32))
+    res = bench(f"lcmv {LCMV_S} sources x 64 channels",
+                lambda: bf.lcmv(cov, lead), lead.neg_)
+    refl = bf.lcmv(cov.cpu(), lead.cpu())
+    for f in ("filters", "power", "nai"):
+        close(f"lcmv {f}: card vs CPU", getattr(res, f), getattr(refl, f))
+    del lead, res
+
+    # -- dipole fits, 64 sensors (:800-823) -----------------------------------
+    elec = lf.fibonacci_electrodes(64)
+    lead1 = lf.sphere_leadfield(elec, DIPOLE[None], device="cpu").numpy()
+    v_eeg = lead1.reshape(64, 3) @ np.array([1.0, 0.5, 0.2])
+    fit = bench("fit_dipole 64 electrodes (200 Adam steps, 120 terms)",
+                lambda: lf.fit_dipole(v_eeg, elec, device=DEV),
+                flip(v_eeg), slow_reps=1)
+    fit_cpu = lf.fit_dipole(v_eeg, elec, device="cpu")
+    dipoles_agree("fit_dipole", fit, fit_cpu, DIPOLE)
+    sens = lf.fibonacci_electrodes(64) * 1.2
+    sori = sens / np.linalg.norm(sens, axis=1, keepdims=True)
+    lead1 = lf.sphere_leadfield_meg(sens, sori, DIPOLE[None],
+                                    device="cpu").numpy()
+    v_meg = lead1.reshape(64, 3) @ np.array([1.0, 0.5, 0.0])
+    fit = bench("fit_dipole_meg 64 sensors (300 Adam steps)",
+                lambda: lf.fit_dipole_meg(v_meg, sens, sori, device=DEV),
+                flip(v_meg), slow_reps=1)
+    dipoles_agree("fit_dipole_meg", fit,
+                  lf.fit_dipole_meg(v_meg, sens, sori, device="cpu"), DIPOLE)
+
+    # -- slow oscillations, 8 x 30 min at 128 Hz (:825-836) -----------------
+    xh, starts = planted_slow_waves(8, SO_N, SO_SF, 4)
+    x = cuda(xh)
+    tab = bench(f"detect_slow_oscillations 8 x {SO_N} at 128 Hz", lambda:
+                sleep.detect_slow_oscillations(x, SO_SF), x.neg_)
+    ref = sleep.detect_slow_oscillations(xh, SO_SF, device="cpu")
+    xf = _bandpass(torch.from_numpy(xh), SO_SF, 0.3, 1.5)
+    events_agree("detect_slow_oscillations", tab, ref,
+                 (xf.abs() / xf.abs().amax(-1, keepdim=True)).numpy())
+    planted_found("detect_slow_oscillations, planted 0.8 Hz waves", tab,
+                  starts, SO_SF, 0.1)
+    quiet, _ = planted_slow_waves(8, int(120 * SO_SF), SO_SF, 5,
+                                  planted=False)
+    nq = int(sleep.detect_slow_oscillations(cuda(quiet),
+                                            SO_SF).valid.sum())
+    print(f"check detect_slow_oscillations on 8 x 2 min of 0.15 x white "
+          f"noise: {nq} events (gate 0)")
+    check(nq == 0, "slow oscillations found in pure noise")
+    del x, tab, xf
+
+    # -- microstate syntax test, 500 shuffles (:837-847; host numpy) ---------
+    lab = np.repeat(gen.integers(0, 4, 3000),
+                    gen.integers(10, 40, 3000))[:60_000].astype(np.int32)
+    asym, p = bench("microstate_syntax_test 60,000 labels, 500 shuffles",
+                    lambda: ms.microstate_syntax_test(lab, 4, 500),
+                    lambda: np.remainder(lab + 1, 4, out=lab))
+    print(f"check microstate_syntax_test of i.i.d. segments: asym {asym}, "
+          f"p {p} (gate p > 0.01)")
+    check(p > 0.01, "syntax test on i.i.d. segments")
+
+    # -- IAAFT, 19 surrogates, 100 iterations, N = 4096 (:911-917) -----------
+    xh = np.cumsum(gen.standard_normal(IAAFT_N)).astype(np.float32)
+    x = cuda(xh)
+    surr = bench(f"iaaft_surrogates 19 x {IAAFT_N}, 100 iterations", lambda:
+                 sim.iaaft_surrogates(0, x), x.neg_)
+    target = torch.sort(x).values
+    keeps = torch.equal(torch.sort(surr, -1).values, target.expand(19, -1))
+    print(f"check iaaft keeps the sorted values exactly: {keeps}")
+    check(keeps, "iaaft changed the values")
+    noise = torch.randn((19, IAAFT_N), device=DEV,
+                        generator=torch.Generator(DEV).manual_seed(4))
+    one_c = sim._iaaft_from_noise(x, noise, 1)
+    one_h = sim._iaaft_from_noise(x.cpu(), noise.cpu(), 1)
+    spec = torch.fft.rfft(torch.gather(target.expand(19, -1).cpu(), -1,
+                                       torch.argsort(noise.cpu(), dim=-1,
+                                                     stable=True)))
+    y = torch.fft.irfft(spec / spec.abs().clamp(min=1e-30)
+                        * torch.fft.rfft(x.cpu()).abs(), n=IAAFT_N).numpy()
+    ys = np.sort(y, -1)
+    gaps = np.minimum(np.abs(np.diff(ys, prepend=-np.inf)),
+                      np.abs(np.diff(ys, append=np.inf)))
+    near = gaps[np.arange(19)[:, None], np.argsort(np.argsort(y, -1), -1)]
+    equal_but_ties("iaaft one iteration, the card's shuffles",
+                   one_c, one_h, near, 1e-5 * np.abs(y).max())
+    many_c = sim._iaaft_from_noise(x, noise, 100)
+    many_h = sim._iaaft_from_noise(x.cpu(), noise.cpu(), 100)
+    amp = torch.fft.rfft(x.cpu()).abs()
+
+    def spec_err(s):
+        return ((torch.fft.rfft(s.cpu()).abs() - amp).norm(dim=-1)
+                / amp.norm()).max().item()
+
+    ec, eh = spec_err(many_c), spec_err(many_h)
+    same = int((many_c.cpu() == many_h).all(-1).sum())
+    print(f"check iaaft 100 iterations: {same} of 19 surrogates equal to "
+          f"the CPU's; spectral error card {ec}, CPU {eh} (gate card <= "
+          "1.1 x CPU + 1e-4)")
+    check(ec <= 1.1 * eh + 1e-4, "iaaft spectra")
+    del x, surr
+
+    # -- free-orientation LCMV and DICS on a wavelet CSD, 16 x 64 x 2048 -----
+    elec = lf.fibonacci_electrodes(64, HEAD_R)
+    grid = lf.source_grid(HEAD_R, spacing=GRID_STEP, max_eccentricity=0.8)
+    lead3 = lf.sphere_leadfield(elec, grid, HEAD_R, device=DEV).permute(
+        1, 2, 0).contiguous()                              # (S, 3, C)
+    src = int(np.argmin(np.linalg.norm(grid - DIPOLE, axis=1)))
+    ori = np.array([0.3, 0.9, 0.3]) / np.linalg.norm([0.3, 0.9, 0.3])
+    topo = (torch.from_numpy(ori.astype(np.float32)).to(DEV)
+            @ lead3[src]).cpu().numpy()
+    e_c, c_c, n_c = CSD_SHAPE
+    t = np.arange(n_c) / SFREQ
+    wave = np.sin(2 * np.pi * 10.0 * t[None, :]
+                  + gen.uniform(0, 2 * np.pi, (e_c, 1)))
+    sig_h = (topo[None, :, None] / np.abs(topo).max() * 3.0 * wave[:, None]
+             + gen.standard_normal(CSD_SHAPE)).astype(np.float32)
+    sig = cuda(sig_h)
+    flat = sig_h.transpose(1, 0, 2).reshape(c_c, -1)
+    covh = (flat @ flat.T / flat.shape[1]).astype(np.float32)
+    cov = cuda(covh)
+    res = bench(f"lcmv free orientation, {grid.shape[0]} sources x 64",
+                lambda: bf.lcmv(cov, lead3), lead3.neg_)
+    refl = bf.lcmv(covh, lead3.cpu(), device="cpu")
+    ori_c, ori_h = res.orientations.cpu(), refl.orientations
+    close("lcmv free orientations up to sign: card vs CPU",
+          ori_c * torch.sign((ori_c * ori_h).sum(-1, keepdim=True)), ori_h,
+          1e-4)
+    for f in ("power", "nai"):
+        close(f"lcmv free {f}: card vs CPU", getattr(res, f),
+              getattr(refl, f))
+    found = int(res.nai.argmax())
+    dist = float(np.linalg.norm(grid[found] - grid[src]))
+    print(f"check lcmv free NAI peak {dist} m from the planted source "
+          "(gate <= 6 mm, one grid step)")
+    check(dist <= 0.0061, "lcmv free NAI peak")
+    bank = nt.Morse(SFREQ, interpolate=True, device=DEV).make_fft_wavelets(
+        np.array([8.0, 10.0, 12.0]), n_c / SFREQ)
+    csd = bench(f"wavelet_csd {CSD_SHAPE}, 3 rows", lambda:
+                bf.wavelet_csd(sig, bank, True), sig.neg_)
+    csd_h = bf.wavelet_csd(sig_h, bank.cpu(), True, device="cpu")
+    close("wavelet_csd real: card vs CPU", csd.real, csd_h.real)
+    close("wavelet_csd imag: card vs CPU", csd.imag, csd_h.imag)
+    lead_fixed = torch.einsum("so,soc->sc", res.orientations, lead3)
+    dres = bench(f"dics at 10 Hz, {grid.shape[0]} sources x 64", lambda:
+                 bf.dics(csd[1], lead_fixed), lead_fixed.neg_)
+    dref = bf.dics(csd[1].cpu(), lead_fixed.cpu())
+    gate = solve_gate(csd[1].real, 0.05)
+    for f in ("filters", "power", "nai"):
+        close(f"dics {f}: card vs CPU (the card's CSD)", getattr(dres, f),
+              getattr(dref, f), gate)
+    found = int(dres.nai.argmax())
+    dist = float(np.linalg.norm(grid[found] - grid[src]))
+    print(f"check dics NAI peak {dist} m from the planted 10 Hz source "
+          "(gate <= 6 mm)")
+    check(dist <= 0.0061, "dics NAI peak")
+    coh = bf.source_coherence(dres, csd[1])
+    check(bool(coh.isfinite().all()), "source_coherence finite")
+    del lead3, sig, res, dres, coh, csd
+    torch.cuda.empty_cache()
+
+    # -- the adapter chain ----------------------------------------------------
+    launched = {}
+
+    def call(name, fn, fresh, want, slow_reps=3):
+        out_, counts, ms_ = timed_call(name, fn, fresh, card, slow_reps)
+        launched[name] = counts
+        check(counts == want, f"{name} launched {counts}, want {want}")
+        times[name] = ms_
+        return out_
+
+    # the serving data with an evoked response: a dipole at DIPOLE on a
+    # 64-electrode cap, a Gaussian wave ERP_T0 after the event (t = 0 at
+    # sample 500)
+    e_s, c_s, n_s = data.shape
+    elec = lf.fibonacci_electrodes(c_s, HEAD_R)
+    gain = lf.sphere_leadfield(elec, DIPOLE[None], HEAD_R,
+                               device="cpu").numpy()[:, 0, :]
+    topo = gain @ np.array([1.0, 0.5, 0.2])
+    tt = np.arange(n_s) / SFREQ - 0.5
+    wave = np.exp(-0.5 * ((tt - ERP_T0) / ERP_WIDTH) ** 2)
+    erp_data = (data + (2.0 * topo / np.abs(topo).max())[None, :, None]
+                * wave[None, None, :]).astype(np.float32)
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(erp_data, SFREQ, times=tt),
+                          nt.Morse(SFREQ, interpolate=True, device=DEV))
+    ev = call("EpochsWavelet.evoked", ew.evoked, negate(ew), {})
+    close("evoked: the epoch mean", ev, torch.from_numpy(erp_data).mean(0))
+    top = int(np.abs(topo).argmax())
+    pol = 1 if topo[top] > 0 else -1
+    pk = call("EpochsWavelet.erp_peak (0.2, 0.4) s", lambda:
+              ew.erp_peak((0.2, 0.4), polarity=pol), negate(ew), {})
+    lat = tt[int(pk.latency[top])]
+    print(f"check erp_peak: channel {top} peaks at {lat} s (planted "
+          f"{ERP_T0}; gate +- 5 ms)")
+    check(abs(lat - ERP_T0) <= 0.005, "erp_peak latency")
+    ons = call("EpochsWavelet.erp_onset (0.1, 0.5) s", lambda:
+               ew.erp_onset((0.1, 0.5), polarity=pol), negate(ew), {})
+    onset = tt[int(round(ons[1][top].item()))]
+    want_on = ERP_T0 - ERP_WIDTH * np.sqrt(2 * np.log(2))
+    print(f"check erp_onset: channel {top} mean onset {onset} s (half-peak "
+          f"of the planted wave {want_on} s; gate +- 10 ms), se "
+          f"{ons[2][top].item()} samples")
+    check(abs(onset - want_on) <= 0.01, "erp_onset")
+    se = call("EpochsWavelet.sample_entropy", ew.sample_entropy, negate(ew),
+              {}, slow_reps=1)
+    pe = call("EpochsWavelet.permutation_entropy", ew.permutation_entropy,
+              negate(ew), {})
+    mse = call("EpochsWavelet.multiscale_entropy", ew.multiscale_entropy,
+               negate(ew), {}, slow_reps=1)
+    check(se.shape == (e_s, c_s) and pe.shape == (e_s, c_s)
+          and mse.shape == (e_s, c_s, 10)
+          and bool(se.isfinite().all()) and bool(mse[..., 0].isfinite().all()),
+          "entropy shapes")
+    close("sample_entropy (2 epochs): card vs CPU", se[:2],
+          cx.sample_entropy(erp_data[:2], device="cpu"))
+    fit = call("EpochsWavelet.fit_dipole", lambda: ew.fit_dipole(elec),
+               negate(ew), {}, slow_reps=1)
+    err = float(np.linalg.norm(fit["pos"] - DIPOLE))
+    print(f"check EpochsWavelet.fit_dipole: {err * 1e3} mm from the planted "
+          f"dipole (gate 5 mm), gof {fit['gof']} (gate > 0.9) at sample "
+          f"{fit['peak_sample']}")
+    check(err < 0.005 and fit["gof"] > 0.9, "adapter fit_dipole")
+    del ew, ev, se, pe, mse
+    torch.cuda.empty_cache()
+
+    # a 64-channel sleep recording: planted microstates everywhere, spindles
+    # on channels 0-7, slow waves on 8-15, 20 min at 256 Hz
+    n_rec = int(SLEEP_REC_MIN * 60 * SLEEP_SF)
+    rec, _ = microstate_recording(64, n_rec, 6)
+    spin, sp_starts = planted_spindles(8, n_rec, SLEEP_SF, 7)
+    rec[:8] += 0.5 * spin
+    slow, so_starts = planted_slow_waves(8, n_rec, SLEEP_SF, 8)
+    rec[8:16] += slow
+    names = [f"EEG{i:03d}" for i in range(64)]
+    rw = nt.RawWavelet(NamedRaw(rec, SLEEP_SF, names),
+                       nt.Morse(SLEEP_SF, device=DEV), window=12_000)
+    stream = rw._stream_for([10.0])
+    ext = stream.window + 2 * stream.halo
+    n_batches = -(-n_rec // (stream.window * stream.batch))
+    print(f"RawWavelet.dfa stream: window {stream.window}, halo "
+          f"{stream.halo}, extended {ext} (K4 takes <= 16384), "
+          f"{n_batches} window batches")
+    check(ext <= 16384, "RawWavelet.dfa's windows cannot reach K4")
+    alpha, _ = call("RawWavelet.dfa at 10 Hz", lambda:
+                    rw.dfa("EEG000", 10.0), negate(rw),
+                    {"power_each": n_batches})
+    check(bool(alpha.isfinite()), "RawWavelet.dfa alpha")
+    env = torch.sqrt(rw.power_channel("EEG000", [10.0])[0].clamp(min=0))
+    plain = StreamingCWT(
+        rw.wavelet._wdef(), np.array([10.0], np.float32), SLEEP_SF,
+        window=stream.window, halo=stream.halo,
+        interpolate=rw.wavelet.interpolate, use_fused=False,
+        device=DEV).power_device(rec[0])[0]
+    close("RawWavelet.dfa envelope: K4 vs the plain stream", env ** 2,
+          plain)
+    tab = call("RawWavelet.spindles (channels 0-7)", lambda:
+               rw.spindles(picks=names[:8]), negate(rw), {})
+    planted_found("RawWavelet.spindles", tab, sp_starts, SLEEP_SF, 0.35)
+    tab = call("RawWavelet.slow_oscillations (channels 8-15)", lambda:
+               rw.slow_oscillations(picks=names[8:16]), negate(rw), {})
+    planted_found("RawWavelet.slow_oscillations", tab, so_starts, SLEEP_SF,
+                  0.1)
+    res, stats = call("RawWavelet.microstates", rw.microstates, negate(rw),
+                      {}, slow_reps=1)
+    print(f"check RawWavelet.microstates: gev {float(res.gev)}, coverage "
+          f"{stats['coverage']}, mean durations {stats['duration']} s")
+    check(0.0 < float(res.gev) <= 1.0 and res.labels.shape == (n_rec,)
+          and abs(stats["coverage"].sum() - 1.0) < 1e-5,
+          "RawWavelet.microstates")
+    del rw, rec
+    torch.cuda.empty_cache()
+    print(f"slice-13 adapter launches {launched}, on {card}")
+    print(f"slice-13 phase {time.perf_counter() - t_phase} s; times (ms) "
+          f"{json.dumps(times)}")
+
+
+def solve_gate(cov, reg):
+    """1e-5, or the float32 bound of a solve with the loaded ``cov`` where
+    that is larger: 2 x its condition number x 2^-24 (cuSOLVER and LAPACK
+    round the same ill-conditioned solve differently)."""
+    import torch
+    a = torch.as_tensor(cov).detach().cpu().double()
+    a = a + reg * torch.trace(a) / a.shape[0] * torch.eye(a.shape[0],
+                                                          dtype=a.dtype)
+    cond = torch.linalg.cond(a).item()
+    gate = max(1e-5, 2.0 * cond * 2.0 ** -24)
+    print(f"solve gate: condition {cond} of the loaded matrix -> {gate}")
+    return gate
+
+
+def dipoles_agree(name, fit, ref, truth):
+    """A dipole fit on the card against the CPU's: the same grid point,
+    the position within 1 um and the GOF within 1e-6
+    (``tests/test_torch_leadfield_beamformer.py``), the moment at 1e-4 of
+    its max (it follows the position: about 1e-4 a um at 1 cm from the
+    sensors, where the tests' fits agree to nm and hold it at 1e-5); and
+    the planted dipole within 1 mm at GOF above 0.99."""
+    same_grid = bool(np.array_equal(fit["grid_pos"], ref["grid_pos"]))
+    dpos = float(np.abs(fit["pos"] - ref["pos"]).max())
+    dq = float(np.abs(fit["moment"] - ref["moment"]).max()
+               / np.abs(ref["moment"]).max())
+    err = float(np.linalg.norm(fit["pos"] - truth))
+    print(f"check {name}: card vs CPU grid point equal {same_grid}, "
+          f"position max|d| {dpos} m (gate 1e-6), moment {dq} (gate 1e-4), "
+          f"gof {fit['gof']} vs {ref['gof']} (gate 1e-6); {err * 1e3} mm "
+          "from the planted dipole (gate 1 mm, gof > 0.99)")
+    check(same_grid and dpos <= 1e-6 and dq <= 1e-4
+          and abs(fit["gof"] - ref["gof"]) <= 1e-6, f"{name}: card vs CPU")
+    check(err < 1e-3 and fit["gof"] > 0.99, f"{name}: planted dipole")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5508,6 +6190,10 @@ def main() -> int:
 
     # -- slice 12: sensor-space preprocessing and decoding --------------------
     sensor_space_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 13: ERP, complexity, sleep, microstates, sim, sources ----------
+    slice13_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

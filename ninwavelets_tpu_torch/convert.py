@@ -2,7 +2,8 @@
 
 A wavelet's "weights" are its hyper-parameters and its (F, N) bank; a fitted
 HMM, a matching-pursuit decomposition, an ICA, ASR, spatial-filter or TRF
-model and a rejection search are tuples of arrays.  All are
+model, a rejection search, an ERP peak, an event table, a microstate fit
+and a beamformer or minimum-norm inverse are tuples of arrays.  All are
 read here as plain Python and numpy values, so this module imports neither
 ``jax`` nor ``ninwavelets_tpu``: hand it the JAX object or arrays, or anything
 with the same attributes.
@@ -19,11 +20,15 @@ import torch
 from .device import resolve_device
 from .models import zoo
 from .ops.asr import ASRModel
+from .ops.beamformer import DICSResult, LCMVResult, MinimumNormResult
+from .ops.erp import PeakResult
 from .ops.bank import WaveletMode
 from .ops.hmm import HMMResult
 from .ops.ica import ICAResult
+from .ops.microstates import MicrostateResult
 from .ops.mp import MPResult
 from .ops.reject import RejectResult
+from .ops.sleep import EventTable
 from .ops.spatial import SpatialResult
 from .ops.trf import TRFResult
 
@@ -140,3 +145,44 @@ def reject_result_from_jax(res, device=None) -> RejectResult:
         drop_mask=torch.from_numpy(np.array(res.drop_mask, bool)).to(device),
         thresholds=torch.from_numpy(np.array(res.thresholds)).to(device),
         cv_error=torch.from_numpy(np.array(res.cv_error)).to(device))
+
+
+def peak_result_from_jax(res, device=None) -> PeakResult:
+    """The port's ``ops.erp.PeakResult`` of a JAX-package peak measure, on
+    ``device`` (the card when None)."""
+    return _result_from_jax(PeakResult, res, device)
+
+
+def event_table_from_jax(tab, device=None) -> EventTable:
+    """The port's ``ops.sleep.EventTable`` of a JAX-package spindle or
+    slow-oscillation table, on ``device`` (the card when None)."""
+    return _result_from_jax(EventTable, tab, device)
+
+
+def microstate_result_from_jax(res, device=None) -> MicrostateResult:
+    """The port's ``ops.microstates.MicrostateResult`` of a JAX-package
+    fit, on ``device`` (the card when None): maps for
+    ``microstate_backfit``, labels for ``microstate_stats``."""
+    return _result_from_jax(MicrostateResult, res, device)
+
+
+def lcmv_result_from_jax(res, device=None) -> LCMVResult:
+    """The port's ``ops.beamformer.LCMVResult`` of a JAX-package LCMV fit,
+    on ``device`` (the card when None): filters for ``lcmv_apply``."""
+    return _result_from_jax(LCMVResult, res, device)
+
+
+def dics_result_from_jax(res, device=None) -> DICSResult:
+    """The port's ``ops.beamformer.DICSResult`` of a JAX-package DICS fit,
+    on ``device`` (the card when None): filters for
+    ``source_coherence``."""
+    return _result_from_jax(DICSResult, res, device)
+
+
+def minimum_norm_result_from_jax(res, device=None) -> MinimumNormResult:
+    """The port's ``ops.beamformer.MinimumNormResult`` of a JAX-package
+    inverse: the kernel as a tensor on ``device`` (the card when None),
+    the method name as a string."""
+    kernel = torch.from_numpy(np.array(res.kernel, np.float32)).to(
+        resolve_device(device))
+    return MinimumNormResult(kernel=kernel, method=str(res.method))

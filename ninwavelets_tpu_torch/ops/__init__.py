@@ -27,20 +27,27 @@ spherical-spline CSD and channel interpolation, FastICA, artifact subspace
 reconstruction, spatial filters (covariances, Ledoit-Wolf, GED, CSP, SSD,
 correlated components, xDAWN), Riemannian covariance geometry and
 decoders, time-frequency / temporal-generalization / CSP decoding, CCA
-SSVEP recognition and temporal response functions.
+SSVEP recognition and temporal response functions, and the rest: ERP
+measures, entropy and DFA, sleep spindles and slow oscillations,
+microstates, simulation and IAAFT surrogates, sphere leadfields and dipole
+fits, LCMV / DICS beamformers and minimum-norm inverses.
 
 As in the JAX package, ``ops.ewt`` and ``ops.vmd`` are the submodules: the
 transforms are ``empirical_wavelet_transform``,
 ``variational_mode_decomposition`` and ``empirical_mode_decomposition``
 (``ops.emd`` is the submodule too).  The bare ``csd`` function is not
 exported either: it would shadow the ``ops.csd`` submodule; reach it as
-``ops.csd.csd`` or through ``EpochsWavelet.csd``.
+``ops.csd.csd`` or through ``EpochsWavelet.csd``.  ``ops.sim`` stays a
+submodule, as in the JAX package.
 """
 from .asr import ASRModel, asr_calibrate, asr_process
 from .bank import (WaveletDef, WaveletMode, make_fft_bank, make_fft_wavelet,
                    make_time_wavelet, pad_spectrum_to)
 from .baseline import (Baseline, baseline_correct, baseline_of, baseline_tf,
                        METHODS as BASELINE_METHODS)
+from .beamformer import (DICSResult, LCMVResult, MinimumNormResult, dics,
+                         lcmv, lcmv_apply, minimum_norm, minimum_norm_apply,
+                         source_coherence, wavelet_csd)
 from .bootstrap import bootstrap_ci
 from .bursts import (BurstSummary, burst_summary, burst_table,
                      burst_threshold)
@@ -53,6 +60,9 @@ from .cluster import (ClusterResult, TfceResult, cluster_mass,
                       max_stat_test_regression, t_independent, t_one_sample,
                       t_regression, t_threshold, tfce_map,
                       tfce_test_independent, tfce_test_one_sample)
+from .complexity import (dfa, multiscale_entropy,
+                         multiscale_permutation_entropy,
+                         permutation_entropy, sample_entropy)
 from .cpd import cp_decompose, cp_reconstruct
 from .csd import (csd_transform, interpolate_channels,
                   interpolation_matrix, spline_matrices)
@@ -88,6 +98,9 @@ from .dwt2d import dwt2, idwt2, max_level2, wavedec2, waverec2
 from .emd import eemd
 from .emd import emd as empirical_mode_decomposition
 from .envelope import env_corr_matrix, env_corr_matrix_from_bank
+from .erp import (PeakResult, evoked, fractional_area_latency,
+                  fractional_peak_onset, jackknife_onsets, mean_amplitude,
+                  peak_measures)
 from .ewt import ewt_boundaries, ewt_filterbank, ewt_reconstruct
 from .ewt import ewt as empirical_wavelet_transform
 from .extensions import (ar1_filter, bicoherence, bicoherence_from_banks,
@@ -129,6 +142,12 @@ from .ica import (ICAResult, fastica, ica_find_bads, ica_kurtosis,
                   ica_remove, ica_scores, ica_transform)
 from .icwt import coverage, icwt_from_bank
 from .irasa import IrasaResult, aperiodic_fit, irasa, welch_psd
+from .leadfield import (fibonacci_electrodes, fit_dipole,
+                        fit_dipole_evoked, fit_dipole_meg, source_grid,
+                        sphere_leadfield, sphere_leadfield_meg)
+from .microstates import (MicrostateResult, gfp, microstate_backfit,
+                          microstate_fit, microstate_stats,
+                          microstate_syntax_test)
 from .mp import MPResult, gabor_dictionary, matching_pursuit, mp_tfr
 from .multitaper import (morse_taper_def, multitaper_banks,
                          multitaper_coherence_matrix, multitaper_mean_power,
@@ -143,6 +162,7 @@ from .riemann import (epoch_covariances, mdm_decode,
                       tangent_decode, tangent_space)
 from .ridge import (extract_modes, extract_modes_ri, extract_ridge,
                     ridge_frequencies)
+from .sleep import EventTable, detect_slow_oscillations, detect_spindles
 from .specparam import (SpectralFit, aperiodic_model, peaks_model,
                         specparam)
 from .spatial import (SpatialResult, corrca, covariance, csp,

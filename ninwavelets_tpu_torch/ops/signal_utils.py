@@ -1,7 +1,7 @@
 """Shape and spectrum helpers (port of ``ninwavelets_tpu.ops.signal_utils``),
 the reference's free functions ``pad_to``, ``hamming_window``,
-``normalize`` and ``interpolate_alias``.  A tensor argument keeps its
-device; other input becomes a CPU tensor."""
+``normalize`` and ``interpolate_alias``, and the port's ``row_cumsum``.  A
+tensor argument keeps its device; other input becomes a CPU tensor."""
 from __future__ import annotations
 
 import math
@@ -26,6 +26,18 @@ def pad_last_axis_to(x: torch.Tensor, n: int) -> torch.Tensor:
         return x[..., :n]
     side1 = (n - m) // 2
     return F.pad(x, (side1, n - m - side1))
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` along the last axis, the same bits on every run on
+    the card: a tensor with one row goes through CUB's device-wide scan,
+    whose float sums vary from run to run, so a single row is scanned
+    beside a copy of itself (two rows take the per-row scan)."""
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.shape[0] == 1:
+        return torch.cumsum(torch.cat([flat, flat]), dim=-1)[:1].reshape(
+            x.shape)
+    return torch.cumsum(x, dim=-1)
 
 
 def pad_to(wave_from: torch.Tensor, wave_to: torch.Tensor) -> torch.Tensor:

@@ -50,7 +50,13 @@ K4 on the card), ``ssvep``, ``riemann_decode``, ``csp``, ``csp_decode``,
 ``spatial_epochs`` (whose reductions run the kernels); ``RawWavelet``'s
 ``find_bad_channels``, ``interpolate_bads``, ``ica``, ``ica_clean``,
 ``ica_find_bads``, ``trf`` and ``asr_clean`` (host numpy recordings, as in
-the JAX package).  Both need only the duck-typed MNE surface
+the JAX package).  The last slice is plain torch on the wavelet's device
+too: ``EpochsWavelet.evoked``, ``erp_peak``, ``erp_onset`` (``ops.erp``),
+``sample_entropy``, ``permutation_entropy``, ``multiscale_entropy``
+(``ops.complexity``) and ``fit_dipole`` (``ops.leadfield``); and
+``RawWavelet.dfa`` (the envelope of ``power_channel``, K4 on the card),
+``spindles``, ``slow_oscillations`` (``ops.sleep``) and ``microstates``.
+Both need only the duck-typed MNE surface
 ``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
 """
 from __future__ import annotations
@@ -69,14 +75,19 @@ from ..ops import cluster as _cl
 from ..ops import connectivity as _conn
 from ..ops import csd as _csd
 from ..ops import decoding as _dec
+from ..ops import complexity as _cx
 from ..ops import dwt as _dwt
+from ..ops import erp as _erp
 from ..ops import extensions as _ext
 from ..ops import filtering as _flt
 from ..ops import granger as _granger
 from ..ops import graph as _graph
 from ..ops import ica as _ica
+from ..ops import leadfield as _lf
+from ..ops import microstates as _ms
 from ..ops import reject as _rej
 from ..ops import riemann as _riem
+from ..ops import sleep as _sleep
 from ..ops import spatial as _sp
 from ..ops import trf as _trf
 from ..ops.baseline import _correct, _tf_stats, baseline_tf
@@ -1241,6 +1252,77 @@ class EpochsWavelet:
         src = _sp.spatial_apply(self._all_data(), filters)
         return self._derived(src, [f"comp{k}" for k in range(src.shape[1])])
 
+    # -- ERP measures, complexity, dipoles ------------------------------------
+
+    def evoked(self) -> torch.Tensor:
+        """(C, N) trial-average (ERP) waveform of every channel
+        (``ops.erp.evoked``), the time-domain counterpart of
+        ``evoked_power``."""
+        return _erp.evoked(self._all_data())
+
+    def fit_dipole(self, elec_pos, **kw) -> dict:
+        """Equivalent-current-dipole model of the evoked response
+        (``ops.leadfield.fit_dipole_evoked`` on ``evoked``, mne's
+        ``fit_dipole``): the position fitted at the peak-GFP sample, the
+        moment time course in closed form; a dict of host values.
+        ``elec_pos`` is (C, 3) in this adapter's channel order;
+        ``radius=`` / ``n_terms=`` / ``spacing=`` pass through."""
+        ev = self.evoked().cpu().numpy()
+        if np.asarray(elec_pos).shape != (ev.shape[0], 3):
+            raise ValueError("elec_pos must be (C, 3) matching ch_names")
+        kw.setdefault("device", self.wavelet.device)
+        return _lf.fit_dipole_evoked(ev, elec_pos, **kw)
+
+    def _event_window(self, window):
+        """(start_s, stop_s) EVENT-relative seconds -> sample window, on
+        the epochs' ``times`` axis when they carry one (mne epochs start at
+        tmin), else relative to the epoch start."""
+        if window is None:
+            return None
+        times = getattr(self.epochs, "times", None)
+        if times is not None:
+            t = np.asarray(times, np.float64)
+            lo = int(np.searchsorted(t, float(window[0]), side="left"))
+            hi = int(np.searchsorted(t, float(window[1]), side="right"))
+            return (lo, hi)
+        return self._samples(window)
+
+    def erp_peak(self, window=None, polarity: int = 1):
+        """Windowed ERP peak of every channel's evoked waveform
+        (``ops.erp.peak_measures``): a ``PeakResult`` of (C,) latencies
+        (samples from the epoch start) and amplitudes; ``window`` in
+        seconds, event-relative when the epochs carry ``times``."""
+        return _erp.peak_measures(self.evoked(), self._event_window(window),
+                                  polarity)
+
+    def erp_onset(self, window, criterion: float = 0.5, polarity: int = 1):
+        """Jackknife component-onset latency per channel
+        (``ops.erp.jackknife_onsets``, Miller-Ulrich): ``(onsets, mean,
+        se)`` in samples from the epoch start; ``window`` as in
+        ``erp_peak``."""
+        return _erp.jackknife_onsets(self._all_data(),
+                                     self._event_window(window), criterion,
+                                     polarity)
+
+    def sample_entropy(self, m: int = 2, r: float = 0.2) -> torch.Tensor:
+        """(E, C) sample entropy of every epoch and channel
+        (``ops.complexity.sample_entropy``; tolerance ``r * std``)."""
+        return _cx.sample_entropy(self._all_data(), m=m, r=r)
+
+    def permutation_entropy(self, m: int = 3, tau: int = 1,
+                            normalized: bool = True) -> torch.Tensor:
+        """(E, C) permutation entropy of every epoch and channel
+        (``ops.complexity.permutation_entropy``, Bandt-Pompe)."""
+        return _cx.permutation_entropy(self._all_data(), m=m, tau=tau,
+                                       normalized=normalized)
+
+    def multiscale_entropy(self, m: int = 2, r: float = 0.2,
+                           scales=10) -> torch.Tensor:
+        """(E, C, S) multiscale-entropy profile of every epoch and channel
+        (``ops.complexity.multiscale_entropy``, Costa 2002)."""
+        return _cx.multiscale_entropy(self._all_data(), m=m, r=r,
+                                      scales=scales)
+
     # -- trial groups ------------------------------------------------------
 
     def _carry_codes(self, out: "EpochsWavelet", sel=None
@@ -1648,6 +1730,46 @@ class RawWavelet:
         cleaned, keep = _asr.asr_process(data, sfreq, model, win_s=win_s)
         cleaned = cleaned.cpu().numpy()
         return (cleaned, keep) if return_keep else cleaned
+
+    # -- complexity, sleep events, microstates --------------------------------
+
+    def dfa(self, ch_name: str, freq: float, scales=None, decim: int = 4,
+            **kw):
+        """Long-range temporal correlation of one channel's band amplitude
+        envelope (Linkenkaer-Hansen 2001): the wavelet amplitude at
+        ``freq`` Hz (``power_channel``, streamed; K4 on the card where the
+        extended window fits the kernel), decimated by ``decim``, through
+        ``ops.complexity.dfa``.  Returns ``(alpha, fluctuations)``;
+        ``scales`` are in decimated samples."""
+        p = self.power_channel(ch_name, [float(freq)])        # (1, N)
+        env = torch.sqrt(torch.clamp(p[0], min=0.0))[::int(decim)]
+        return _cx.dfa(env, scales=scales, **kw)
+
+    def spindles(self, picks=None, **kw):
+        """Sleep-spindle detection over the recording's channels
+        (``ops.sleep.detect_spindles``, on the wavelet's device): an
+        ``EventTable`` with a leading channel axis; the criteria pass
+        through."""
+        return _sleep.detect_spindles(self._picked(picks),
+                                      self.wavelet.sfreq, **kw)
+
+    def slow_oscillations(self, picks=None, **kw):
+        """Slow-oscillation detection (``ops.sleep.
+        detect_slow_oscillations``, Massimini criteria, robust-sigma
+        thresholds by default) over the recording's channels."""
+        return _sleep.detect_slow_oscillations(self._picked(picks),
+                                               self.wavelet.sfreq, **kw)
+
+    def microstates(self, n_states: int = 4, peaks_only: bool = True,
+                    n_init: int = 8, n_iter: int = 40, seed: int = 0):
+        """EEG microstates of the recording (``ops.microstates``): maps
+        fitted on the GFP peaks, every sample backfitted.  Returns
+        ``(MicrostateResult, stats)``, the statistics as host numpy."""
+        res = _ms.microstate_fit(self._picked(None), n_states,
+                                 peaks_only=peaks_only, n_init=n_init,
+                                 n_iter=n_iter, seed=seed)
+        return res, _ms.microstate_stats(res.labels, int(n_states),
+                                         self.wavelet.sfreq)
 
     # -- event-locked epochs -------------------------------------------------
 
