@@ -618,6 +618,50 @@ bench's shapes (``benchmarks/extensions_bench.py``):
    half-peak, the fitted dipole within 5 mm at GOF above 0.9, every
    planted event found.
 
+Slice 14, the file formats, the pipeline config and the utilities
+(``slice14_phase``; no kernel of its own):
+
+58. Writes the slice-3 recording (64 x 600,000 at 1 kHz) with the port's
+   ``io.write_bdf`` beside a BioSemi ``Status`` channel carrying 200
+   planted triggers, and drives ``RawWavelet.from_bdf(path, picks=<the
+   64>, window=11524, batch=8).power`` on 100 rows (2-100 Hz): "power_each"
+   (K4) must launch once per window batch (7) and nothing else, the plane
+   must equal the in-memory ``RawWavelet`` over ``BDFReader.get_data()``
+   within 1e-5 of the max, ``status_events`` must return the planted
+   triggers exactly, and the 24-bit round trip must stay within 2^-23 of
+   the max.  Then the same recording through ``io.write_brainvision``
+   with 200 "S  1" / "S  2" markers every 2.5 s and
+   ``RawWavelet.from_brainvision(...).power``, under the same checks.  Each
+   call is timed (median of 5) beside its window gathers alone.
+59. ``epochs_from_markers(-0.5, 1.547, description="S  1")``: 100 epochs
+   of 2048 samples, whose ``power_all`` / ``itc_all`` on 100 Morse rows
+   must launch K1 and K2 once each; the windows must equal
+   ``RawWavelet.epochs`` over the in-memory array at the same events, and
+   the planes its planes and the plain path's under the gates of 4;
+   ``split()`` must partition by marker description.
+60. ``config.run_pipeline`` at the serving width (200 x 64 x 2048, 1-100
+   Hz, ``Morse(interpolate=True)``) with every stage: the (0, 0.2) s
+   baseline, significance at 0.95, the global spectrum, the ridge,
+   synchrosqueezing, superlets (orders 1-4), PLV and coherence matrices
+   over 0.5-1.5 s and specparam; K2 "power_itc", K5a and K5b must launch
+   once each and K4 (the superlet orders) at least once, and neither
+   separate reduction.  The cluster stage (one-sample, 256 permutations,
+   a ring adjacency) runs in a second call on 32 channels: its planes,
+   z-scores and null maps at 64 channels exceed the card's 80 GB.  Each
+   output against the port's own pieces: power and ITC against the plain
+   path at the gates of 4; the significance mask against the plain
+   power's except at cells within the power gate of the threshold;
+   synchrosqueezing against the plain path at the gates of 17; superlets
+   on 4 channels against the plain superlet (1e-4); the matrices and the
+   ridge (4 channels, of the K2 power) identical to the functions called
+   directly; the global spectrum against the plain power's (1e-5);
+   specparam's model within 1e-6 of a direct fit; the cluster result
+   identical to ``cluster_test_one_sample`` of the K4 planes, which match
+   the plain planes (1e-5).  Prints the launches by key, the total and
+   each stage's time (logged by ``run_pipeline`` through
+   ``utils.observability.Timer``, the card synchronized at each stage's
+   end) and the peak memory.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -2418,18 +2462,20 @@ def plain_multitaper(x, freqs, n_tapers=3):
     return p.reshape(*p.shape[:-2], len(freqs), n_tapers, n).mean(-2)
 
 
-def plain_superlet(x, freqs):
+def plain_superlet(x, freqs, order_max=8, interpolate=False):
     """The superlet epoch-mean power the plain way, from the public pieces:
-    each epoch's weighted geometric mean of the plain member powers, then
-    the mean over epochs."""
+    each epoch's weighted geometric mean of the plain member powers (orders
+    1 to ``order_max``), then the mean over epochs."""
     import torch
     from ninwavelets_tpu_torch.ops import cwt
     from ninwavelets_tpu_torch.ops.superlets import (superlet_banks,
                                                      superlet_weights)
-    banks = superlet_banks(freqs, x.shape[-1], SFREQ, device=x.device)
-    w = torch.from_numpy(superlet_weights(freqs)).to(x.device)[:, :, None]
-    logs = sum(w_k * torch.log(torch.clamp(cwt.power_from_bank(x, b, False),
-                                           min=1e-30))
+    banks = superlet_banks(freqs, x.shape[-1], SFREQ, order_max=order_max,
+                           interpolate=interpolate, device=x.device)
+    w = torch.from_numpy(superlet_weights(
+        freqs, order_max=order_max)).to(x.device)[:, :, None]
+    logs = sum(w_k * torch.log(torch.clamp(
+        cwt.power_from_bank(x, b, interpolate), min=1e-30))
                for b, w_k in zip(banks, w))
     return torch.exp(logs / w.sum(0)).mean(0)
 
@@ -3499,6 +3545,14 @@ def stat_call(name, fn, fresh, card):
     return timed_call(name, fn, fresh, card, slow_reps=3)[0]
 
 
+def launched_since(before):
+    """The kernel launches since the ``kernels.launches`` snapshot
+    ``before``, by key, the keys that moved only."""
+    from ninwavelets_tpu_torch import kernels
+    return {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+            if v != before.get(k, 0)}
+
+
 def timed_call(name, fn, fresh, card, slow_reps=None):
     """``stat_call``'s measurement: two warm-up runs under the float32
     matmul precision "high" (TF32 allowed) and "highest", whose results
@@ -3529,9 +3583,7 @@ def timed_call(name, fn, fresh, card, slow_reps=None):
         check(after == setting, f"{name}: the matmul precision {setting!r} "
               f"came back as {after!r}")
         if counts is None:
-            counts = {k: v - before.get(k, 0)
-                      for k, v in kernels.launches.items()
-                      if v != before.get(k, 0)}
+            counts = launched_since(before)
     peak = torch.cuda.max_memory_allocated()
     ok = same_result(*outs)
     print(f"check {name} TF32 on / off: identical {ok} (gate: identical)")
@@ -6023,6 +6075,378 @@ def dipoles_agree(name, fit, ref, truth):
     check(err < 1e-3 and fit["gof"] > 0.99, f"{name}: planted dipole")
 
 
+# -- slice 14: file formats, the pipeline config, the utilities ------------
+
+MARKER_EVERY, MARKER_FIRST, MARKER_N = 2500, 1000, 200   # samples, events
+TRIGGER_LEN = 50                                         # Status samples
+PIPE_PERMS = 256                                         # bench.py's perms
+PIPE_CONN_WINDOW = (0.5, 1.5)                            # s
+#: Channels of the cluster stage's own run_pipeline call: its single-trial
+#: planes, their z-scores and the null's per-chunk maps at all 64 channels
+#: (200 x 64 x 100 x 2048) pass the card's 80 GB (72 GB allocated when it
+#: ran out).
+PIPE_CLUSTER_C = 32
+
+
+class _StageLog:
+    """Collects ``run_pipeline``'s per-stage times, which it logs through
+    ``utils.observability.Timer`` at DEBUG level (each stage synchronized
+    before its clock stops)."""
+
+    def __init__(self):
+        import logging
+        self.times = {}
+        self._log = logging.getLogger("ninwavelets_tpu_torch")
+        self._handler = logging.Handler(logging.DEBUG)
+        self._handler.emit = self._emit
+
+    def _emit(self, record):
+        name, seconds = record.args
+        self.times[name.replace("run_pipeline ", "")] = seconds * 1e3
+
+    def __enter__(self):
+        import logging
+        self._level = self._log.level
+        self._log.setLevel(logging.DEBUG)
+        self._log.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self._handler)
+        self._log.setLevel(self._level)
+
+
+def file_recording_check(name, rw, freqs, ref_data, names, card):
+    """One file-backed ``RawWavelet.power`` through K4: the launches (one
+    per window batch, nothing else), the plane against the in-memory
+    ``RawWavelet`` over the reader's own ``get_data()`` (1e-5 of the max),
+    the call's median time and the window gathers' share of it."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    stream = rw._stream_for(freqs)
+    n_batches = -(-REC_N // (stream.window * REC_BATCH))
+    check(stream.window + 2 * stream.halo == REC_EXT,
+          f"{name}: extended window {stream.window + 2 * stream.halo}")
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    plane = rw.power(freqs)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = launched_since(before)
+    print(f"{name}.power: first call {first} s ({REC_C} x {REC_N}, {REC_F} "
+          f"rows, window {stream.window}, halo {stream.halo}, "
+          f"{n_batches} batches of {REC_BATCH}); launches {counts}")
+    check(counts == {"power_each": n_batches}, f"{name}.power launched "
+          f"{counts}, want K4 once per window batch ({n_batches})")
+    mem = nt.RawWavelet(NamedRaw(ref_data, SFREQ, names),
+                        nt.Morse(SFREQ, interpolate=True, device="cuda"),
+                        window=REC_WINDOW, batch=REC_BATCH)
+    rel_err(f"{name}.power vs the in-memory RawWavelet of get_data()",
+            plane, mem.power(freqs))
+    del plane, mem
+    torch.cuda.empty_cache()
+    source = rw._file_source()
+    starts = np.arange(0, REC_N, stream.window)
+    t0 = time.perf_counter()
+    for i in range(0, len(starts), REC_BATCH):
+        source.gather(starts[i:i + REC_BATCH], stream.window, stream.halo)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    ms = host_ms(lambda _: rw.power(freqs), lambda: None)
+    print(f"time {name}.power: {ms} ms (median of {REPS}); its {n_batches} "
+          f"window gathers alone {gather_ms} ms ({gather_ms / ms} of the "
+          f"call; the stream overlaps each gather with the card's work on "
+          f"the batch before), on {card}")
+    torch.cuda.empty_cache()
+    return ms, gather_ms
+
+
+def pipeline_call(label, cfg, data, card, times):
+    """One timed ``config.run_pipeline`` on the card: its total and
+    per-stage times, peak memory and launches, printed with the card's
+    name and power limit; returns (output, launches)."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import config, kernels
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.launches)
+    with _StageLog() as stages:
+        t0 = time.perf_counter()
+        out = config.run_pipeline(cfg, nt.ArrayEpochs(data, SFREQ))
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = launched_since(before)
+    e, c, n = data.shape
+    print(f"run_pipeline, {label} ({e} x {c} x {n}, {F} rows): {total} ms "
+          f"(first call: bank builds and the copy to the card included); "
+          f"stages (ms) {json.dumps(stages.times)}; peak {peak} bytes "
+          f"allocated, {peak - held} above the {held} held before; launches "
+          f"{counts}; on {card}")
+    times[f"run_pipeline, {label}"] = total
+    times.update({f"run_pipeline {k} ({c} channels)": v
+                  for k, v in stages.times.items()})
+    return out, counts
+
+
+def slice14_phase(data):
+    """Slice 14: a 64 x 600,000 recording written as BDF (with a Status
+    channel) and as BrainVision (with markers) and streamed off each file
+    through K4; epochs cut at the file's markers through K1/K2; then
+    ``config.run_pipeline`` with every stage at the serving width, each
+    output against the port's own pieces.  Nothing here joins the kernels'
+    record."""
+    import shutil
+    import tempfile
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import config, io, kernels
+    from ninwavelets_tpu_torch.ops import cluster as cl
+    from ninwavelets_tpu_torch.ops import cwt, fused, sst, tc_stats
+    from ninwavelets_tpu_torch.ops.baseline import baseline_tf
+    from ninwavelets_tpu_torch.ops.connectivity import (coherence_matrix,
+                                                        plv_matrix)
+    from ninwavelets_tpu_torch.ops.ridge import ridge_frequencies
+    from ninwavelets_tpu_torch.ops.specparam import specparam
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    t_phase = time.perf_counter()
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="ninw_slice14_")
+    try:
+        rec = recording(14)
+        names = [f"EEG{i:03d}" for i in range(REC_C)]
+        freqs = np.linspace(2.0, 100.0, REC_F)
+        onsets = MARKER_FIRST + MARKER_EVERY * np.arange(MARKER_N)
+        codes = np.tile([1, 2], MARKER_N // 2)
+
+        # -- BDF: 64 channels + Status, streamed through K4 --------------------
+        status = np.zeros(REC_N)
+        for s, code in zip(onsets, codes):
+            status[s:s + TRIGGER_LEN] = code
+        bdf = os.path.join(tmp, "rec.bdf")
+        t0 = time.perf_counter()
+        io.write_bdf(bdf, np.vstack([rec, status[None]]), SFREQ,
+                     ch_names=names + ["Status"])
+        times["write_bdf"] = (time.perf_counter() - t0) * 1e3
+        rw = nt.RawWavelet.from_bdf(
+            bdf, nt.Morse(SFREQ, interpolate=True, device="cuda"),
+            picks=names, window=REC_WINDOW, batch=REC_BATCH)
+        reader = rw.raw.reader
+        t0 = time.perf_counter()
+        ref = reader.get_data(names)
+        times["BDFReader.get_data"] = (time.perf_counter() - t0) * 1e3
+        quant = np.abs(ref - rec).max() / np.abs(rec).max()
+        print(f"check BDF round trip: max|d| / max {quant} (24-bit "
+              f"quantization, gate 2^-23)")
+        check(quant <= 2.0 ** -23, f"BDF round trip {quant}")
+        events = io.status_events(reader.get_data(["Status"])[0])
+        want = [(int(s), "Status", str(int(c))) for s, c in zip(onsets,
+                                                                codes)]
+        print(f"check status_events: {len(events)} events, equal to the "
+              f"{len(want)} planted {events == want}")
+        check(events == want, "status_events differ from the planted "
+              "triggers")
+        times["from_bdf.power"], times["BDF gathers"] = file_recording_check(
+            "from_bdf", rw, freqs, ref, names, card)
+        del rw, reader, ref, status
+        os.remove(bdf)
+
+        # -- BrainVision: the same recording with 200 markers -------------------
+        vhdr = os.path.join(tmp, "rec.vhdr")
+        marks = [(int(s), "Stimulus", f"S  {c}") for s, c in zip(onsets,
+                                                                 codes)]
+        t0 = time.perf_counter()
+        io.write_brainvision(vhdr, rec, SFREQ, ch_names=names, markers=marks)
+        times["write_brainvision"] = (time.perf_counter() - t0) * 1e3
+        rwb = nt.RawWavelet.from_brainvision(
+            vhdr, nt.Morse(SFREQ, interpolate=True, device="cuda"),
+            window=REC_WINDOW, batch=REC_BATCH)
+        check(rwb.raw.reader.markers == marks, "BrainVision markers differ")
+        ref = rwb.raw.reader.get_data()
+        check(np.array_equal(ref, rec), "BrainVision float32 round trip")
+        times["from_brainvision.power"], times["BV gathers"] = \
+            file_recording_check("from_brainvision", rwb, freqs, ref, names,
+                                 card)
+        del ref
+
+        # -- epochs at the file's markers through K1/K2 -------------------------
+        ev_freqs = np.arange(1.0, F + 1.0)
+        torch.cuda.synchronize()
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        ew = rwb.epochs_from_markers(EVENT_TMIN, EVENT_TMAX,
+                                     description="S  1")
+        p_ev = ew.power_all(ev_freqs)
+        i_ev = ew.itc_all(ev_freqs)
+        torch.cuda.synchronize()
+        times["epochs_from_markers + power_all + itc_all (first call)"] = (
+            time.perf_counter() - t0) * 1e3
+        counts = launched_since(before)
+        x_ev = ew._all_data()
+        print(f"epochs_from_markers: {tuple(x_ev.shape)} epochs, launches "
+              f"{counts}")
+        check(tuple(x_ev.shape) == (MARKER_N // 2, REC_C, N),
+              f"marker epochs {tuple(x_ev.shape)}")
+        check(counts == {"power": 1, "itc": 1}, f"marker epochs launched "
+              f"{counts}, want K1 and K2 once each")
+        check(list(np.unique(ew.event_codes)) == ["S  1"],
+              "marker epochs' codes")
+        mem = nt.RawWavelet(NamedRaw(rec, SFREQ, names),
+                            nt.Morse(SFREQ, interpolate=True, device="cuda"))
+        ew_ref = mem.epochs(onsets[codes == 1], EVENT_TMIN, EVENT_TMAX)
+        check(np.array_equal(ew._host_data(), ew_ref._host_data()),
+              "marker epochs differ from RawWavelet.epochs at the same "
+              "events")
+        bank_ev = ew.wavelet.fft_wavelets
+        ref_power = cwt.mean_power_from_bank(x_ev, bank_ev, True)
+        rel_err("epochs_from_markers power_all vs the in-memory epochs",
+                p_ev, ew_ref.power_all(ev_freqs))
+        rel_err("epochs_from_markers power_all vs plain", p_ev, ref_power)
+        itc_err("epochs_from_markers itc_all vs the in-memory epochs", i_ev,
+                ew_ref.itc_all(ev_freqs), ref_power)
+        itc_err("epochs_from_markers itc_all vs plain", i_ev,
+                cwt.itc_from_bank(x_ev, bank_ev, True), ref_power)
+        groups = rwb.epochs_from_markers(EVENT_TMIN, EVENT_TMAX).split()
+        check(sorted(groups) == ["S  1", "S  2"] and all(
+            len(g._host_data()) == MARKER_N // 2 for g in groups.values()),
+            "split() by marker description")
+        del rwb, ew, ew_ref, mem, groups, x_ev, p_ev, i_ev, ref_power
+        os.remove(vhdr)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del rec
+    torch.cuda.empty_cache()
+
+    # -- run_pipeline, every stage, at the serving width ------------------------
+    # The cluster stage runs in a second call on PIPE_CLUSTER_C channels.
+    cfg = config.PipelineConfig(
+        wavelet=config.MorseConfig(sfreq=SFREQ, interpolate=True),
+        freqs=(1.0, F + 1.0, 1.0), baseline=BASELINE, significance=0.95,
+        global_spectrum=True, ridge=True, ssq=True, superlet=(1, 4),
+        connectivity="both", connectivity_window=PIPE_CONN_WINDOW,
+        specparam=True)
+    out, counts = pipeline_call("every stage but the cluster test", cfg,
+                                data, card, times)
+    for key in ("power_itc", "amax", "ssq", "power_each"):
+        check(counts.get(key, 0) >= 1, f"run_pipeline never launched "
+              f"{key!r}: a plain path ran where the kernel should")
+    check(counts.get("power_itc") == 1 and counts.get("amax") == 1
+          and counts.get("ssq") == 1, f"run_pipeline launched {counts}: "
+          "K2 'power_itc', K5a and K5b once each")
+    check(not {"power", "itc"} & set(counts),
+          f"run_pipeline launched separate reductions {counts}")
+    for key in ("power", "itc", "significant", "ssq_power",
+                "superlet_power", "plv_matrix", "coherence_matrix",
+                "global_spectrum"):
+        check(out[key].device.type == "cuda", f"{key} not on the card")
+    for key in ("freqs", "coi", "ridge_hz"):
+        check(isinstance(out[key], np.ndarray), f"{key} not numpy")
+
+    # -- each output against the port's own pieces ---------------------------
+    w = out["wavelet"]
+    x = torch.from_numpy(data).cuda()
+    bank = w.fft_wavelets
+    fr = out["freqs"]
+    plain_p = cwt.mean_power_from_bank(x, bank, True)
+    baselined_err("run_pipeline power (baselined) vs plain", out["power"],
+                  plain_p)
+    itc_err("run_pipeline itc vs plain", out["itc"],
+            cwt.itc_from_bank(x, bank, True), plain_p)
+    host = data
+    alpha = [float(np.mean([tc_stats.ar1_coefficient(r)
+                            for r in host[:, ch]])) for ch in range(C)]
+    var = [float(np.mean(np.var(host[:, ch], axis=-1))) for ch in range(C)]
+    thr = torch.stack([tc_stats.significance_level(
+        bank, SFREQ, alpha[ch], var[ch], 0.95, E) for ch in range(C)])
+    plain_sig = plain_p > thr[..., None]
+    near = ((plain_p - thr[..., None]).abs()
+            <= POWER_RTOL * plain_p.amax(dim=(-2, -1), keepdim=True))
+    differ = out["significant"] != plain_sig
+    print(f"check run_pipeline significant vs the plain power's mask: "
+          f"{int(differ.sum())} cells differ, {int((differ & ~near).sum())} "
+          f"of them farther than the power gate from the threshold (gate "
+          f"0); {int(plain_sig.sum())} of {plain_sig.numel()} significant")
+    check(not bool((differ & ~near).any()), "run_pipeline significant")
+    hint = sst.uniform_grid_hint(np.float32(fr))
+    ssq_err("run_pipeline ssq_power vs plain", out["ssq_power"],
+            sst.ssq_mean_power_from_bank(x, bank, None, SFREQ, True, 1e-6,
+                                         hint))
+    sub = 4                                   # channels of the plain superlet
+    rel_err(f"run_pipeline superlet_power vs plain (channels 0-{sub - 1})",
+            out["superlet_power"][:sub],
+            plain_superlet(x[:, :sub], fr, order_max=4, interpolate=True),
+            1e-4)
+    trange = tuple(int(round(s * SFREQ)) for s in PIPE_CONN_WINDOW)
+    for key, fn in (("plv_matrix", plv_matrix),
+                    ("coherence_matrix", coherence_matrix)):
+        direct = fn(x, bank, interpolate=True, time_range=trange)
+        same = torch.equal(out[key], direct)
+        print(f"check run_pipeline {key} vs {fn.__name__} called directly: "
+              f"identical {same}")
+        check(same, f"run_pipeline {key}")
+    coi = out["coi"]
+    rel_err("run_pipeline global_spectrum vs plain",
+            out["global_spectrum"], tc_stats.global_spectrum(plain_p, coi))
+    p_k, _ = fused.power_itc_auto(x, bank, interpolate=True)
+    ridge = np.stack([ridge_frequencies(p_k[ch], fr) for ch in range(sub)])
+    same = np.array_equal(ridge, out["ridge_hz"][:sub])
+    print(f"check run_pipeline ridge_hz vs ridge_frequencies of the K2 "
+          f"power (channels 0-{sub - 1}): identical {same}")
+    check(same, "run_pipeline ridge_hz")
+    fit = specparam(out["global_spectrum"], fr, max_peaks=4)
+    close("run_pipeline specparam model vs specparam called directly",
+          out["specparam"].model, fit.model, 1e-6)
+    del p_k, fit, out, plain_p
+    torch.cuda.empty_cache()
+
+    # -- the cluster stage, on PIPE_CLUSTER_C channels ---------------------------
+    cc = PIPE_CLUSTER_C
+    ring = tuple((i, (i + 1) % cc) for i in range(cc))
+    cfg = config.PipelineConfig(
+        wavelet=config.MorseConfig(sfreq=SFREQ, interpolate=True),
+        freqs=(1.0, F + 1.0, 1.0), baseline=BASELINE, cluster_test=True,
+        cluster_adjacency=ring, cluster_n_perm=PIPE_PERMS)
+    sub_data = np.ascontiguousarray(data[:, :cc])
+    out, counts = pipeline_call(
+        f"the cluster test ({cc} channels, a {cc}-channel ring, "
+        f"{PIPE_PERMS} permutations)", cfg, sub_data, card, times)
+    check(counts.get("power_itc") == 1 and counts.get("power_each", 0) >= 1
+          and not {"power", "itc"} & set(counts),
+          f"run_pipeline (cluster) launched {counts}: K2 'power_itc' once "
+          "and K4 for the single-trial planes")
+    res = out["cluster"]
+    bank = out["wavelet"].fft_wavelets
+    x = x[:, :cc].contiguous()
+    planes = baseline_tf(fused.power_auto(x, bank, interpolate=True), SFREQ,
+                         *BASELINE)
+    direct = cl.cluster_test_one_sample(
+        planes, n_perm=PIPE_PERMS,
+        adjacency=np.asarray(ring, np.int32))
+    same = (np.array_equal(res.t_obs, direct.t_obs)
+            and np.array_equal(res.null_max, direct.null_max)
+            and np.array_equal(res.p_map, direct.p_map))
+    print(f"check run_pipeline cluster vs cluster_test_one_sample of the K4 "
+          f"planes: identical {same}; {len(res.clusters)} clusters, smallest "
+          f"p {res.clusters[0]['p'] if res.clusters else None}")
+    check(same, "run_pipeline cluster")
+    del planes, direct
+    torch.cuda.empty_cache()
+    rel_err("K4 planes (epochs 0-7) vs plain", fused.power_auto(
+        x[:8], bank, interpolate=True), cwt.power_from_bank(x[:8], bank,
+                                                             True))
+    del out, res, x
+    torch.cuda.empty_cache()
+    print(f"slice-14 phase {time.perf_counter() - t_phase} s; times (ms) "
+          f"{json.dumps(times)}; on {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6194,6 +6618,10 @@ def main() -> int:
 
     # -- slice 13: ERP, complexity, sleep, microstates, sim, sources ----------
     slice13_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 14: file formats, the pipeline config, the utilities ----------
+    slice14_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

@@ -29,7 +29,12 @@ IRASA, specparam, EWT, VMD, EMD / EEMD, matching pursuit, CP / PARAFAC,
 cycle features and HMM states in ``ops``, with
 ``EpochsWavelet.specparam`` / ``cp_power`` / ``matching_pursuit`` /
 ``cycles`` / ``psd`` and ``RawWavelet.states`` / ``specparam`` /
-``irasa`` / ``psd``).  On a
+``irasa`` / ``psd``), sensor-space preprocessing and decoding, ERP,
+complexity, sleep, microstate, simulation and source modules, the BDF and
+BrainVision readers (``RawWavelet.from_bdf`` / ``from_brainvision`` /
+``epochs_from_markers``), the one-call pipeline (``config.run_pipeline``)
+and the utilities (``utils.observability``, ``tooltip``, ``report``; the
+plots need matplotlib, imported only when one is drawn).  On a
 CUDA tensor the epoch reductions (for real and complex banks) and the
 per-signal power run the fused kernels of ``csrc/fused_cwt.cu``, the power's
 gradient the fused backward of ``csrc/fused_cwt_bwd.cu`` (real and complex
@@ -40,23 +45,30 @@ they run the plain ``torch.fft`` path.
 Entry points place their data on the card unless the caller passes
 ``device="cpu"``.
 """
-from . import convert, io, kernels, ops, parallel
+from . import config, convert, io, kernels, ops, parallel
 from .models import (DOG, Bump, Haar, MexicanHat, Morlet, Morse, MorseMNE,
                      MorseMultitaper, Paul, Shannon, Superlet, WaveletBase,
                      WaveletMode)
 from .ops.baseline import Baseline, baseline_correct, baseline_tf
+from .ops.ewt import ewt
 from .ops.fit import fit_frequencies, learn_bank
+from .ops.vmd import vmd
 from .parallel import OnlineCWT, StreamingCWT
-from .utils import ArrayEpochs, EpochsWavelet, RawWavelet
+from .utils import (ArrayEpochs, EpochsWavelet, Parallel, RawWavelet, Report,
+                    Sequence, compose, dict_map, plot_microstates, plot_tf,
+                    plot_topomap, plot_wavelet)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "WaveletBase", "WaveletMode", "Baseline",
+    "WaveletBase", "WaveletMode", "plot_tf", "plot_topomap",
+    "plot_microstates", "Report", "Baseline",
     "Morse", "MorseMNE", "Morlet", "Haar", "MexicanHat", "Shannon",
     "Paul", "DOG", "Bump", "Superlet", "MorseMultitaper",
     "ArrayEpochs", "EpochsWavelet", "RawWavelet", "StreamingCWT",
     "OnlineCWT",
-    "baseline_correct", "baseline_tf", "fit_frequencies", "learn_bank",
-    "ops", "kernels", "convert", "io", "parallel",
+    "plot_wavelet", "baseline_correct", "baseline_tf", "fit_frequencies",
+    "learn_bank", "Parallel", "Sequence", "compose", "dict_map",
+    "ewt", "vmd",
+    "ops", "config", "kernels", "convert", "io", "parallel",
 ]

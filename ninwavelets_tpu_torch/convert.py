@@ -3,7 +3,8 @@
 A wavelet's "weights" are its hyper-parameters and its (F, N) bank; a fitted
 HMM, a matching-pursuit decomposition, an ICA, ASR, spatial-filter or TRF
 model, a rejection search, an ERP peak, an event table, a microstate fit
-and a beamformer or minimum-norm inverse are tuples of arrays.  All are
+and a beamformer or minimum-norm inverse are tuples of arrays; a pipeline
+configuration is a frozen dataclass of plain values.  All are
 read here as plain Python and numpy values, so this module imports neither
 ``jax`` nor ``ninwavelets_tpu``: hand it the JAX object or arrays, or anything
 with the same attributes.
@@ -14,9 +15,12 @@ when CUDA is absent.  Pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from . import config as _config
 from .device import resolve_device
 from .models import zoo
 from .ops.asr import ASRModel
@@ -186,3 +190,30 @@ def minimum_norm_result_from_jax(res, device=None) -> MinimumNormResult:
     kernel = torch.from_numpy(np.array(res.kernel, np.float32)).to(
         resolve_device(device))
     return MinimumNormResult(kernel=kernel, method=str(res.method))
+
+
+def _config_from_jax(cls, cfg, nested=None):
+    """``cls`` with each of its fields read off ``cfg``; ``nested`` maps a
+    field to the converter of its value."""
+    nested = nested or {}
+    return cls(**{f.name: nested.get(f.name, lambda v: v)(
+        getattr(cfg, f.name)) for f in dataclasses.fields(cls)})
+
+
+def _wavelet_config_from_jax(w):
+    name = type(w).__name__
+    if name not in ("MorseConfig", "MorletConfig"):
+        raise TypeError(f"no port of wavelet config {name!r}; one of "
+                        "['MorletConfig', 'MorseConfig']")
+    return _config_from_jax(getattr(_config, name), w)
+
+
+def pipeline_config_from_jax(cfg) -> "_config.PipelineConfig":
+    """The port's ``config.PipelineConfig`` of a JAX-package one, field by
+    field: its wavelet config (``MorseConfig`` or ``MorletConfig``) and
+    ``EngineConfig`` carried the same way.  Any other wavelet config class
+    raises ``TypeError``."""
+    return _config_from_jax(
+        _config.PipelineConfig, cfg,
+        {"wavelet": _wavelet_config_from_jax,
+         "engine": lambda e: _config_from_jax(_config.EngineConfig, e)})

@@ -32,7 +32,10 @@ allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
 synchrosqueezing plane and the "amax" peaks, which the kernels add into),
 launches on the current
 CUDA stream, raises on any non-zero CUDA error, and counts its launches in
-``launches``.
+``launches``.  While ``nan_check`` is set (by
+``utils.observability.debug_nans``) each launcher also checks its outputs
+and raises ``FloatingPointError`` naming the kernel when one holds a NaN:
+the dispatcher never sees a ``ctypes`` launch.
 """
 from __future__ import annotations
 
@@ -84,6 +87,10 @@ launches = dict.fromkeys((*EPILOGUES, "power_each", "power_bwd", "ssq",
                           *(f"{e}_cx" for e in COMPLEX_EPILOGUES),
                           "power_bwd_cx"), 0)
 
+#: Set while ``utils.observability.debug_nans`` is on: the launchers then
+#: check their outputs for NaN (``_check_nans``).
+nan_check = False
+
 _lock = threading.Lock()
 _lib = None
 
@@ -91,6 +98,14 @@ _lib = None
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+
+
+def _check_nans(key: str, outs) -> None:
+    """Under ``debug_nans``: raise ``FloatingPointError`` naming the kernel
+    when one of its outputs holds a NaN."""
+    if nan_check and any(bool(torch.isnan(t).any()) for t in outs):
+        raise FloatingPointError(
+            f"invalid value (nan) encountered in kernel {key}")
 
 
 def _nvcc() -> str:
@@ -395,6 +410,7 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
         raise RuntimeError(f"fused_cwt[{key}] launch failed: CUDA error "
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
     launches[key] += 1
+    _check_nans(key, outs)
     return outs
 
 
@@ -461,6 +477,7 @@ def fused_power_each(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
         raise RuntimeError(f"fused_power_each launch failed: CUDA error "
                            f"{err} (B={e * c}, F={f}, N={n}, keep={keep})")
     launches["power_each"] += 1
+    _check_nans("power_each", [dst])
     return dst
 
 
@@ -503,6 +520,7 @@ def fused_cwt_bwd(spec: torch.Tensor, bank: torch.Tensor, g: torch.Tensor,
         raise RuntimeError(f"fused_cwt_bwd launch failed ({key}): CUDA error "
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
     launches[key] += 1
+    _check_nans(key, [dbank_part, t_part])
     return dbank_part, t_part
 
 
@@ -551,6 +569,7 @@ def fused_ssq(spec: torch.Tensor, bank: torch.Tensor, floors: torch.Tensor,
         raise RuntimeError(f"fused_ssq launch failed: CUDA error {err} "
                            f"(E={e}, C={c}, F={f}, N={n})")
     launches["ssq"] += 1
+    _check_nans("ssq", [out])
     return out
 
 
@@ -594,4 +613,5 @@ def fused_cwt_pair(epilogue: str, spec_a: torch.Tensor, spec_b: torch.Tensor,
         raise RuntimeError(f"fused_cwt_pair[{epilogue}] launch failed: CUDA "
                            f"error {err} (E={e}, C={c}, F={f}, N={n})")
     launches[epilogue] += 1
+    _check_nans(epilogue, [out])
     return list(out.unbind(0))

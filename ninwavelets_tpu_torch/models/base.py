@@ -255,3 +255,9 @@ class WaveletBase:
         return _scattering(wave, build(freqs1, self.interpolate),
                            build(freqs2, False), self.sfreq, stride=stride,
                            interpolate=self.interpolate, lowpass=lowpass)
+
+    def plot(self, freq: float, show: bool = True):
+        """Plot the wavelet at ``freq`` (``utils.plotting.plot_wavelet``;
+        needs matplotlib)."""
+        from ..utils.plotting import plot_wavelet
+        return plot_wavelet(self, freq, show)

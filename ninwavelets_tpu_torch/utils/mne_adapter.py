@@ -56,6 +56,10 @@ too: ``EpochsWavelet.evoked``, ``erp_peak``, ``erp_onset`` (``ops.erp``),
 (``ops.complexity``) and ``fit_dipole`` (``ops.leadfield``); and
 ``RawWavelet.dfa`` (the envelope of ``power_channel``, K4 on the card),
 ``spindles``, ``slow_oscillations`` (``ops.sleep``) and ``microstates``.
+A recording opens straight off an EDF, BDF or BrainVision file
+(``RawWavelet.from_edf``, ``from_bdf``, ``from_brainvision``): ``power``
+then streams window batches off the file mmap into K4, and
+``epochs_from_markers`` cuts epochs at the file's own markers.
 Both need only the duck-typed MNE surface
 ``.info['sfreq']``, ``.ch_names`` and ``.get_data()``.
 """
@@ -65,6 +69,8 @@ import numpy as np
 import torch
 
 from ..device import as_float32
+from ..io.bdf import BDFRaw
+from ..io.brainvision import BVRaw
 from ..io.edf import EDFRaw
 from ..io.native import f32_gather
 from ..io.stream import EDFSource
@@ -1415,7 +1421,8 @@ class RawWavelet:
     Parameters
     ----------
     raw: an ``mne.io.Raw``-like object (``.info['sfreq']``, ``.ch_names``,
-        ``.get_data() -> (C, N)``), or ``io.EDFRaw``.
+        ``.get_data() -> (C, N)``), or ``io.EDFRaw`` / ``BDFRaw`` /
+        ``BVRaw`` (``from_edf``, ``from_bdf``, ``from_brainvision``).
     wavelet: a ``WaveletBase``; its ``sfreq`` is overwritten from
         ``raw.info`` and its ``device`` places the planes.
     window / halo / batch: see ``StreamingCWT`` (the halo defaults from the
@@ -1445,6 +1452,25 @@ class RawWavelet:
         materialized in host memory."""
         return cls(EDFRaw(path, picks=picks), wavelet, **kw)
 
+    @classmethod
+    def from_bdf(cls, path, wavelet: WaveletBase, picks=None,
+                 **kw) -> "RawWavelet":
+        """Open a BioSemi BDF recording (24-bit; ``io.BDFRaw``): ``power``
+        and ``power_channel`` stream window batches decoded straight off the
+        file mmap.  Trigger events live on the ``Status`` channel: extract
+        them with ``io.status_events(rw.raw.reader.get_data(["Status"])[0])``
+        (the underlying ``BDFReader`` takes channel-name picks)."""
+        return cls(BDFRaw(path, picks=picks), wavelet, **kw)
+
+    @classmethod
+    def from_brainvision(cls, vhdr_path, wavelet: WaveletBase,
+                         picks=None, **kw) -> "RawWavelet":
+        """Open a BrainVision recording (.vhdr; ``io.BVRaw``): ``power``
+        and ``power_channel`` stream window batches off the file mmap; the
+        markers are at ``.raw.reader.markers``, for
+        :meth:`epochs_from_markers` or :meth:`epochs`."""
+        return cls(BVRaw(vhdr_path, picks=picks), wavelet, **kw)
+
     def invalidate(self) -> None:
         """Drop the cached ``get_data()`` snapshot and streams: call after
         mutating the raw object (crop, filter)."""
@@ -1460,7 +1486,8 @@ class RawWavelet:
 
     def _file_source(self, picks=None):
         """An ``io.stream`` source gathering straight off the file mmap
-        when the raw object is EDF-backed (``io.EDFRaw``), else None."""
+        when the raw object is file-backed (``io.EDFRaw``, ``io.BDFRaw``,
+        ``io.BVRaw``: a ``reader`` with ``gather``), else None."""
         reader = getattr(self.raw, "reader", None)
         if reader is None or not hasattr(reader, "gather"):
             return None
@@ -1773,10 +1800,37 @@ class RawWavelet:
 
     # -- event-locked epochs -------------------------------------------------
 
+    def epochs_from_markers(self, tmin: float, tmax: float,
+                            description=None, kind=None,
+                            picks=None) -> EpochsWavelet:
+        """Event-locked epochs from the recording's embedded markers
+        (BrainVision .vmrk via ``io.BVReader.markers``): filter by marker
+        ``description`` (e.g. ``"S  1"``) and / or ``kind`` (e.g.
+        ``"Stimulus"``), then slice as :meth:`epochs` does.  The marker
+        descriptions ride along as a numpy string array of
+        ``event_codes``, so ``split()`` partitions by stimulus type."""
+        reader = getattr(self.raw, "reader", None)
+        markers = getattr(reader, "markers", None)
+        if not markers:
+            raise ValueError(
+                "this recording carries no markers (open a BrainVision "
+                "file with a .vmrk via RawWavelet.from_brainvision)")
+        hits = [(s, d) for (s, k, d) in markers
+                if (kind is None or k == kind)
+                and (description is None or d == description)]
+        if not hits:
+            raise ValueError(
+                f"no markers match kind={kind!r} "
+                f"description={description!r}")
+        ev = np.asarray([s for s, _ in hits], np.int64)
+        return self.epochs(ev, tmin, tmax, picks=picks,
+                           codes=np.asarray([d for _, d in hits]))
+
     def _bad_spans(self, prefix: str):
         """[(onset_s, duration_s), ...] of the annotations whose text starts
         with ``prefix`` (case-insensitive, mne's "bad" convention).  Needs a
-        reader with ``read_annotations`` (EDF+)."""
+        reader with ``read_annotations`` (EDF+, or BrainVision's marker
+        spans)."""
         reader = getattr(self.raw, "reader", None)
         read = getattr(reader, "read_annotations", None)
         if read is None:
@@ -1806,7 +1860,8 @@ class RawWavelet:
         reject_spans: optional ``[(onset_s, duration_s), ...]``: events
             whose window overlaps a span are dropped.
         reject_annotations: optional text prefix (e.g. ``"bad"``): the spans
-            come from the recording's EDF+ annotations too.
+            come from the recording's EDF+ annotations (or BrainVision
+            marker spans) too.
         codes: optional per-event codes (instead of an id column).
 
         Events whose window would cross either edge of the recording are
