@@ -662,6 +662,47 @@ Slice 14, the file formats, the pipeline config and the utilities
    ``utils.observability.Timer``, the card synchronized at each stage's
    end) and the peak memory.
 
+Slice 15, the multi-device layer (``multigpu_phase``; no kernel of its own,
+each rank runs the kernels on its block; ``parallel.collectives`` is the one
+module that knows the backend):
+
+61. The fused kernel's epoch-sums entry (``ninw_fused_cwt_sums``, behind
+   ``ops.fused._itc_sums`` / ``_power_itc_sums``, which the sharded ITC
+   adds across ranks before it takes |.|) against the plain sums at every
+   N from 256 to 16384, both ``interpolate`` settings and a complex
+   (MexicanHat) bank, E = 19: the power sums at 1e-5 of the max, the
+   unit-phase sums at 1e-4 E on the cells where every epoch's |c| is at
+   least 1e-2 of its row max, the ITC they finish to under the complex
+   banks' witness rules of slice 6; the "itc" epilogue's sums alike.
+62. NCCL, one rank, in this process: a (1, 1, 1) mesh, and every
+   ``sharded_*``, ``distributed_*`` and ``chunked_*`` function and
+   ``EpochsWavelet.cluster_test(mesh=)`` at a small size (8 x 4 x 1024,
+   16 rows; planes 32 x 20 x 256, 256 permutations) against its
+   single-device twin: values at 1e-5 of the max (1e-4 for the pair
+   statistics and the gradient, 1e-3 for Granger, the HMM and FastICA),
+   the cluster results bit for bit.  K1, K2 (complex bank), K4 and K6 must
+   launch.  The group is destroyed after.
+63. Gloo, four ranks that share the card (``run_on_mesh``, spawned, every
+   collective timed out after 300 s): the serving workload at full width
+   (200 x 64 x 2048, 100 Morse rows) on the (4, 1, 1) and (2, 2, 1)
+   meshes through ``sharded_fused_mean_power`` / ``_itc`` /
+   ``_power_itc`` (real bank, ``interpolate=True``, and the MexicanHat
+   complex bank), ``distributed_mean_power`` / ``_itc`` and
+   ``sharded_fused_coherence`` / ``_phase_lag`` on slice 5's 64 pairs,
+   then ``chunked_power_auto`` of the 64-channel recording's first
+   4 x 11524 samples on (1, 1, 4), each window extended by the halo to
+   16384 (K4).  The counters are zeroed before and read after that main
+   path on every rank; every rank must have launched K1, K2 (real and
+   complex), K6 and K4.  Each rank's blocks against the single-device
+   port on the same rows (the kernels, under the gates of 4 and 21; K4's
+   block against the plain transform of its extended window at 1e-5);
+   then the statistics and decoders of 62 on (4, 1, 1) (TF decoding also
+   on (2, 2, 1)), rank 0 holding them against one device.  Prints each
+   rank's launches and ``collectives.staged`` (the halo exchange's
+   point-to-point sends pass through host memory under gloo), each call's
+   wall time between barriers (its second call) beside the card's name
+   and power limit.  A rank that fails or hangs fails the run.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -6447,6 +6488,593 @@ def slice14_phase(data):
           f"{json.dumps(times)}; on {card}")
 
 
+#: Slice 15, the multi-device layer.  The four gloo ranks that share the card
+#: and their collectives' time limit; the kernels every rank must launch on
+#: the phase's main path; the small cases' shape (E, C, N, F), permutations
+#: and the planes of the adapter's cluster test.
+MESH_WORLD, MESH_TIMEOUT_S = 4, 300.0
+MESH_KERNELS = ("power", "itc", "power_itc", "power_cx", "itc_cx",
+                "power_itc_cx", "coherence", "phaselag", "power_each")
+MESH_E, MESH_C, MESH_N, MESH_F = 8, 4, 1024, 16
+MESH_PERMS = 256
+MESH_SF = 250.0
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def mesh_full(x):
+    """Sharded results (DTensors, in tuples, lists and NamedTuples) gathered
+    whole; every rank of the mesh calls this, in the same order."""
+    from ninwavelets_tpu_torch.parallel import full_tensor
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(mesh_full(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(mesh_full(v) for v in x)
+    return full_tensor(x)
+
+
+def mesh_err(name, got, ref, gate):
+    """Gathered sharded result(s) against the single-device one(s): float
+    tensors at ``gate`` (max|d| / max|ref|), the rest (and ``gate`` "same")
+    bit for bit."""
+    import torch
+    if isinstance(ref, (tuple, list)) and not isinstance(ref[0], dict):
+        return max(mesh_err(f"{name}[{i}]", g, r, gate)
+                   for i, (g, r) in enumerate(zip(got, ref)))
+    if (isinstance(ref, torch.Tensor) and not ref.is_floating_point()
+            and gate != "same"):
+        moved = (got != ref).float().mean().item()
+        print(f"check {name}: share of entries that differ {moved} (gate "
+              f"{gate})")
+        check(moved <= gate, f"{name}: {moved} of the entries differ")
+        return moved
+    if gate == "same" or not isinstance(ref, torch.Tensor):
+        same = same_result(got, ref)
+        print(f"check {name}: bit for bit {same}")
+        check(same, f"{name}: differs from the single-device result")
+        return 0.0
+    return rel_err(name, got, ref, gate)
+
+
+def mesh_small_cases(mesh, part):
+    """(name, sharded call, single-device call, gate) for the sharded
+    functions at a small size on ``mesh``'s card: ``part`` "all" (every
+    sharded, distributed and chunked function and the adapter's
+    ``cluster_test(mesh=)``) or "stats" (the statistics and decoders)."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import parallel as par
+    from ninwavelets_tpu_torch.ops import cluster, cwt, decoding, dwt
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import envelope, fused, granger, hmm, ica
+    from ninwavelets_tpu_torch.ops import extensions as ext
+    from ninwavelets_tpu_torch.ops import multitaper, reassign, spatial, sst
+    from ninwavelets_tpu_torch.ops import superlets
+    from ninwavelets_tpu_torch.ops.stockwell import stockwell as s_transform
+    from ninwavelets_tpu_torch.parallel import pow2_halo
+
+    gen = np.random.default_rng(15)
+
+    def card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    e, c, n, f = MESH_E, MESH_C, MESH_N, MESH_F
+    t = np.arange(n) / SFREQ
+    x = card(gen.standard_normal((e, c, n)) + np.sin(2 * np.pi * 40 * t))
+    y = pair_b(x)
+    freqs = np.linspace(10.0, 80.0, f)
+    bank, bank_t = morse_bank(freqs, n, False), morse_bank(freqs, n, True)
+    cxb = cx_bank("MexicanHat", freqs, n, False)
+    planes = card(gen.standard_normal((32, 20, 256)))
+    planes[:, 5:9, 100:160] += 0.9
+    planes_b = card(gen.standard_normal((16, 20, 256)))
+    x_h = card(hmm_frames(8, 400, 3))
+    src = np.stack([np.sign(np.sin(np.arange(40000) / 37.0)),
+                    gen.laplace(size=40000)] + [gen.uniform(-1.7, 1.7, 40000)
+                                                for _ in range(14)])
+    x_i = card(gen.standard_normal((16, 16)) @ src)
+    cov_a = card(gen.standard_normal((32, 16, 512)))
+    cov_b = card(gen.standard_normal((32, 16, 512)) * np.linspace(
+        0.5, 2.0, 16)[None, :, None])
+    tf_a = card(gen.standard_normal((24, 8, 20, 256)))
+    tf_a[:, :, 4:8] += 0.5
+    tf_b = card(gen.standard_normal((24, 8, 20, 256)))
+    stats = [
+        ("sharded_cluster_test_one_sample",
+         lambda: par.sharded_cluster_test_one_sample(
+             planes, mesh=mesh, n_perm=MESH_PERMS, seed=1),
+         lambda: cluster.cluster_test_one_sample(planes, n_perm=MESH_PERMS,
+                                                 seed=1), "same"),
+        ("sharded_cluster_test_independent",
+         lambda: par.sharded_cluster_test_independent(
+             planes[:16], planes_b, mesh=mesh, n_perm=MESH_PERMS, seed=2),
+         lambda: cluster.cluster_test_independent(
+             planes[:16], planes_b, n_perm=MESH_PERMS, seed=2), "same"),
+        ("sharded_cluster_test_f",
+         lambda: par.sharded_cluster_test_f(
+             [planes[:12], planes[12:24], planes_b[:12]], mesh=mesh,
+             n_perm=MESH_PERMS, seed=3),
+         lambda: cluster.cluster_test_f(
+             [planes[:12], planes[12:24], planes_b[:12]],
+             n_perm=MESH_PERMS, seed=3), "same"),
+        ("sharded_cluster_null",
+         lambda: par.sharded_cluster_null(planes, 4, mesh=mesh,
+                                          n_perm=MESH_PERMS, threshold=2.0),
+         lambda: cluster._sign_flip_null(planes, 4, n_perm=MESH_PERMS,
+                                         threshold=2.0), "same"),
+        ("sharded_tf_decode",
+         lambda: par.sharded_tf_decode(tf_a, tf_b, mesh=mesh),
+         lambda: decoding.tf_decode(tf_a, tf_b), 1e-5),
+        ("sharded_hmm_fit",
+         lambda: par.sharded_hmm_fit(x_h, mesh=mesh, n_states=HMM_K,
+                                     n_iter=20, seed=0),
+         lambda: hmm.hmm_fit(x_h, HMM_K, n_iter=20, seed=0), 1e-3),
+        ("sharded_fastica",
+         lambda: par.sharded_fastica(x_i, mesh=mesh, n_iter=50, seed=0),
+         lambda: ica.fastica(x_i, n_iter=50, seed=0), 1e-3),
+        ("sharded_covariance",
+         lambda: par.sharded_covariance(cov_a, mesh=mesh),
+         lambda: spatial.covariance(cov_a), 1e-5),
+        ("sharded_csp",
+         lambda: par.sharded_csp(cov_a, cov_b, mesh=mesh),
+         lambda: spatial.csp(cov_a, cov_b), 1e-4),
+    ]
+    if part == "stats":
+        return stats
+    hint = sst.uniform_grid_hint(freqs.astype(np.float32))
+    sl_banks = superlets.superlet_banks(freqs, n, SFREQ, order_max=3,
+                                        device="cuda")
+    sl_w = superlets.superlet_weights(freqs, 1, 3)
+    mt_banks = multitaper.multitaper_banks(freqs, n, SFREQ, n_tapers=2,
+                                           device="cuda")
+    mt_flat = mt_banks.reshape(-1, n)
+    g = card(gen.standard_normal((c, f, n)))
+    fp = np.array([6.0, 8.0, 10.0, 12.0])
+    bp, ba = morse_bank(fp, n, False), morse_bank(freqs[8:], n, False)
+    _, gc_bank = granger._granger_inputs(x, SFREQ, 9, True, device="cuda")
+    morse_t = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    n_time = mesh.size(mesh.mesh_dim_names.index("time"))
+    lp = n // n_time                  # each time rank's block
+    halo = pow2_halo(lp, lp // 2)
+    rec = card(gen.standard_normal((c, n)))
+    ch_bank = morse_bank(freqs, lp + 2 * halo, True)
+    st_freqs = np.array([20.0, 40.0, 60.0, 80.0])
+    ep = gen.standard_normal((20, 2, 256)).astype(np.float32)
+    ep[::2, :, 128:] += np.sin(2 * np.pi * 30 * np.arange(128) / MESH_SF)
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(ep, MESH_SF, ["c0", "c1"]),
+                          nt.Morse(MESH_SF, device="cuda"))
+    ad_freqs = np.array([20.0, 30.0, 40.0])
+
+    def chunk_ref(fn):
+        """The time-split result's plain twin: the zero-padded recording cut
+        into the extended chunks, each transformed whole."""
+        pad = torch.nn.functional.pad(rec, (halo, halo))
+        return torch.cat([fn(pad[..., i * lp:i * lp + lp + 2 * halo])
+                          [..., halo:halo + lp] for i in range(n_time)], -1)
+
+    def mt_ref():
+        p = fused.mean_power_auto(x, mt_flat, interpolate=False)
+        return p.reshape(c, f, 2, n).mean(-2)
+
+    def sl_ref():
+        return sum(superlets.superlet_power_from_banks(s, sl_banks, sl_w)
+                   for s in x) / e
+
+    def gc_ref():
+        return granger._pairwise_assemble(
+            granger._cross_spectra(x, gc_bank, 16, True), 8)
+
+    ch = dict(mesh=mesh, halo=halo, interpolate=True)
+    return stats + [
+        ("sharded_mean_power", lambda: par.sharded_mean_power(
+            x, bank, mesh=mesh), lambda: cwt.mean_power_from_bank(x, bank),
+         POWER_RTOL),
+        ("sharded_itc", lambda: par.sharded_itc(x, bank, mesh=mesh),
+         lambda: cwt.itc_from_bank(x, bank), POWER_RTOL),
+        ("sharded_cwt_ri", lambda: par.sharded_cwt_ri(x, bank, mesh=mesh),
+         lambda: (lambda w: (w.real, w.imag))(cwt.cwt_from_bank(x, bank)),
+         POWER_RTOL),
+        ("sharded_power", lambda: par.sharded_power(x, cxb, mesh=mesh),
+         lambda: cwt.power_from_bank(x, cxb), POWER_RTOL),
+        ("sharded_fused_mean_power", lambda: par.sharded_fused_mean_power(
+            x, bank_t, mesh=mesh),
+         lambda: fused.fused_mean_power_from_bank(x, bank_t), POWER_RTOL),
+        ("sharded_fused_itc", lambda: par.sharded_fused_itc(
+            x, cxb, mesh=mesh, interpolate=False),
+         lambda: fused.fused_itc_from_bank(x, cxb, False), POWER_RTOL),
+        ("sharded_fused_power_itc", lambda: par.sharded_fused_power_itc(
+            x, bank_t, mesh=mesh),
+         lambda: fused.fused_power_itc_from_bank(x, bank_t), POWER_RTOL),
+        ("sharded_mean_power_grad", lambda: par.sharded_mean_power_grad(
+            x, bank, g, mesh=mesh),
+         lambda: (cwt.mean_power_from_bank(x, bank),
+                  *fused.mean_power_bwd(x, bank, False, g)), GRAD_RTOL),
+        ("sharded_superlet_mean_power",
+         lambda: par.sharded_superlet_mean_power(x, sl_banks, sl_w,
+                                                 mesh=mesh), sl_ref,
+         POWER_RTOL),
+        ("sharded_multitaper_mean_power",
+         lambda: par.sharded_multitaper_mean_power(x, mt_banks, mesh=mesh),
+         mt_ref, POWER_RTOL),
+        ("sharded_ssq_mean_power", lambda: par.sharded_ssq_mean_power(
+            x, bank_t, freqs, mesh=mesh, sfreq=SFREQ, uniform_grid=hint),
+         lambda: sst.ssq_mean_power_from_bank(x, bank_t, freqs, SFREQ, True,
+                                              1e-6, hint), POWER_RTOL),
+        ("sharded_reassigned_mean_power",
+         lambda: par.sharded_reassigned_mean_power(
+             x[:, :2], bank_t, freqs, mesh=mesh, sfreq=SFREQ),
+         lambda: reassign.reassigned_mean_power(
+             x[:, :2], bank_t, freqs, SFREQ, interpolate=True), POWER_RTOL),
+        ("sharded_cross_power", lambda: par.sharded_cross_power(
+            x, y, bank, mesh=mesh),
+         lambda: ext.cross_power_from_bank(x, y, bank), POWER_RTOL),
+        ("sharded_coherence", lambda: par.sharded_coherence(
+            x, y, cxb, mesh=mesh),
+         lambda: ext.epoch_coherence_from_bank(x, y, cxb), 1e-4),
+        ("sharded_imcoh", lambda: par.sharded_imcoh(x, y, bank, mesh=mesh),
+         lambda: ext.imcoh_from_bank(x, y, bank), 1e-4),
+        ("sharded_fused_coherence", lambda: par.sharded_fused_coherence(
+            x, y, bank_t, mesh=mesh),
+         lambda: fused.fused_coherence(x, y, bank_t), 1e-4),
+        ("sharded_phase_lag", lambda: par.sharded_phase_lag(
+            x, y, bank, mesh=mesh, method="dwpli"),
+         lambda: conn.phase_lag(x, y, bank, "dwpli"), 1e-4),
+        ("sharded_fused_phase_lag", lambda: par.sharded_fused_phase_lag(
+            x, y, bank_t, mesh=mesh),
+         lambda: fused.fused_phase_lag(x, y, bank_t), 1e-4),
+        ("sharded_ppc", lambda: par.sharded_ppc(x, y, bank, mesh=mesh),
+         lambda: conn.ppc_from_bank(x, y, bank), 1e-4),
+        ("sharded_plv", lambda: par.sharded_plv(x, y, bank, mesh=mesh),
+         lambda: conn.plv_from_bank(x, y, bank), 1e-4),
+        ("sharded_nm_plv", lambda: par.sharded_nm_plv(
+            x, y, bank, bank, mesh=mesh, n=1, m=2),
+         lambda: conn.nm_plv_from_bank(x, y, bank, bank, 1, 2), 1e-4),
+        ("sharded_plv_matrix", lambda: par.sharded_plv_matrix(
+            x, bank, mesh=mesh), lambda: conn.plv_matrix_from_bank(x, bank),
+         1e-4),
+        ("sharded_coherence_matrix", lambda: par.sharded_coherence_matrix(
+            x, bank, mesh=mesh),
+         lambda: conn.coherence_matrix_from_bank(x, bank), 1e-4),
+        ("sharded_partial_coherence", lambda: par.sharded_partial_coherence(
+            x, bank, mesh=mesh),
+         lambda: conn.partial_coherence_from_bank(x, bank), 1e-4),
+        ("sharded_psi_matrix", lambda: par.sharded_psi_matrix(
+            x, bank_t, mesh=mesh, interpolate=True),
+         lambda: conn.psi_matrix_from_bank(x, bank_t, True), 1e-4),
+        ("sharded_pac", lambda: par.sharded_pac(x, bp, ba, mesh=mesh),
+         lambda: conn.pac_mean_from_banks(x, bp, ba, False, "mvl", 18),
+         1e-4),
+        ("sharded_env_corr", lambda: par.sharded_env_corr(
+            x, bank, mesh=mesh),
+         lambda: envelope.env_corr_matrix_from_bank(x, bank), 1e-4),
+        ("sharded_wavelet_granger", lambda: par.sharded_wavelet_granger(
+            x, gc_bank, mesh=mesh, n_iter=8), gc_ref, 1e-3),
+        ("sharded_modwt", lambda: par.sharded_modwt(x, mesh=mesh, level=4),
+         lambda: dwt.modwt(x, level=4), POWER_RTOL),
+        ("sharded_modwt denoise", lambda: par.sharded_modwt(
+            x, mesh=mesh, denoise=True),
+         lambda: dwt.modwt_denoise(x), POWER_RTOL),
+        ("sharded_stockwell", lambda: par.sharded_stockwell(
+            x, st_freqs, mesh=mesh, sfreq=SFREQ),
+         lambda: (lambda s: (s.real, s.imag))(s_transform(
+             x, st_freqs, SFREQ)), POWER_RTOL),
+        ("distributed_mean_power", lambda: par.distributed_mean_power(
+            x[:e - 1], morse_t, freqs, SFREQ, mesh=mesh),
+         lambda: fused.mean_power_auto(x[:e - 1], bank_t, interpolate=True),
+         POWER_RTOL),
+        ("distributed_itc", lambda: par.distributed_itc(
+            x, morse_t, freqs, SFREQ, mesh=mesh),
+         lambda: fused.itc_auto(x, bank_t, interpolate=True), POWER_RTOL),
+        ("chunked_power", lambda: par.chunked_power(rec, ch_bank, **ch),
+         lambda: chunk_ref(lambda s: cwt.power_from_bank(s, ch_bank, True)),
+         POWER_RTOL),
+        ("chunked_abs", lambda: par.chunked_abs(rec, ch_bank, **ch),
+         lambda: chunk_ref(lambda s: cwt.abs_from_bank(s, ch_bank, True)),
+         POWER_RTOL),
+        ("chunked_cwt_ri", lambda: par.chunked_cwt_ri(rec, ch_bank, **ch),
+         lambda: (lambda w: (w.real, w.imag))(chunk_ref(
+             lambda s: cwt.cwt_from_bank(s, ch_bank, True))), POWER_RTOL),
+        ("chunked_fused_power", lambda: par.chunked_fused_power(
+            rec, ch_bank, **ch),
+         lambda: chunk_ref(lambda s: cwt.power_from_bank(s, ch_bank, True)),
+         POWER_RTOL),
+        ("chunked_power_auto", lambda: par.chunked_power_auto(
+            rec, ch_bank, **ch),
+         lambda: chunk_ref(lambda s: cwt.power_from_bank(s, ch_bank, True)),
+         POWER_RTOL),
+        ("EpochsWavelet.cluster_test(mesh=)", lambda: ew.cluster_test(
+            "c0", ad_freqs, baseline=(0.0, 0.4), n_perm=MESH_PERMS, seed=5,
+            mesh=mesh),
+         lambda: ew.cluster_test("c0", ad_freqs, baseline=(0.0, 0.4),
+                                 n_perm=MESH_PERMS, seed=5), "same"),
+    ]
+
+
+def run_mesh_cases(mesh, cases, compare):
+    """Every rank calls each sharded function and gathers its result; where
+    ``compare``, the single-device call and the check follow."""
+    import torch
+    for name, sharded, single, gate in cases:
+        got = mesh_full(sharded())
+        if compare:
+            mesh_err(f"{name} on the {mesh_label(mesh)} mesh", got, single(),
+                     gate)
+        del got
+        torch.cuda.empty_cache()
+
+
+def mesh_label(mesh):
+    return "x".join(str(s) for s in mesh.mesh.shape)
+
+
+def sums_sweep():
+    """The fused kernel's epoch-sums entry (``ninw_fused_cwt_sums``, behind
+    ``ops.fused._itc_sums`` / ``_power_itc_sums``) against the plain sums at
+    every N it takes, both ``interpolate`` settings, a real and a complex
+    bank, E = 19, 3 channels, 13 rows: the power sums at 1e-5 of the max;
+    the unit-phase sums at ITC's sound-cell gate times E where every
+    epoch's |c| is at least 1e-2 of its row max (elsewhere the unit phase
+    of a near-zero coefficient is round-off, in either path), the ITC they
+    finish to under ``cx_itc_err``'s rules (the float64 witness); the
+    "itc" epilogue's unit-phase sums at the same gates."""
+    import torch
+    from ninwavelets_tpu_torch.ops import fused
+    gen = np.random.default_rng(18)
+    freqs = np.linspace(5.0, 120.0, F_RAGGED)
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        x = torch.from_numpy(gen.standard_normal((E_RAGGED, 3, n),
+                                                 dtype=np.float32)).cuda()
+        for interp, bk in ((True, morse_bank(freqs, n, True)),
+                           (False, morse_bank(freqs, n, False)),
+                           (False, cx_bank("MexicanHat", freqs, n, False))):
+            tag = (f"N={n} interpolate={interp} "
+                   f"{'complex' if bk.is_complex() else 'real'} bank")
+            ps, sr, si = fused._power_itc_sums(x, bk, interp)
+            rp, rr, ri = (t.cuda() for t in fused._power_itc_sums(
+                x.cpu(), bk.cpu(), interp))
+            rel_err(f"K2 sums sum |W|^2, {tag}", ps, rp)
+            wit = itc_witness(x, bk, interp)
+            sound = "every epoch's |c| >= 1e-2 of its row max"
+            for part, g, r in (("Re", sr, rr), ("Im", si, ri)):
+                strong_err(f"K2 sums unit-phase {part}, {tag}", g, r, wit[1],
+                           ITC_ATOL_STRONG * E_RAGGED, where=sound)
+            cx_itc_err(f"K2 sums finished to ITC, {tag}",
+                       torch.sqrt(sr * sr + si * si) / E_RAGGED,
+                       torch.sqrt(rr * rr + ri * ri) / E_RAGGED, wit, interp,
+                       rp / E_RAGGED)
+            for part, g, r in zip(("Re", "Im"), fused._itc_sums(x, bk, interp),
+                                  (rr, ri)):
+                strong_err(f"K2 'itc' sums unit-phase {part}, {tag}", g, r,
+                           wit[1], ITC_ATOL_STRONG * E_RAGGED, where=sound)
+
+
+def nccl_world_one():
+    """Part 1: an NCCL group of one rank in this process and a (1, 1, 1)
+    mesh; every sharded, distributed and chunked function and the adapter's
+    ``cluster_test(mesh=)`` at a small size against its single-device twin.
+    Returns the launches of the run."""
+    import datetime
+    import torch.distributed as dist
+    from ninwavelets_tpu_torch import kernels, parallel as par
+    from ninwavelets_tpu_torch.parallel import collectives, mesh as pmesh
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{pmesh._free_port()}",
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        check(collectives.backend() == "nccl", "the world-1 group is not "
+              "NCCL")
+        mesh = par.make_mesh(1, 1, 1)
+        kernels.reset_launches()
+        run_mesh_cases(mesh, mesh_small_cases(mesh, "all"), True)
+        counts = dict(kernels.launches)
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def mesh_serving_calls(x, a, b, bank, cxb, freqs, mesh):
+    """The serving workload's sharded calls on ``mesh``, by name."""
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import parallel as par
+    morse = nt.Morse(SFREQ, interpolate=True, device="cuda")
+    return {
+        "sharded_fused_mean_power": lambda: par.sharded_fused_mean_power(
+            x, bank, mesh=mesh),
+        "sharded_fused_itc": lambda: par.sharded_fused_itc(
+            x, bank, mesh=mesh),
+        "sharded_fused_power_itc": lambda: par.sharded_fused_power_itc(
+            x, bank, mesh=mesh),
+        "sharded_fused_mean_power cx": lambda: par.sharded_fused_mean_power(
+            x, cxb, mesh=mesh, interpolate=False),
+        "sharded_fused_itc cx": lambda: par.sharded_fused_itc(
+            x, cxb, mesh=mesh, interpolate=False),
+        "sharded_fused_power_itc cx": lambda: par.sharded_fused_power_itc(
+            x, cxb, mesh=mesh, interpolate=False),
+        "distributed_mean_power": lambda: par.distributed_mean_power(
+            x, morse, freqs, SFREQ, mesh=mesh),
+        "distributed_itc": lambda: par.distributed_itc(
+            x, morse, freqs, SFREQ, mesh=mesh),
+        "sharded_fused_coherence": lambda: par.sharded_fused_coherence(
+            a, b, bank, mesh=mesh),
+        "sharded_fused_phase_lag": lambda: par.sharded_fused_phase_lag(
+            a, b, bank, mesh=mesh),
+    }
+
+
+def mesh_serving_check(name, tag, out, x, a, b, bank, cxb, rows):
+    """One rank's block of the serving call ``name`` against the
+    single-device port (the kernels, on the same rows) at the smoke's
+    gates."""
+    import torch
+    from ninwavelets_tpu_torch.ops import connectivity as conn
+    from ninwavelets_tpu_torch.ops import extensions as ext
+    from ninwavelets_tpu_torch.ops import fused
+    cx = name.endswith(" cx")
+    bk = (cxb if cx else bank)[rows]
+    interp = not cx
+    if "coherence" in name or "phase_lag" in name:
+        if "coherence" in name:
+            sums = fused.fused_coherence_sums(a, b, bk, True)
+            strong_err(tag, out, ext.coherence_from_sums(*sums, E),
+                       above(sums[2] * sums[3]), 1e-4)
+        else:
+            sums = fused.fused_phase_lag_sums(a, b, bk, True)
+            strong_err(tag, out, conn.phase_lag_from_sums(sums, E, "wpli"),
+                       above(sums[1]), 1e-4)
+        return
+    power, itc = fused.fused_power_itc_from_bank(x, bk, interp)
+    if "power_itc" in name:
+        rel_err(f"{tag} power", out[0], power)
+        itc_err(f"{tag} itc", out[1], itc, power)
+    elif "itc" in name:
+        itc_err(tag, out, itc, power)
+    else:
+        rel_err(tag, out, power)
+    del power, itc
+    torch.cuda.empty_cache()
+
+
+def multigpu_rank(mesh):
+    """Part 2, one of four gloo ranks that share the card (``run_on_mesh``):
+    the serving workload at full width on the (4, 1, 1) and (2, 2, 1)
+    meshes and the long recording split over time on (1, 1, 4) (the main
+    path, with its launches), then each rank's blocks against the
+    single-device port, and the statistics and decoders at a small size.
+    Returns, on rank 0, every rank's main-path launches and failures, the
+    wall times, and the host-staged collective calls."""
+    import torch
+    import torch.distributed as dist
+    from ninwavelets_tpu_torch import kernels, parallel as par
+    from ninwavelets_tpu_torch.ops import cwt
+    from ninwavelets_tpu_torch.parallel import collectives
+    rank = dist.get_rank()
+    data = np.random.default_rng(0).standard_normal((E, C, N),
+                                                    dtype=np.float32)
+    x = torch.from_numpy(data).cuda()
+    a, b = x, pair_b(x)
+    freqs = np.arange(1.0, F + 1.0)
+    bank = morse_bank(freqs, N, True)
+    cxb = cx_bank("MexicanHat", freqs, N, False)
+    meshes = {"4x1x1": mesh, "2x2x1": par.make_mesh(2, 2, 1)}
+    m_time = par.make_mesh(1, 1, 4)
+    rec_freqs = np.linspace(2.0, 100.0, REC_F)
+    rec = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (REC_C, 4 * REC_WINDOW), dtype=np.float32)).cuda()
+    rec[0] += torch.sin(2 * math.pi * 60.0 * torch.arange(
+        4 * REC_WINDOW, device="cuda") / SFREQ)
+    rec_bank = morse_bank(rec_freqs, REC_EXT, True)
+
+    # -- the main path: every rank's launches counted ---------------------------
+    times, outs = {}, {}
+    dist.barrier()
+    kernels.reset_launches()
+    for label, m in meshes.items():
+        for name, fn in mesh_serving_calls(x, a, b, bank, cxb, freqs,
+                                           m).items():
+            for rep in range(2):      # the second call timed
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                dist.barrier()
+                if rep:
+                    times[f"{name} {label}"] = (time.perf_counter()
+                                                - t0) * 1e3
+            outs[(label, name)] = out
+    for rep in range(2):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec_out = par.chunked_power_auto(rec, rec_bank, mesh=m_time,
+                                         halo=REC_HALO, interpolate=True)
+        torch.cuda.synchronize()
+        dist.barrier()
+    times["chunked_power_auto 1x1x4"] = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+
+    # -- each rank's blocks against the single-device port ----------------------
+    for (label, name), out in outs.items():
+        m = meshes[label]
+        if m.get_local_rank("data"):
+            continue        # the freq blocks are replicated over data
+        f_loc = F // m.size(m.mesh_dim_names.index("freq"))
+        lo = m.get_local_rank("freq") * f_loc
+        local = (tuple(o.to_local() for o in out) if isinstance(out, tuple)
+                 else out.to_local())
+        mesh_serving_check(name, f"{name} on {label}, rows {lo}-"
+                           f"{lo + f_loc - 1}", local, x, a, b, bank, cxb,
+                           slice(lo, lo + f_loc))
+    del outs
+    torch.cuda.empty_cache()
+    t_rank = m_time.get_local_rank("time")
+    ext = torch.nn.functional.pad(rec, (REC_HALO, REC_HALO))[
+        ..., t_rank * REC_WINDOW:t_rank * REC_WINDOW + REC_EXT]
+    rel_err(f"chunked_power_auto on 1x1x4, time block {t_rank}",
+            rec_out.to_local(), cwt.power_from_bank(ext, rec_bank, True)
+            [..., REC_HALO:REC_HALO + REC_WINDOW])
+    del ext, rec_out
+    torch.cuda.empty_cache()
+
+    # -- the statistics and decoders at a small size ------------------------------
+    t0 = time.perf_counter()
+    run_mesh_cases(mesh, mesh_small_cases(mesh, "stats"), rank == 0)
+    run_mesh_cases(meshes["2x2x1"], [
+        c for c in mesh_small_cases(meshes["2x2x1"], "stats")
+        if c[0] == "sharded_tf_decode"], rank == 0)
+    times["statistics and decoders, small"] = (time.perf_counter() - t0) * 1e3
+
+    gathered = [None] * MESH_WORLD
+    dist.all_gather_object(gathered, {"counts": counts,
+                                      "failures": list(FAILURES),
+                                      "staged": collectives.staged})
+    return {"ranks": gathered, "times": times}
+
+
+def multigpu_phase():
+    """Slice 15: the multi-device layer (module docstring, 56-59)."""
+    import torch
+    from ninwavelets_tpu_torch import kernels, parallel as par
+    t_phase = time.perf_counter()
+    sums_sweep()
+    counts = nccl_world_one()
+    print(f"NCCL world 1: launches {counts}")
+    for key in ("power", "itc_cx", "power_itc", "coherence", "phaselag",
+                "power_each"):
+        check(counts.get(key, 0) > 0, f"NCCL world 1: {key!r} never "
+              "launched by the sharded functions")
+    t_nccl = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    kernels.build()          # built already: the ranks only load the library
+    t0 = time.perf_counter()
+    run = par.run_on_mesh(multigpu_rank, (MESH_WORLD, 1, 1),
+                          backend="gloo", device="cuda",
+                          timeout=MESH_TIMEOUT_S)
+    t_gloo = time.perf_counter() - t0
+    for r, info in enumerate(run.result["ranks"]):
+        print(f"gloo rank {r}: main-path launches {info['counts']}, "
+              f"host-staged collective calls (collectives.staged) "
+              f"{info['staged']}")
+        for key in MESH_KERNELS:
+            check(info["counts"].get(key, 0) > 0, f"gloo rank {r}: {key!r} "
+                  "never launched on the main path")
+        for msg in info["failures"]:
+            check(False, f"gloo rank {r}: {msg}")
+    print(f"multi-device phase {time.perf_counter() - t_phase} s (NCCL "
+          f"world 1 {t_nccl} s, four gloo ranks {t_gloo} s, their spawn "
+          f"included); wall times (ms, the second call, every rank between "
+          f"two barriers) {json.dumps(run.result['times'])}; on "
+          f"{card_line()}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6622,6 +7250,10 @@ def main() -> int:
 
     # -- slice 14: file formats, the pipeline config, the utilities ----------
     slice14_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- slice 15: the multi-device layer ---------------------------------------
+    multigpu_phase()
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

@@ -17,6 +17,9 @@
 //     itc     = (1 / E) * | sum_e x_e[n] / |x_e[n]| |      (mean unit phase)
 //     each    = (1 / N^2) * |x_e[n]|^2, for every (e, c)  (|cwt|^2 per signal)
 //     amax    = max_n (1 / N^2) |x_e[n]|^2, out[c, f, e]   (per-row peak)
+//     and, through ninw_fused_cwt_sums, the epoch SUMS behind power and itc
+//     (sum_e |x_e[n]|^2 / N^2, Re and Im of sum_e x_e[n] / |x_e[n]|), which
+//     a sharded caller adds across devices before it finishes the means.
 // K = N/2 on the analytic (interpolate=True) path: the upper bins are zero.
 // K = N otherwise.  The signal FFT runs outside the kernel (as it does for
 // the TPU kernel); this kernel starts at the bank x spectrum product.
@@ -119,6 +122,7 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
                  const float2* __restrict__ twiddle,  // core table (fft_regs.cuh)
                  float* __restrict__ out0,            // (C, F, N)
                  float* __restrict__ out1,            // (C, F, N), power_itc only
+                 float* __restrict__ out_im,          // (C, F, N) or null, below
                  int n_epochs, int n_channels, int n_freqs, int k_bins,
                  int row_len, float power_scale, float itc_scale) {
   using PL = fft_regs::Plan<LOG2N>;
@@ -195,7 +199,15 @@ fused_cwt_kernel(const float2* __restrict__ spec,     // (E, C, L), L >= K
     if (EPI != kItc) out0[base + idx] = acc(kP, i) * power_scale;
     if (EPI != kPower) {
       const float re = acc(kRe, i), im = acc(kIm, i);
-      (EPI == kItc ? out0 : out1)[base + idx] = sqrtf(re * re + im * im) * itc_scale;
+      float* itc_out = EPI == kItc ? out0 : out1;
+      if (out_im != nullptr) {
+        // The unit-phase sums themselves (ninw_fused_cwt_sums): a sharded
+        // caller adds them across devices before it takes |.|.
+        itc_out[base + idx] = re * itc_scale;
+        out_im[base + idx] = im * itc_scale;
+      } else {
+        itc_out[base + idx] = sqrtf(re * re + im * im) * itc_scale;
+      }
     }
   }
 }
@@ -383,6 +395,7 @@ struct Args {
   const float2* twiddle;
   float* out0;
   float* out1;
+  float* out_im;   // the unit-phase sums' Im plane, or null (fused_cwt_kernel)
   int n_epochs, n_channels, n_freqs, log2n, k_bins, row_len;
   float power_scale, itc_scale;
 };
@@ -473,8 +486,8 @@ cudaError_t launch_reduce(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_freqs, a.n_channels);
   kernel<<<grid, PL::kThreads, smem, stream>>>(
-      a.spec, a.bank, a.twiddle, a.out0, a.out1, a.n_epochs, a.n_channels,
-      a.n_freqs, a.k_bins, a.row_len, a.power_scale, a.itc_scale);
+      a.spec, a.bank, a.twiddle, a.out0, a.out1, a.out_im, a.n_epochs,
+      a.n_channels, a.n_freqs, a.k_bins, a.row_len, a.power_scale, a.itc_scale);
   return cudaGetLastError();
 }
 
@@ -537,6 +550,49 @@ extern "C" int ninw_fused_power_each(const void* spec, const void* bank,
   return static_cast<int>(launch_each_n(a, n_signals, o, static_cast<cudaStream_t>(stream)));
 }
 
+namespace {
+
+// The checks and launch shared by ninw_fused_cwt and ninw_fused_cwt_sums.
+int launch_fused(int epilogue, const void* spec, const void* bank,
+                 const void* twiddle, void* out0, void* out1, void* out_im,
+                 int n_epochs, int n_channels, int n_freqs, int n, int k_bins,
+                 int row_len, int complex_bank, double power_scale,
+                 double itc_scale, void* stream) {
+  const int log2n = log2_of(n);
+  if (log2n < 0 || k_bins < 1 || k_bins > n || row_len < k_bins ||
+      n_epochs < 1 || n_channels < 1 || n_channels > 65535 || n_freqs < 1 ||
+      epilogue < kPower || epilogue > kAmax ||
+      (complex_bank && epilogue > kPowerItc) ||
+      (epilogue == kPowerItc && out1 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{};
+  a.spec = static_cast<const float2*>(spec);
+  a.bank = static_cast<const float*>(bank);
+  a.twiddle = static_cast<const float2*>(twiddle);
+  a.out0 = static_cast<float*>(out0);
+  a.out1 = static_cast<float*>(out1);
+  a.out_im = static_cast<float*>(out_im);
+  a.n_epochs = n_epochs;
+  a.n_channels = n_channels;
+  a.n_freqs = n_freqs;
+  a.log2n = log2n;
+  a.k_bins = k_bins;
+  a.row_len = row_len;
+  a.power_scale = static_cast<float>(power_scale);
+  a.itc_scale = static_cast<float>(itc_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kAmax:
+      return static_cast<int>(launch_amax_n(a, s));
+    default:
+      return static_cast<int>(complex_bank ? launch_reduce_epi<true>(epilogue, a, s)
+                                           : launch_reduce_epi<false>(epilogue, a, s));
+  }
+}
+
+}  // namespace
+
 // Launch one fused reduction or "amax" on `stream`.  Returns the
 // cudaError_t of the launch (0 on success); arguments the kernel does not
 // take return cudaErrorInvalidValue without launching.  C is a grid axis
@@ -549,35 +605,33 @@ extern "C" int ninw_fused_cwt(int epilogue, const void* spec, const void* bank,
                               int n_epochs, int n_channels, int n_freqs, int n,
                               int k_bins, int row_len, int complex_bank,
                               void* stream) {
-  const int log2n = log2_of(n);
-  if (log2n < 0 || k_bins < 1 || k_bins > n || row_len < k_bins ||
-      n_epochs < 1 || n_channels < 1 || n_channels > 65535 || n_freqs < 1 ||
-      epilogue < kPower || epilogue > kAmax ||
-      (complex_bank && epilogue > kPowerItc) ||
-      (epilogue == kPowerItc && out1 == nullptr)) {
+  const double power_epochs =
+      epilogue == kPower || epilogue == kPowerItc ? n_epochs : 1.0;
+  return launch_fused(epilogue, spec, bank, twiddle, out0, out1, nullptr,
+                      n_epochs, n_channels, n_freqs, n, k_bins, row_len,
+                      complex_bank,
+                      1.0 / (static_cast<double>(n) * n * power_epochs),
+                      1.0 / n_epochs, stream);
+}
+
+// Launch "itc" or "power_itc" on `stream` with the epoch SUMS as outputs,
+// for a caller that adds them across devices before it finishes the means:
+// "itc" writes Re and Im of sum_e x_e / |x_e| to out_re and out_im;
+// "power_itc" also writes sum_e |x_e|^2 / N^2 to out_power.  Otherwise as
+// ninw_fused_cwt.
+extern "C" int ninw_fused_cwt_sums(int epilogue, const void* spec,
+                                   const void* bank, const void* twiddle,
+                                   void* out_power, void* out_re, void* out_im,
+                                   int n_epochs, int n_channels, int n_freqs,
+                                   int n, int k_bins, int row_len,
+                                   int complex_bank, void* stream) {
+  if ((epilogue != kItc && epilogue != kPowerItc) || out_re == nullptr ||
+      out_im == nullptr || (epilogue == kPowerItc && out_power == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a;
-  a.spec = static_cast<const float2*>(spec);
-  a.bank = static_cast<const float*>(bank);
-  a.twiddle = static_cast<const float2*>(twiddle);
-  a.out0 = static_cast<float*>(out0);
-  a.out1 = static_cast<float*>(out1);
-  a.n_epochs = n_epochs;
-  a.n_channels = n_channels;
-  a.n_freqs = n_freqs;
-  a.log2n = log2n;
-  a.k_bins = k_bins;
-  a.row_len = row_len;
-  const double power_epochs = epilogue == kPower || epilogue == kPowerItc ? n_epochs : 1.0;
-  a.power_scale = static_cast<float>(1.0 / (static_cast<double>(n) * n * power_epochs));
-  a.itc_scale = static_cast<float>(1.0 / n_epochs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epilogue) {
-    case kAmax:
-      return static_cast<int>(launch_amax_n(a, s));
-    default:
-      return static_cast<int>(complex_bank ? launch_reduce_epi<true>(epilogue, a, s)
-                                           : launch_reduce_epi<false>(epilogue, a, s));
-  }
+  const bool itc = epilogue == kItc;
+  return launch_fused(epilogue, spec, bank, twiddle, itc ? out_re : out_power,
+                      itc ? nullptr : out_re, out_im, n_epochs, n_channels,
+                      n_freqs, n, k_bins, row_len, complex_bank,
+                      1.0 / (static_cast<double>(n) * n), 1.0, stream);
 }

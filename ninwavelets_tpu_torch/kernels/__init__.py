@@ -176,6 +176,8 @@ def build(defines: tuple = (), csrc: str = CSRC) -> str:
 SIGNATURES = {
     "ninw_fused_cwt": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    "ninw_fused_cwt_sums": ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                            + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
     "ninw_fused_power_each": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                               + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
                               + [ctypes.c_void_p]),
@@ -408,6 +410,40 @@ def fused_cwt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     key = f"{epilogue}_cx" if cx else epilogue
     if err != 0:
         raise RuntimeError(f"fused_cwt[{key}] launch failed: CUDA error "
+                           f"{err} (E={e}, C={c}, F={f}, N={n})")
+    launches[key] += 1
+    _check_nans(key, outs)
+    return outs
+
+
+def fused_cwt_sums(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
+                   k_bins: int):
+    """Launch the fused forward kernel's "itc" or "power_itc" epilogue with
+    the epoch SUMS as outputs (``ninw_fused_cwt_sums``), for the sharded
+    reductions, which add them across devices before they finish:
+    "itc" -> [Re, Im] of sum_e x_e / |x_e|; "power_itc" -> [sum_e |x_e|^2 /
+    N^2, Re, Im], each (C, F, N) float32.  The tensors as ``fused_cwt``
+    takes them; counted under the epilogue's key ("<epilogue>_cx" for a
+    complex bank), as the kernel is the same."""
+    if epilogue not in ("itc", "power_itc"):
+        raise ValueError(f"the epoch sums come from 'itc' or 'power_itc', "
+                         f"not {epilogue!r}")
+    cx = bank.is_complex()
+    e, c, row_len, f, n = _check(spec, bank, k_bins, complex_bank=cx)
+    lib = _load()
+    outs = [torch.empty((c, f, n), dtype=torch.float32, device=spec.device)
+            for _ in range(3 if epilogue == "power_itc" else 2)]
+    power = outs[0] if epilogue == "power_itc" else None
+    with torch.cuda.device(spec.device):
+        err = lib.ninw_fused_cwt_sums(
+            EPILOGUES[epilogue], spec.data_ptr(), bank.data_ptr(),
+            _core_twiddles(n, spec.device).data_ptr(),
+            power.data_ptr() if power is not None else None,
+            outs[-2].data_ptr(), outs[-1].data_ptr(),
+            e, c, f, n, k_bins, row_len, int(cx), _stream(spec.device))
+    key = f"{epilogue}_cx" if cx else epilogue
+    if err != 0:
+        raise RuntimeError(f"fused_cwt_sums[{key}] launch failed: CUDA error "
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
     launches[key] += 1
     _check_nans(key, outs)

@@ -50,14 +50,23 @@ def abs_from_bank(signal: torch.Tensor, bank: torch.Tensor,
     return torch.abs(cwt_from_bank(signal, bank, interpolate))
 
 
+def _epoch_sum(signals, bank, interpolate, *per_epoch):
+    """Sums of each ``per_epoch(cwt)`` over the leading (epoch) axis, one
+    epoch at a time: one plane for each function given."""
+    totals = None
+    for sig in signals:
+        c = cwt_from_bank(sig, bank, interpolate)
+        terms = [f(c) for f in per_epoch]
+        totals = terms if totals is None else [
+            t.add_(u) for t, u in zip(totals, terms)]
+    return totals
+
+
 def _epoch_mean(signals, bank, interpolate, per_epoch):
     """Mean of ``per_epoch(cwt)`` over the leading (epoch) axis, one epoch
     at a time."""
-    total = None
-    for sig in signals:
-        term = per_epoch(cwt_from_bank(sig, bank, interpolate))
-        total = term if total is None else total.add_(term)
-    return total / signals.shape[0]
+    return _epoch_sum(signals, bank, interpolate, per_epoch)[0] \
+        / signals.shape[0]
 
 
 def mean_power_from_bank(signals: torch.Tensor, bank: torch.Tensor,

@@ -129,15 +129,27 @@ def coherence_sums(sigs_a, sigs_b, bank, interpolate: bool = False):
     return epoch_sums(sigs_a, sigs_b, bank, interpolate, per_epoch)
 
 
+def _global_max(den: torch.Tensor, freq_group) -> torch.Tensor:
+    """``den.max()``, completed over the ranks of ``freq_group`` (the bank
+    rows of a frequency-sharded plane) when one is given."""
+    m = den.max()
+    if freq_group is not None:
+        from ..parallel.collectives import pmax
+        m = pmax(m, freq_group)
+    return m
+
+
 def coherence_from_sums(xr, xi, pa, pb, n_epochs: int,
-                        eps: float = 1e-12) -> torch.Tensor:
+                        eps: float = 1e-12, freq_group=None) -> torch.Tensor:
     """``|mean cross|^2 / (mean power_a * mean power_b)`` from the epoch
     sums.  A positive ``eps`` floors the denominator at ``eps`` times its
-    maximum, so rows with no spectral support read 0 rather than 0/0."""
+    maximum, so rows with no spectral support read 0 rather than 0/0.
+    ``freq_group``: the ranks a frequency-sharded plane is split over, so
+    that the floor's maximum is the whole plane's."""
     num = (torch.square(xr) + torch.square(xi)) / (n_epochs * n_epochs)
     den = (pa / n_epochs) * (pb / n_epochs)
     if eps:
-        den = torch.maximum(den, eps * den.max())
+        den = torch.maximum(den, eps * _global_max(den, freq_group))
     return num / den
 
 
@@ -174,13 +186,14 @@ def epoch_coherence_auto(sigs_a, sigs_b, bank, interpolate: bool = False,
 
 # -- imaginary coherency ------------------------------------------------------
 
-def imcoh_from_sums(xr, xi, pa, pb, eps: float = 1e-12) -> torch.Tensor:
+def imcoh_from_sums(xr, xi, pa, pb, eps: float = 1e-12,
+                    freq_group=None) -> torch.Tensor:
     """``Im(mean cross) / sqrt(mean |Wa|^2 mean |Wb|^2)`` from the
     ``coherence_sums`` planes (the epoch count cancels), with the relative
-    denominator floor of ``coherence_from_sums``."""
+    denominator floor (and ``freq_group``) of ``coherence_from_sums``."""
     den = torch.sqrt(pa * pb)
     if eps:
-        den = torch.maximum(den, eps * den.max())
+        den = torch.maximum(den, eps * _global_max(den, freq_group))
     return xi / den
 
 

@@ -66,8 +66,8 @@ import torch
 from .. import kernels
 from .connectivity import (phase_lag_from_sums, phase_lag_sums,
                            plv_sums)
-from .cwt import (analytic_spectrum, itc_from_bank, mean_power_from_bank,
-                  power_from_bank)
+from .cwt import (_epoch_sum, analytic_spectrum, itc_from_bank,
+                  mean_power_from_bank, power_from_bank)
 from .extensions import coherence_from_sums, coherence_sums, imcoh_from_sums
 from .grids import analytic_mask
 from .sst import ssq_mean_power_from_bank, ssq_power_from_bank
@@ -315,6 +315,52 @@ def fused_power_itc_from_bank(signals: torch.Tensor, bank: torch.Tensor,
                      "which are differentiable", signals, bank)
     power, itc = _launch("power_itc", signals, bank, interpolate, precision)
     return power, itc
+
+
+def _power_term(c):
+    return torch.square(c.real) + torch.square(c.imag)
+
+
+def _unit_phase(c):
+    return c / torch.abs(c)
+
+
+def _phase_sums(signals, bank, interpolate, precision, epilogue):
+    """The epoch SUMS behind ``epilogue`` ("itc": Re and Im of
+    sum_e cwt/|cwt|; "power_itc": sum_e |cwt|^2 first), plain on the CPU,
+    one ``kernels.fused_cwt_sums`` launch on the card."""
+    _check_precision(precision)
+    if signals.device.type == "cpu":
+        per_epoch = ((_unit_phase,) if epilogue == "itc"
+                     else (_power_term, _unit_phase))
+        *power, phase = _epoch_sum(signals, bank, interpolate, *per_epoch)
+        return (*power, phase.real, phase.imag)
+    _no_grad_on_card(f"the fused epoch sums ({epilogue!r})",
+                     "ops.cwt.itc_from_bank", signals, bank)
+    spec, k_bins = _kernel_spectrum(epilogue, signals, bank, interpolate)
+    return tuple(kernels.fused_cwt_sums(epilogue, spec, _kernel_bank(bank),
+                                        k_bins))
+
+
+def _itc_sums(signals: torch.Tensor, bank: torch.Tensor,
+              interpolate: bool = True, precision: str = DEFAULT_PRECISION):
+    """Epoch-SUMMED unit-phase planes ``(sum_r, sum_i)`` of (E, C, N)
+    signals, (C, F, N) float32 each (port of ``_itc_sums``): the "itc"
+    epilogue's sums before the magnitude, for the sharded ITC, which adds
+    them across devices first.  ``|sum| / E`` is ``fused_itc_from_bank``.
+    On the CPU the plain sums (the same running sum as ``itc_from_bank``);
+    on the card one launch, or a raise.  Not differentiable."""
+    return _phase_sums(signals, bank, interpolate, precision, "itc")
+
+
+def _power_itc_sums(signals: torch.Tensor, bank: torch.Tensor,
+                    interpolate: bool = True,
+                    precision: str = DEFAULT_PRECISION):
+    """Epoch-SUMMED ``(sum |cwt|^2, sum_r, sum_i)`` planes off one pass (port
+    of ``_power_itc_sums``): the "power_itc" epilogue's sums, for the
+    sharded power and ITC.  Divided by E, the first is
+    ``mean_power_from_bank``; as ``_itc_sums`` otherwise."""
+    return _phase_sums(signals, bank, interpolate, precision, "power_itc")
 
 
 def fused_power_from_bank(signals: torch.Tensor, bank: torch.Tensor,

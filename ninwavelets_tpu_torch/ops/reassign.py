@@ -46,8 +46,18 @@ def _edges(f_grid: torch.Tensor) -> torch.Tensor:
 
 def _reassign_one(signal: torch.Tensor, bank: torch.Tensor,
                   f_grid: torch.Tensor, sfreq: float, interpolate: bool,
-                  rel_threshold: float, t_decim: int) -> torch.Tensor:
-    """(N,) x (F, N) -> (F, T') reassigned power of one signal."""
+                  rel_threshold: float, t_decim: int, f_own=None,
+                  freq_group=None) -> torch.Tensor:
+    """(N,) x (F_local, N) -> (F, T') reassigned power of one signal.
+
+    For the frequency-sharded ``parallel.sharded_reassigned_mean_power``,
+    ``bank`` may be a slice of the bank on ``f_grid`` with ``f_own`` its own
+    rows' frequencies (where gated cells stay): cells land by value on the
+    whole grid, and over the ranks of ``freq_group`` the gate's peak is the
+    signal's whole plane's.  The defaults (one device) leave the result as
+    it is."""
+    if f_own is None:
+        f_own = f_grid
     n = signal.shape[-1]
     n_f = bank.shape[0]
     n_t = -(-n // t_decim)
@@ -68,8 +78,12 @@ def _reassign_one(signal: torch.Tensor, bank: torch.Tensor,
     t_hat = t_idx[None, :] + t_off * sfreq                       # samples
 
     # Noise gate: cells below rel_threshold x peak keep their own bin.
-    gate = power < rel_threshold * torch.amax(power)
-    omega = torch.where(gate, f_grid[:, None], omega)
+    peak = torch.amax(power)
+    if freq_group is not None:
+        from ..parallel.collectives import pmax
+        peak = pmax(peak, freq_group)
+    gate = power < rel_threshold * peak
+    omega = torch.where(gate, f_own[:, None], omega)
     t_hat = torch.where(gate, t_idx[None, :], t_hat)
     col = torch.clamp(torch.floor(t_hat / t_decim), 0, n_t - 1).to(
         torch.int64)

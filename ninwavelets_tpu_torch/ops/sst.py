@@ -151,16 +151,26 @@ def _row_index(omega: torch.Tensor, n_edges: int, f_grid,
 
 def _reassigned_power(signal: torch.Tensor, bank: torch.Tensor, f_grid,
                       sfreq: float, interpolate: bool, rel_threshold: float,
-                      uniform_grid=None) -> torch.Tensor:
-    """Core reassignment: (..., N) x (F, N) -> (..., F, N).
+                      uniform_grid=None, row_offset: int = 0,
+                      n_rows_out: int | None = None,
+                      freq_group=None) -> torch.Tensor:
+    """Core reassignment: (..., N) x (F_local, N) -> (..., F_out, N).
 
     ``f_grid`` (the F analysis frequencies) is read only by the edge count
     of an irregular grid (``uniform_grid`` None); a closed-form map needs
     only F.  The noise-gate floor is per leading element: ``rel_threshold``
     times the max of that element's (F, N) power plane.
+
+    For the frequency-sharded ``parallel.sharded_ssq_mean_power``, ``bank``
+    may be rows [row_offset, row_offset + F_local) of the bank on the grid
+    of ``n_rows_out`` rows: the cells still scatter into all ``n_rows_out``
+    rows (the ranks' partial planes add up to the whole), and over the
+    ranks of ``freq_group`` the floor is the whole plane's.  The defaults
+    (one device) leave the result as it is.
     """
     n = signal.shape[-1]
     n_f = bank.shape[0]
+    n_out = n_f if n_rows_out is None else int(n_rows_out)
     spec = analytic_spectrum(signal, interpolate)[..., None, :]
     w = torch.fft.ifft(spec * bank)
     dw = torch.fft.ifft(spec * (bank * (2j * math.pi
@@ -170,14 +180,18 @@ def _reassigned_power(signal: torch.Tensor, bank: torch.Tensor, f_grid,
     num = dw.imag * w.real - dw.real * w.imag
     del w, dw
     omega = num / (2.0 * math.pi * torch.clamp(power, min=1e-30))
-    idx = _row_index(omega, n_f - 1, f_grid, uniform_grid)
+    idx = _row_index(omega, n_out - 1, f_grid, uniform_grid)
     del omega, num
     # Noise gate: weak cells keep their energy in place (their phase is
     # noise).
     floor = rel_threshold * torch.amax(power, dim=(-2, -1), keepdim=True)
-    src = torch.arange(n_f, device=idx.device)[:, None].expand(n_f, n)
-    idx = torch.where(power >= floor, idx, src)
-    return torch.zeros_like(power).scatter_add_(-2, idx, power)
+    if freq_group is not None:
+        from ..parallel.collectives import pmax
+        floor = pmax(floor, freq_group)
+    src = (row_offset + torch.arange(n_f, device=idx.device))[:, None]
+    idx = torch.where(power >= floor, idx, src.expand(n_f, n))
+    out = power.new_zeros(power.shape[:-2] + (n_out, n))
+    return out.scatter_add_(-2, idx, power)
 
 
 def ssq_power_from_bank(signal: torch.Tensor, bank: torch.Tensor, freqs,

@@ -49,8 +49,15 @@ def stockwell(signal, freqs, sfreq: float, device=None) -> torch.Tensor:
     Nyquist]).  ``abs(...)**2`` is the S-spectrogram; the phase is
     absolutely referenced."""
     signal = as_float32(signal, device)
+    bins = torch.from_numpy(_bins(freqs, signal.shape[-1], sfreq))
+    return _stockwell_bins(signal, bins.to(signal.device), sfreq)
+
+
+def _stockwell_bins(signal: torch.Tensor, bins: torch.Tensor,
+                    sfreq: float) -> torch.Tensor:
+    """``stockwell`` at the validated FFT ``bins`` of the analysis rows
+    (``parallel.sharded_stockwell`` hands each rank its own rows)."""
     n = signal.shape[-1]
-    bins = torch.from_numpy(_bins(freqs, n, sfreq)).to(signal.device)
     spec = torch.fft.fft(signal)                       # (..., N)
     nu = _fftfreq(n, float(sfreq), signal.device)      # (N,) Hz, fft order
     # rolled spectra: row k holds X(nu + f_k) -> gather at (j + bin_k) % N

@@ -375,12 +375,19 @@ class EpochsWavelet:
     # -- statistics ---------------------------------------------------------
 
     @staticmethod
-    def _single_device(mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-device (sharded) permutation null is not "
-                "ported to PyTorch yet (ROADMAP.md, queue 1, item 8: "
-                "multi-GPU); pass mesh=None")
+    def _cluster(test: str, *args, mesh, **kw):
+        """``ops.cluster.cluster_test_<test>`` on one device, or its sharded
+        twin (``parallel.sharded_cluster_test_<test>``: the permutation
+        null over the mesh's ``data`` axis, the same result for one seed)
+        when a mesh is given; "paired" is the one-sample test of the
+        per-epoch differences."""
+        if mesh is None:
+            return getattr(_cl, f"cluster_test_{test}")(*args, **kw)
+        from ..parallel import sharded
+        if test == "paired":
+            test, args = "one_sample", (args[0] - args[1],)
+        return getattr(sharded, f"sharded_cluster_test_{test}")(
+            *args, mesh=mesh, **kw)
 
     def cluster_test(self, ch_name: str, freqs: Numbers, other=None, *,
                      paired: bool = False, baseline=None,
@@ -397,8 +404,9 @@ class EpochsWavelet:
         precomputed (E, F, N) array; ``paired=True`` tests the per-epoch
         difference, else the independent-groups relabeling null.  The
         permutations come from a ``torch.Generator`` seeded with ``seed``.
-        ``mesh`` (the multi-device null) must be None."""
-        self._single_device(mesh)
+        ``mesh`` (from ``parallel.make_mesh``; every rank calls this) splits
+        the permutation null over its ``data`` axis, with the same result
+        for one seed."""
         if other is None and baseline is None:
             raise ValueError(
                 "one-sample cluster test needs baseline=(start, stop) "
@@ -406,17 +414,16 @@ class EpochsWavelet:
         x = self.single_trial_power(ch_name, freqs, baseline,
                                     baseline_method, decim)
         kw = dict(n_perm=n_perm, threshold=threshold, alpha=alpha,
-                  seed=seed)
+                  seed=seed, mesh=mesh)
         if other is None:
-            return _cl.cluster_test_one_sample(x, **kw)
+            return self._cluster("one_sample", x, **kw)
         if isinstance(other, EpochsWavelet):
             y = other.single_trial_power(ch_name, freqs, baseline,
                                          baseline_method, decim)
         else:
             y = as_float32(other, x.device)
-        if paired:
-            return _cl.cluster_test_paired(x, y, **kw)
-        return _cl.cluster_test_independent(x, y, **kw)
+        return self._cluster("paired" if paired else "independent", x, y,
+                             **kw)
 
     def cluster_test_all(self, freqs: Numbers, other=None, *,
                          adjacency=(), paired: bool = False, baseline=None,
@@ -430,7 +437,6 @@ class EpochsWavelet:
         or a (C, C) boolean matrix; the default empty adjacency keeps
         channels independent but still corrects across all of them).
         Other arguments as :meth:`cluster_test`."""
-        self._single_device(mesh)
         adjacency = self._as_edges(adjacency)
         if other is None and baseline is None:
             # validate BEFORE the expensive all-channel transform
@@ -449,10 +455,10 @@ class EpochsWavelet:
         if y is not None and paired:
             x, y = x - y, None
         kw = dict(n_perm=n_perm, threshold=threshold, alpha=alpha,
-                  seed=seed, adjacency=adjacency)
+                  seed=seed, adjacency=adjacency, mesh=mesh)
         if y is None:
-            return _cl.cluster_test_one_sample(x, **kw)
-        return _cl.cluster_test_independent(x, y, **kw)
+            return self._cluster("one_sample", x, **kw)
+        return self._cluster("independent", x, y, **kw)
 
     @staticmethod
     def _as_edges(adjacency) -> np.ndarray:
@@ -496,8 +502,8 @@ class EpochsWavelet:
         this adapter is condition 1; ``others`` is a sequence of
         ``EpochsWavelet`` adapters (same channel / freqs computed there) or
         precomputed (E_g, F, N) arrays for the remaining conditions.
-        ``mesh`` (the multi-device null) must be None."""
-        self._single_device(mesh)
+        ``mesh`` splits the relabeling null over its ``data`` axis (see
+        :meth:`cluster_test`)."""
         x = self.single_trial_power(ch_name, freqs, baseline,
                                     baseline_method, decim)
         groups = [x]
@@ -507,9 +513,8 @@ class EpochsWavelet:
                     ch_name, freqs, baseline, baseline_method, decim))
             else:
                 groups.append(as_float32(o, x.device))
-        return _cl.cluster_test_f(groups, n_perm=n_perm,
-                                  threshold=threshold, alpha=alpha,
-                                  seed=seed)
+        return self._cluster("f", groups, n_perm=n_perm, threshold=threshold,
+                             alpha=alpha, seed=seed, mesh=mesh)
 
     def bursts(self, ch_name: str, freqs: Numbers, factor: float = 6.0,
                min_area: int = 1, threshold=None, table: bool = False):

@@ -1140,16 +1140,6 @@ class TestAdapter:
         with pytest.raises(ValueError):
             ew.cluster_test_all([20.0, 40.0])
 
-    def test_mesh_is_not_ported(self):
-        _, ew = self._pair(self._data())
-        for call in (lambda: ew.cluster_test("c0", self.FREQS,
-                                             baseline=(0, 0.4), mesh=2),
-                     lambda: ew.cluster_test_all(self.FREQS,
-                                                 baseline=(0, 0.4), mesh=2),
-                     lambda: ew.cluster_f("c0", self.FREQS, [ew], mesh=2)):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                call()
-
     @pytest.mark.parametrize("baseline", [None, (0.0, 0.4)])
     def test_decimated_planes_are_copies(self, baseline):
         _, ew = self._pair(self._data())
