@@ -22,6 +22,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.observability import span
 from . import native
 
 __all__ = ["ArraySource", "EDFSource", "iter_ext_batches"]
@@ -85,7 +86,9 @@ def iter_ext_batches(source, window: int, halo: int, batch: int,
 
     With ``prefetch`` (default), group ``i+1`` is gathered on a worker
     thread while group ``i`` is consumed, so the gather hides behind the
-    consumer's device work.
+    consumer's device work.  The consumer's wait for a group (its gather,
+    without prefetch) is the span ``ninw.stream.wait``, closed before the
+    group is yielded.
     """
     n = int(source.n_samples)
     lead = tuple(source.lead)
@@ -103,13 +106,16 @@ def iter_ext_batches(source, window: int, halo: int, batch: int,
 
     if not prefetch or len(groups) <= 1:
         for group in groups:
-            yield group, make(group)
+            with span("ninw.stream.wait"):
+                ext = make(group)
+            yield group, ext
         return
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(make, groups[0])
         for i, group in enumerate(groups):
-            ext = fut.result()
+            with span("ninw.stream.wait"):
+                ext = fut.result()
             if i + 1 < len(groups):
                 fut = pool.submit(make, groups[i + 1])
             yield group, ext

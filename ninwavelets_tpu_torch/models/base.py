@@ -31,6 +31,7 @@ from ..ops.ridge import extract_modes as _extract_modes
 from ..ops.scattering import scattering as _scattering
 from ..ops.signal_utils import pad_to
 from ..ops.sst import ssq_power as _ssq_power
+from ..utils.observability import span
 
 Numbers = Union[Sequence[float], np.ndarray, range, torch.Tensor]
 
@@ -100,16 +101,18 @@ class WaveletBase:
 
     def _build_bank(self, freqs: Numbers, real_wave_length: float) -> None:
         """Build and cache the (F, N) bank on ``self.device``."""
-        freqs = self._check_freqs(freqs)
-        if freqs.shape[0] > 1:
-            # The reference indexes freqs[1] unconditionally; a one-element
-            # grid keeps the previous freq_dist instead of raising.
-            self.freq_dist = float(freqs[1] - freqs[0])
-        n = int(round(self.sfreq * real_wave_length))
-        self._bank_freqs = freqs.numpy()
-        self._bank = _bank.make_fft_bank(
-            self._wdef(), freqs, n, self.sfreq, self.interpolate,
-            self.real_wave_length, device=self.device)
+        with span("ninw.bank.build"):
+            freqs = self._check_freqs(freqs)
+            if freqs.shape[0] > 1:
+                # The reference indexes freqs[1] unconditionally; a
+                # one-element grid keeps the previous freq_dist instead of
+                # raising.
+                self.freq_dist = float(freqs[1] - freqs[0])
+            n = int(round(self.sfreq * real_wave_length))
+            self._bank_freqs = freqs.numpy()
+            self._bank = _bank.make_fft_bank(
+                self._wdef(), freqs, n, self.sfreq, self.interpolate,
+                self.real_wave_length, device=self.device)
 
     @property
     def fft_wavelets(self) -> torch.Tensor:

@@ -136,7 +136,8 @@ from .fused import (fused_coherence, fused_coherence_sums,
                     fused_power_from_bank, fused_power_itc_from_bank,
                     fused_ssq_mean_power, fused_ssq_power_from_bank,
                     itc_auto, mean_power_auto, mean_power_bwd, power_auto,
-                    power_itc_auto, supports, supports_ssq)
+                    power_itc_auto, supports, supports_ssq, why_not,
+                    why_not_ssq)
 from .hmm import HMMResult, hmm_fit, viterbi
 from .ica import (ICAResult, fastica, ica_find_bads, ica_kurtosis,
                   ica_remove, ica_scores, ica_transform)

@@ -30,6 +30,13 @@ Dispatch, with no fallback that hides the device or the kernel:
   (``power_auto``, streaming, scattering, ``supports_ssq``, the pair
   ``*_auto``) runs the plain path for it.
 
+``why_not()`` holds the rule once and says which part of it a workload
+fails; ``supports()`` is ``why_not() is None``.  Each of the four
+``*_auto`` dispatchers opens one span around its transform
+(``transform_span``): ``ninw.transform.kernel:<launch key>``, or
+``ninw.transform.plain:<reason>``, the reason ``why_not()``'s, or
+"complex_signals", or "cpu" where the fused wrapper runs its plain version.
+
 The signal FFT runs outside the kernel, as ``torch.fft.rfft`` on the analytic
 path (``interpolate=True``) and ``torch.fft.fft`` otherwise.  Everything from
 bank x spectrum to the epoch reduction is inside the kernel, in float32.
@@ -64,6 +71,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.observability import span
 from .connectivity import (phase_lag_from_sums, phase_lag_sums,
                            plv_sums)
 from .cwt import (_epoch_sum, analytic_spectrum, itc_from_bank,
@@ -81,25 +89,73 @@ DEFAULT_PRECISION = "fast3"
 MAX_SSQ_SIGNALS = 65535
 
 
-def supports(signals_shape, bank, epilogue: str = "power") -> bool:
-    """True when the fused kernel takes this workload: an (E, C, N) batch
-    with E >= 1 and 1 <= C <= 65535, N a power of two in [256, 16384], and a
-    real floating (F, N) bank built for the same N.  Any epoch count works
-    for every epilogue: the kernel loops over all epochs and never pads one
-    in.  A CUDA workload this rejects runs the plain torch path on the card
-    through the ``*_auto`` entry points; the three epoch reductions ask it
-    about a complex bank's real part (``_reduction_takes``), as the JAX
-    package does, and so take the complex-bank kernels."""
-    del epilogue
+def why_not(signals_shape, bank):
+    """Why the fused kernel does not take this workload, or None when it
+    does: "shape" (not an (E, C, N) batch with E >= 1, or not an (F, N)
+    bank built for the same N), "complex_bank" (a complex or integer bank),
+    "channels" (C outside 1..65535), "n_not_pow2" (N not a power of two)
+    or "n_range" (N outside [256, 16384]), the first that applies.  The
+    ``*_auto`` dispatchers add "complex_signals" and "cpu" (``_route``)."""
     if bank is None or len(signals_shape) != 3:
-        return False
+        return "shape"
     e, c, n = signals_shape
-    if bank.ndim != 2 or bank.shape[-1] != n or bank.shape[0] < 1:
-        return False
+    if bank.ndim != 2 or bank.shape[-1] != n or bank.shape[0] < 1 or e < 1:
+        return "shape"
     if bank.is_complex() or not bank.is_floating_point():
-        return False
-    return (e >= 1 and 1 <= c <= 65535 and kernels.MIN_N <= n <= kernels.MAX_N
-            and n & (n - 1) == 0)
+        return "complex_bank"
+    if not 1 <= c <= 65535:
+        return "channels"
+    if n & (n - 1) != 0:
+        return "n_not_pow2"
+    if not kernels.MIN_N <= n <= kernels.MAX_N:
+        return "n_range"
+    return None
+
+
+def supports(signals_shape, bank, epilogue: str = "power") -> bool:
+    """True when the fused kernel takes this workload (``why_not()`` finds
+    nothing): an (E, C, N) batch with E >= 1 and 1 <= C <= 65535, N a power
+    of two in [256, 16384], and a real floating (F, N) bank built for the
+    same N.  Any epoch count works for every epilogue: the kernel loops over
+    all epochs and never pads one in.  A CUDA workload this rejects runs the
+    plain torch path on the card through the ``*_auto`` entry points; the
+    three epoch reductions ask it about a complex bank's real part
+    (``_reduction_takes``), as the JAX package does, and so take the
+    complex-bank kernels."""
+    del epilogue
+    return why_not(signals_shape, bank) is None
+
+
+def transform_span(kernel: str, why) -> str:
+    """The name of the span around one transform: ``ninw.transform.kernel:
+    <kernel>`` (the key the launches count under) where the kernel runs,
+    ``ninw.transform.plain:<why>`` where the plain chain does."""
+    if why is None:
+        return "ninw.transform.kernel:" + kernel
+    return "ninw.transform.plain:" + why
+
+
+def _route(signals: torch.Tensor, bank, epilogue: str):
+    """``(takes, span name)`` of the ``*_auto`` dispatchers: whether the
+    fused wrapper takes the workload (``why_not()`` and real signals), and
+    the transform's span, whose reason adds "complex_signals" and, where
+    the wrapper runs its plain version, "cpu"."""
+    why = why_not(signals.shape, bank)
+    if why is None and signals.is_complex():
+        why = "complex_signals"
+    takes = why is None
+    if takes and signals.device.type != "cuda":
+        why = "cpu"
+    return takes, transform_span(epilogue, why)
+
+
+def _reduction_route(signals: torch.Tensor, bank, epilogue: str):
+    """``_route`` of the three epoch reductions: a complex bank is asked
+    about by its real part (``_reduction_takes``) and launches the
+    ``<epilogue>_cx`` kernel."""
+    if bank is not None and bank.is_complex():
+        return _route(signals, bank.real, epilogue + "_cx")
+    return _route(signals, bank, epilogue)
 
 
 def _check_precision(precision: str) -> None:
@@ -419,9 +475,13 @@ def power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """Per-signal power with automatic kernel dispatch: the kernel where
     ``supports()`` accepts the flattened (B, 1, N) batch and the signals are
     real, the plain ``power_from_bank`` otherwise."""
-    if _kernel_takes(signals.reshape(-1, 1, signals.shape[-1]), bank):
-        return fused_power_from_bank(signals, bank, interpolate, precision)
-    return power_from_bank(signals, bank, interpolate)
+    flat = signals.reshape(-1, 1, signals.shape[-1])
+    takes, name = _route(flat, bank, "power_each")
+    with span(name):
+        if takes:
+            return fused_power_from_bank(signals, bank, interpolate,
+                                         precision)
+        return power_from_bank(signals, bank, interpolate)
 
 
 def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -430,10 +490,12 @@ def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """Epoch-mean power with automatic kernel dispatch (see the module
     docstring; a complex bank takes the kernel too); the same result either
     way."""
-    if _reduction_takes(signals, bank):
-        return fused_mean_power_from_bank(signals, bank, interpolate,
-                                          precision)
-    return mean_power_from_bank(signals, bank, interpolate)
+    takes, name = _reduction_route(signals, bank, "power")
+    with span(name):
+        if takes:
+            return fused_mean_power_from_bank(signals, bank, interpolate,
+                                              precision)
+        return mean_power_from_bank(signals, bank, interpolate)
 
 
 def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -441,9 +503,11 @@ def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
              precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Inter-trial coherence with automatic kernel dispatch (a complex bank
     takes the kernel too)."""
-    if _reduction_takes(signals, bank):
-        return fused_itc_from_bank(signals, bank, interpolate, precision)
-    return itc_from_bank(signals, bank, interpolate)
+    takes, name = _reduction_route(signals, bank, "itc")
+    with span(name):
+        if takes:
+            return fused_itc_from_bank(signals, bank, interpolate, precision)
+        return itc_from_bank(signals, bank, interpolate)
 
 
 def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -452,14 +516,27 @@ def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """(power, itc) with automatic kernel dispatch: one fused pass where the
     kernel takes the workload (a complex bank included), the two plain
     reductions otherwise."""
-    if _reduction_takes(signals, bank):
-        return fused_power_itc_from_bank(signals, bank, interpolate,
-                                         precision)
-    return (mean_power_from_bank(signals, bank, interpolate),
-            itc_from_bank(signals, bank, interpolate))
+    takes, name = _reduction_route(signals, bank, "power_itc")
+    with span(name):
+        if takes:
+            return fused_power_itc_from_bank(signals, bank, interpolate,
+                                             precision)
+        return (mean_power_from_bank(signals, bank, interpolate),
+                itc_from_bank(signals, bank, interpolate))
 
 
 # -- synchrosqueezing ---------------------------------------------------------
+
+def why_not_ssq(signals_shape, bank, uniform_grid, interpolate: bool):
+    """Why the synchrosqueezing kernels do not take this workload, or None:
+    "row_map" (no single "lin" or "log" row map), "interpolate" (not the
+    analytic path), or what ``why_not()`` finds."""
+    if uniform_grid is None or uniform_grid[0] not in ("lin", "log"):
+        return "row_map"
+    if not interpolate:
+        return "interpolate"
+    return why_not(signals_shape, bank)
+
 
 def supports_ssq(signals_shape, bank, uniform_grid, interpolate: bool) -> bool:
     """True when the synchrosqueezing kernels take this workload: what
@@ -467,9 +544,7 @@ def supports_ssq(signals_shape, bank, uniform_grid, interpolate: bool) -> bool:
     two in [256, 16384], a real (F, N) bank built for that N), the analytic
     path (``interpolate=True``), and a single "lin" or "log" row map (a
     piecewise or irregular grid runs the plain path)."""
-    if uniform_grid is None or uniform_grid[0] not in ("lin", "log"):
-        return False
-    return bool(interpolate) and supports(signals_shape, bank)
+    return why_not_ssq(signals_shape, bank, uniform_grid, interpolate) is None
 
 
 def ssq_kernel_takes(signals: torch.Tensor, bank, uniform_grid,

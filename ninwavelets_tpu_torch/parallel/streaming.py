@@ -34,8 +34,10 @@ from ..io.stream import ArraySource, iter_ext_batches
 from ..ops.bank import WaveletDef, make_fft_bank
 from ..ops.cwt import power_from_bank
 from ..ops.fused import (_power_each_into, fused_power_from_bank,
-                         fused_ssq_power_from_bank, supports, supports_ssq)
+                         fused_ssq_power_from_bank, transform_span, why_not,
+                         why_not_ssq)
 from ..ops.sst import ssq_power_from_bank, uniform_grid_hint
+from ..utils.observability import span
 from .chunked import halo_samples, pow2_halo
 
 
@@ -88,24 +90,26 @@ class StreamingCWT:
         self.sfreq = float(sfreq)
         self.window = int(window)
         self.device = resolve_device(device)
-        if halo is None:
-            halo = halo_samples(wdef, float(self.freqs.min()), self.sfreq,
-                                tol=halo_tol)
-        if halo >= self.window:
-            raise ValueError(f"halo {halo} must be smaller than the window "
-                             f"{self.window}; raise `window` or `halo_tol`")
-        self.halo = pow2_halo(self.window, int(halo))
         self.interpolate = interpolate
         self.batch = max(int(batch), 1)
         self.precision = precision
-        ext = self.window + 2 * self.halo
-        self._bank = make_fft_bank(wdef, self.freqs, ext, self.sfreq,
-                                   interpolate, device=self.device)
-        conforms = supports((1, 1, ext), self._bank)
+        with span("ninw.bank.build"):
+            if halo is None:
+                halo = halo_samples(wdef, float(self.freqs.min()),
+                                    self.sfreq, tol=halo_tol)
+            if halo >= self.window:
+                raise ValueError(
+                    f"halo {halo} must be smaller than the window "
+                    f"{self.window}; raise `window` or `halo_tol`")
+            self.halo = pow2_halo(self.window, int(halo))
+            ext = self.window + 2 * self.halo
+            self._bank = make_fft_bank(wdef, self.freqs, ext, self.sfreq,
+                                       interpolate, device=self.device)
+        why = why_not((1, 1, ext), self._bank)
         if use_fused == "auto":
-            self._fused = conforms and self.device.type == "cuda"
+            self._fused = why is None and self.device.type == "cuda"
         elif use_fused:
-            if not conforms:
+            if why is not None:
                 raise ValueError(
                     f"fused streaming needs a real bank and an extended "
                     f"window (window + 2*halo = {ext}) that is a power of "
@@ -113,6 +117,12 @@ class StreamingCWT:
             self._fused = True
         else:
             self._fused = False
+        if why is None and self.device.type != "cuda":
+            why = "cpu"
+        elif why is None and not self._fused:
+            why = "off"
+        #: Why a window batch runs the plain chain, or None: the kernel.
+        self._why = why
 
     def _window_batch(self, ext: torch.Tensor) -> torch.Tensor:
         """(W, ..., ext) on the device -> (W, ..., F, window), fused or
@@ -124,8 +134,11 @@ class StreamingCWT:
 
     def _device_power(self, ext_batch: np.ndarray) -> np.ndarray:
         """(W, ..., ext) host batch -> (W, ..., F, window) host power."""
-        ext = torch.from_numpy(ext_batch).to(self.device)
-        return self._window_batch(ext).cpu().numpy()
+        with span("ninw.h2d"):
+            ext = torch.from_numpy(ext_batch).to(self.device)
+        with span(transform_span("power_each", self._why)):
+            block = self._window_batch(ext)
+        return block.cpu().numpy()
 
     def blocks(self, signal: np.ndarray) -> Iterator[Tuple[int, np.ndarray]]:
         """Yield ``(start_sample, (..., F, block_len) power)`` blocks in
@@ -177,14 +190,15 @@ class StreamingCWT:
         e.g. ``io.EDFSource(path)`` streams a recording straight off the
         file mmap, window batch by window batch; the gather of batch ``i+1``
         runs on a worker thread while the device computes batch ``i``."""
+        name = transform_span("power_each", self._why)
         if not self._fused:
-            return self._assemble(source, self._window_batch)
+            return self._assemble(source, self._window_batch, name)
         keep = (self.halo, self.halo + self.window)
 
         def write(ext, dst):
             _power_each_into(ext, self._bank, self.interpolate, dst, keep)
 
-        return self._fill(source, write)
+        return self._fill(source, write, name)
 
     def ssq_power_device(self, signal: np.ndarray,
                          rel_threshold: float = 1e-6) -> torch.Tensor:
@@ -202,8 +216,8 @@ class StreamingCWT:
                 "synchrosqueezing needs an analytic (real-bank) family")
         hint = uniform_grid_hint(self.freqs)
         ext = self.window + 2 * self.halo
-        fused = self._fused and supports_ssq((1, 1, ext), self._bank, hint,
-                                             self.interpolate)
+        why = why_not_ssq((1, 1, ext), self._bank, hint, self.interpolate)
+        fused = self._fused and why is None
 
         def window_fn(x):
             if fused:
@@ -217,22 +231,25 @@ class StreamingCWT:
                                         rel_threshold, hint)
             return p[..., self.halo:ext - self.halo]
 
-        return self._assemble(ArraySource(signal), window_fn)
+        return self._assemble(ArraySource(signal), window_fn,
+                              transform_span("ssq", why or self._why))
 
-    def _assemble(self, source, window_fn) -> torch.Tensor:
+    def _assemble(self, source, window_fn, name: str) -> torch.Tensor:
         """The (..., F, N) plane of ``window_fn`` over the window batches of
         ``source``: ``window_fn`` maps a (W, ..., ext) batch on the device
         to its (W, ..., F, window) cropped block, pasted into place."""
         def write(ext, dst):
             dst.copy_(window_fn(ext).reshape(dst.shape))
 
-        return self._fill(source, write)
+        return self._fill(source, write, name)
 
-    def _fill(self, source, write) -> torch.Tensor:
+    def _fill(self, source, write, name: str) -> torch.Tensor:
         """The (..., F, N) plane over the window batches of ``source``:
         ``write(ext, dst)`` puts the batch's (W, ..., ext) windows'
         interiors into ``dst``, the (W, S, F, window) view of their place
-        in the plane (S the lead dims flattened).
+        in the plane (S the lead dims flattened), inside the span ``name``
+        (``ops.fused.transform_span``); the batch's copy to the device is
+        the span ``ninw.h2d``.
 
         The plane is preallocated as (..., F, n_batches * batch * window)
         and returned as the view of its first N samples: the windows of a
@@ -240,14 +257,17 @@ class StreamingCWT:
         n = int(source.n_samples)
         lead = tuple(source.lead)
         n_freqs = self.freqs.shape[0]
-        span = self.batch * self.window
-        n_batches = -(-n // span)
-        buf = torch.empty(lead + (n_freqs, n_batches * span),
+        slab = self.batch * self.window
+        n_batches = -(-n // slab)
+        buf = torch.empty(lead + (n_freqs, n_batches * slab),
                           dtype=torch.float32, device=self.device)
-        rows = buf.view(-1, n_freqs, n_batches * span)
+        rows = buf.view(-1, n_freqs, n_batches * slab)
         for batch_starts, ext in self._source_batches(source):
             start = batch_starts[0]
-            dst = rows[..., start:start + span].unflatten(
+            dst = rows[..., start:start + slab].unflatten(
                 -1, (self.batch, self.window)).permute(2, 0, 1, 3)
-            write(torch.from_numpy(ext).to(self.device), dst)
+            with span("ninw.h2d"):
+                ext = torch.from_numpy(ext).to(self.device)
+            with span(name):
+                write(ext, dst)
         return buf[..., :n]

@@ -118,6 +118,7 @@ from ..ops.specparam import specparam as _specparam
 from ..ops.sst import ssq_mean_power
 from ..ops.superlets import superlet_mean_power
 from ..parallel.streaming import StreamingCWT
+from .observability import span
 
 
 def _welch_of(data, ch_names, sfreq, picks, nperseg, band,
@@ -190,22 +191,25 @@ class EpochsWavelet:
             self.invalidate()
             self._fp = fp
         if not hasattr(self, '_host'):
-            self._host = np.asarray(self.epochs.get_data()).astype(
-                np.float32)
+            with span("ninw.adapter.snapshot"):
+                self._host = np.asarray(self.epochs.get_data()).astype(
+                    np.float32)
         return self._host
 
     def _channel_data(self, ch_name: str) -> torch.Tensor:
         # Slice on the host so one channel moves only (E, N).
         idx = self.epochs.ch_names.index(ch_name)
-        return torch.from_numpy(np.ascontiguousarray(
-            self._host_data()[:, idx, :])).to(self.wavelet.device)
+        host = np.ascontiguousarray(self._host_data()[:, idx, :])
+        with span("ninw.h2d"):
+            return torch.from_numpy(host).to(self.wavelet.device)
 
     def _all_data(self) -> torch.Tensor:
         """Device copy of the full (E, C, N) block (cached, invalidated with
         the host snapshot)."""
         host = self._host_data()
         if not hasattr(self, '_data'):
-            self._data = torch.from_numpy(host).to(self.wavelet.device)
+            with span("ninw.h2d"):
+                self._data = torch.from_numpy(host).to(self.wavelet.device)
         return self._data
 
     def _bank_for(self, waves: torch.Tensor, freqs) -> torch.Tensor:
@@ -1486,7 +1490,8 @@ class RawWavelet:
     def _host_data(self) -> np.ndarray:
         """Host copy of ``raw.get_data()``, fetched once."""
         if not hasattr(self, '_host'):
-            self._host = np.asarray(self.raw.get_data(), np.float32)
+            with span("ninw.adapter.snapshot"):
+                self._host = np.asarray(self.raw.get_data(), np.float32)
         return self._host
 
     def _file_source(self, picks=None):

@@ -5,10 +5,12 @@
   ``NullHandler`` (no prints anywhere in the library),
 * ``Timer`` — wall-clock context manager whose ``block`` synchronizes every
   CUDA device its tensors lie on, so timings measure compute rather than
-  dispatch; ``timed_median`` — the median of synchronized repetitions,
+  dispatch,
 * ``cwt_cost`` — closed-form FLOP / byte estimates for a CWT workload,
 * ``trace`` — a ``torch.profiler`` wrapper writing a trace file (Chrome
   trace JSON, readable by TensorBoard's profiler plugin) under ``logdir``,
+* ``span`` — the library's own host spans (``ninw.*``) at its layer
+  boundaries, recorded only while a profiler records,
 * ``debug_nans`` — NaN checking for numerical debugging.
 
 ``debug_nans`` differs from the JAX package's, which flips
@@ -24,6 +26,28 @@ op synchronize with the card, and the uninitialized buffers of the
 ``empty`` family of factories are zero-filled while it is on, so that their
 old contents are never read as a NaN.  Off is free: no mode is installed
 and the launchers test one flag.
+
+The spans, each opened where its work happens and closed before any
+``yield``, so that they nest properly on the calling thread:
+
+* ``ninw.adapter.snapshot`` — an adapter's float32 host copy of
+  ``get_data()``, when it is made (not on a cache hit);
+* ``ninw.h2d`` — a host-to-device copy of the signals;
+* ``ninw.transform.kernel:<key>`` — one transform through a fused kernel,
+  ``<key>`` the key its launches count under in ``kernels.launches``;
+  ``ninw.transform.plain:<reason>`` — one through the plain ``torch.fft``
+  chain, the reason from ``ops.fused.why_not`` ("shape",
+  "complex_bank", "channels", "n_not_pow2", "n_range"), or
+  "complex_signals", "cpu" (the kernel would take it on a card), "off"
+  (a stream built with ``use_fused=False``), and for synchrosqueezing
+  ``ops.fused.why_not_ssq``'s "row_map" and "interpolate";
+* ``ninw.bank.build`` — a bank built (``WaveletBase._build_bank``; a
+  ``StreamingCWT``'s halo and bank);
+* ``ninw.stream.wait`` — the calling thread's wait for a window batch's
+  gather (the prefetch thread's own gather records nothing).
+
+The count of a name in a trace is the count of that event: there is no
+second counter.
 """
 from __future__ import annotations
 
@@ -91,23 +115,6 @@ class Timer:
                           self.elapsed)
 
 
-def timed_median(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median wall-clock seconds per call of ``fn`` over ``reps``
-    repetitions, each synchronized with the CUDA devices its result lies
-    on: one first call, ``warmup`` steady-state calls, then the timed
-    repetitions, and a median so one congestion spike cannot skew it."""
-    _block(fn())                            # first run (kernel builds)
-    for _ in range(warmup):
-        _block(fn())
-    samples = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _block(fn())
-        samples.append(time.perf_counter() - t0)
-    samples.sort()
-    return samples[len(samples) // 2]
-
-
 @dataclass(frozen=True)
 class CwtCost:
     """Estimated cost of one batched CWT power call."""
@@ -159,6 +166,24 @@ def trace(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(logdir))):
         yield
+
+
+#: What ``span`` hands back while no profiler records.
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else one shared null context: the span shares the trace's clock with
+    the device's activity, and costs one flag test when off.
+
+    >>> with span("ninw.h2d"):          # doctest: +SKIP
+    ...     x = host.to("cuda")
+    """
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 #: ATen ops whose output is an uninitialized buffer: zero-filled, not

@@ -62,21 +62,13 @@ def test_cwt_cost_equals_jax(batch, n_freqs, n, analytic):
     assert got.arithmetic_intensity == want.arithmetic_intensity
 
 
-def test_timer_and_timed_median():
+def test_timer_blocks_on_nested_tensors():
     w = nt.Morse(1000.0, device="cpu")
     sig = torch.ones((8, 256))
     with tobs.Timer("t") as t:
         out = w.power(sig, [10.0, 20.0])
         t.block(out, (out, [out]), {"a": out}, None)
     assert t.elapsed > 0
-    calls = []
-
-    def fn():
-        calls.append(1)
-        return w.power(sig, [10.0])
-
-    sec = tobs.timed_median(fn, reps=3, warmup=1)
-    assert sec > 0 and len(calls) == 1 + 1 + 3
 
 
 def test_timer_logs_at_debug(caplog):
