@@ -3,7 +3,8 @@
 continuous recordings.
 
 For epochs the whole (epochs, channels, time) block moves to the wavelet's
-device once; the epoch reductions run through ``ops.fused`` (the CUDA kernel
+device once, from the float32 host snapshot (``_snapshot``: pinned for a
+card, so the copy is asynchronous); the epoch reductions run through ``ops.fused`` (the CUDA kernel
 on the card, the plain path on the CPU), for real banks and for the complex
 banks of the Normal-mode families (MexicanHat, Haar).  The power variants
 (``superlet_power``, ``multitaper_power``, ``induced_power``,
@@ -151,6 +152,31 @@ def _welch_of(data, ch_names, sfreq, picks, nperseg, band,
     return freqs, psd
 
 
+def _snapshot(data, device) -> torch.Tensor:
+    """The adapters' float32 host snapshot of ``get_data()``: bit for bit
+    ``np.asarray(data).astype(np.float32)``, cast by ``Tensor.copy_`` on
+    torch's intra-op thread pool.
+
+    For a CUDA ``device`` the snapshot is page-locked, from torch's caching
+    host allocator: the next adapter of the same shape gets the same block
+    back (no fresh pages and no new pinning once warm), and the device copy
+    from it runs asynchronously.  The cost is host memory: a live adapter
+    holds its snapshot pinned, rounded up by the allocator to a power of
+    two (128 MB for a 200 x 64 x 2048 epochs block, 256 MB for a 64 x
+    600000 recording).  Arrays ``torch.from_numpy`` refuses (negative
+    strides, a foreign byte order, object arrays) are cast by numpy into
+    the same block.
+    """
+    src = np.asarray(data)
+    dst = torch.empty(src.shape, dtype=torch.float32,
+                      pin_memory=torch.device(device).type == "cuda")
+    try:
+        dst.copy_(torch.from_numpy(src))
+    except (TypeError, ValueError):
+        np.copyto(dst.numpy(), src, casting="unsafe")
+    return dst
+
+
 class EpochsWavelet:
     """Wavelet transforms over an MNE-style epochs container.
 
@@ -186,15 +212,17 @@ class EpochsWavelet:
                 delattr(self, attr)
 
     def _host_data(self) -> np.ndarray:
+        """The float32 snapshot (``_snapshot``) as a numpy view, refetched
+        when the fingerprint changes."""
         fp = self._fingerprint()
         if getattr(self, '_fp', None) != fp:
             self.invalidate()
             self._fp = fp
         if not hasattr(self, '_host'):
             with span("ninw.adapter.snapshot"):
-                self._host = np.asarray(self.epochs.get_data()).astype(
-                    np.float32)
-        return self._host
+                self._host = _snapshot(self.epochs.get_data(),
+                                       self.wavelet.device)
+        return self._host.numpy()
 
     def _channel_data(self, ch_name: str) -> torch.Tensor:
         # Slice on the host so one channel moves only (E, N).
@@ -206,10 +234,13 @@ class EpochsWavelet:
     def _all_data(self) -> torch.Tensor:
         """Device copy of the full (E, C, N) block (cached, invalidated with
         the host snapshot)."""
-        host = self._host_data()
+        self._host_data()
         if not hasattr(self, '_data'):
+            # From the pinned tensor itself: the allocator then holds the
+            # block until the copy has landed.
             with span("ninw.h2d"):
-                self._data = torch.from_numpy(host).to(self.wavelet.device)
+                self._data = self._host.to(self.wavelet.device,
+                                           non_blocking=True)
         return self._data
 
     def _bank_for(self, waves: torch.Tensor, freqs) -> torch.Tensor:
@@ -1488,11 +1519,13 @@ class RawWavelet:
                 delattr(self, attr)
 
     def _host_data(self) -> np.ndarray:
-        """Host copy of ``raw.get_data()``, fetched once."""
+        """The float32 snapshot of ``raw.get_data()`` (``_snapshot``), made
+        once, as a numpy view."""
         if not hasattr(self, '_host'):
             with span("ninw.adapter.snapshot"):
-                self._host = np.asarray(self.raw.get_data(), np.float32)
-        return self._host
+                self._host = _snapshot(self.raw.get_data(),
+                                       self.wavelet.device)
+        return self._host.numpy()
 
     def _file_source(self, picks=None):
         """An ``io.stream`` source gathering straight off the file mmap

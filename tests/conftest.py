@@ -34,6 +34,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def example_signal():
     """The reference's de-facto golden input (``test.py:17-27``): 60 Hz sine
