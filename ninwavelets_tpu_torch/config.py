@@ -140,7 +140,7 @@ def run_pipeline(cfg: PipelineConfig, epochs, device=None) -> dict:
     connectivity matrices, ``specparam`` and ``cluster``.
     """
     from .ops.baseline import baseline_tf
-    from .ops.cwt import itc_from_bank, mean_power_from_bank
+    from .ops.cwt import power_itc_from_bank
     from .ops.fused import power_itc_auto
     from .utils.mne_adapter import EpochsWavelet
     from .utils.observability import log
@@ -164,8 +164,7 @@ def run_pipeline(cfg: PipelineConfig, epochs, device=None) -> dict:
             power, itc = power_itc_auto(waves, bank, interpolate=interp,
                                         precision=cfg.engine.precision)
         else:
-            power = mean_power_from_bank(waves, bank, interp)
-            itc = itc_from_bank(waves, bank, interp)
+            power, itc = power_itc_from_bank(waves, bank, interp)
     out = {"itc": itc, "freqs": freqs, "wavelet": wavelet}
     # The T&C background takes the bank's real part, as the JAX package's
     # float-pair ``bank_r`` is.

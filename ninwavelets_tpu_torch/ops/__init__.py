@@ -69,7 +69,8 @@ from .csd import (csd_transform, interpolate_channels,
 from .cwt2d import cwt2, morlet2d_bank, pow2_pad2, power2d
 from .cycles import CycleTable, cycle_features
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_from_bank,
-                  itc_from_bank, mean_power_from_bank, power_from_bank)
+                  itc_from_bank, mean_power_from_bank, power_from_bank,
+                  power_itc_from_bank)
 from .connectivity import (PAC_METHODS, PHASE_LAG_METHODS,
                            coherence_matrix, coherence_matrix_from_bank,
                            erpac, erpac_from_banks, kuramoto_order,

@@ -75,7 +75,8 @@ from ..utils.observability import span
 from .connectivity import (phase_lag_from_sums, phase_lag_sums,
                            plv_sums)
 from .cwt import (_epoch_sum, analytic_spectrum, itc_from_bank,
-                  mean_power_from_bank, power_from_bank)
+                  mean_power_from_bank, power_from_bank, power_itc_from_bank,
+                  power_term, unit_phase)
 from .extensions import coherence_from_sums, coherence_sums, imcoh_from_sums
 from .grids import analytic_mask
 from .sst import ssq_mean_power_from_bank, ssq_power_from_bank
@@ -364,21 +365,12 @@ def fused_power_itc_from_bank(signals: torch.Tensor, bank: torch.Tensor,
     card: it raises there when an input requires grad."""
     _check_precision(precision)
     if signals.device.type == "cpu":
-        return (mean_power_from_bank(signals, bank, interpolate),
-                itc_from_bank(signals, bank, interpolate))
+        return power_itc_from_bank(signals, bank, interpolate)
     _no_grad_on_card("fused_power_itc_from_bank",
                      "fused_mean_power_from_bank and fused_itc_from_bank, "
                      "which are differentiable", signals, bank)
     power, itc = _launch("power_itc", signals, bank, interpolate, precision)
     return power, itc
-
-
-def _power_term(c):
-    return torch.square(c.real) + torch.square(c.imag)
-
-
-def _unit_phase(c):
-    return c / torch.abs(c)
 
 
 def _phase_sums(signals, bank, interpolate, precision, epilogue):
@@ -387,8 +379,8 @@ def _phase_sums(signals, bank, interpolate, precision, epilogue):
     one ``kernels.fused_cwt_sums`` launch on the card."""
     _check_precision(precision)
     if signals.device.type == "cpu":
-        per_epoch = ((_unit_phase,) if epilogue == "itc"
-                     else (_power_term, _unit_phase))
+        per_epoch = ((unit_phase,) if epilogue == "itc"
+                     else (power_term, unit_phase))
         *power, phase = _epoch_sum(signals, bank, interpolate, *per_epoch)
         return (*power, phase.real, phase.imag)
     _no_grad_on_card(f"the fused epoch sums ({epilogue!r})",
@@ -514,15 +506,14 @@ def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
                    interpolate: bool = False,
                    precision: str = DEFAULT_PRECISION):
     """(power, itc) with automatic kernel dispatch: one fused pass where the
-    kernel takes the workload (a complex bank included), the two plain
-    reductions otherwise."""
+    kernel takes the workload (a complex bank included), one plain pass
+    otherwise (each epoch's CWT once, feeding both sums)."""
     takes, name = _reduction_route(signals, bank, "power_itc")
     with span(name):
         if takes:
             return fused_power_itc_from_bank(signals, bank, interpolate,
                                              precision)
-        return (mean_power_from_bank(signals, bank, interpolate),
-                itc_from_bank(signals, bank, interpolate))
+        return power_itc_from_bank(signals, bank, interpolate)
 
 
 # -- synchrosqueezing ---------------------------------------------------------

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.bank import WaveletDef, WaveletMode, make_fft_bank
-from ..ops.cwt import cwt_from_bank
+from ..ops.cwt import cwt_from_bank, power_from_bank
 from ..ops.grids import fft_bin_freqs
 from . import collectives
 from .mesh import TIME_AXIS, axis_size
@@ -122,11 +122,9 @@ def chunked_power(signal_r, bank_r, bank_i=None, *, mesh, halo: int,
     over the mesh's ``time`` axis.  ``bank_r`` (with ``bank_i``, or a
     complex bank) is the extended-chunk bank of ``chunk_bank`` (last dim
     N / n_time + 2 * halo)."""
-    def per_chunk(ext, bank):
-        c = cwt_from_bank(ext, bank, interpolate)
-        return torch.square(c.real) + torch.square(c.imag)
-
-    return _chunk_call(mesh, signal_r, bank_r, bank_i, halo, per_chunk)
+    return _chunk_call(mesh, signal_r, bank_r, bank_i, halo,
+                       lambda ext, bank: power_from_bank(ext, bank,
+                                                         interpolate))
 
 
 def chunked_abs(signal_r, bank_r, bank_i=None, *, mesh, halo: int,

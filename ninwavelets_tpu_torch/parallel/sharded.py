@@ -31,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.cwt import (_epoch_mean, cwt_from_bank, mean_power_from_bank,
-                       power_from_bank)
+                       power_from_bank, unit_phase)
 from . import collectives
 from .mesh import DATA_AXIS, FREQ_AXIS, axis_index, axis_size, placements
 
@@ -185,15 +185,9 @@ def sharded_itc(signals_r, bank_r, bank_i=None, *, mesh,
     """Inter-trial coherence over the mesh: (E, ..., N) -> (..., F, N).
     The unit-phase mean is linear in epochs: each rank means its own, one
     all-reduce over ``data`` completes it, and |.| is taken last."""
-    def unit_phase(c):
-        mag = torch.abs(c)
-        if eps:
-            mag = torch.clamp(mag, min=eps)
-        return c / mag
-
     sig = _sig(signals_r, mesh, (DATA_AXIS,))
     local = _epoch_mean(sig, _bank(mesh, bank_r, bank_i), interpolate,
-                        unit_phase)
+                        lambda c: unit_phase(c, eps))
     return _out(torch.abs(_pmean(local, mesh, DATA_AXIS)), mesh,
                 _tf_spec(_ndim(signals_r)))
 

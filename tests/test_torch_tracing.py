@@ -6,7 +6,8 @@ Gates, each with its reason:
 * with no profiler recording, ``span`` builds no ``record_function`` and
   hands back one shared null context: the spans cost a flag test when off;
 * under ``torch.profiler``: an epochs call records one snapshot, one copy
-  and one transform span inside its caller's span, and a second call on
+  and one transform span inside its caller's span, with one epoch span
+  per epoch inside the plain route's transform span, and a second call on
   the same adapter no snapshot (the cache hit); a streamed recording one
   bank build and, for each window batch, one wait, one copy and one
   transform; every span properly nested on the calling thread, as the
@@ -101,11 +102,15 @@ def test_epochs_call_spans_and_the_snapshot_cache():
     _, lo, hi = first[0]
     assert all(lo <= s and e <= hi for _, s, e in first[1:])
     # The snapshot comes before its copy, the copy before the transform.
+    # Then each of the 4 epochs' transforms, inside the transform span.
     order = [n for n in names if n != "ninw.bank.build"]
     assert order == ["ninw.adapter.snapshot", "ninw.h2d",
-                     "ninw.transform.plain:cpu"]
+                     "ninw.transform.plain:cpu"] + ["ninw.epoch.cwt"] * 4
+    (_, lo, hi), = [x for x in first if x[0] == "ninw.transform.plain:cpu"]
+    assert all(lo <= s and e <= hi for n, s, e in first
+               if n == "ninw.epoch.cwt")
     again = _names(_spans(lambda: ew.power_itc_all(FREQS)))
-    assert again == ["ninw.transform.plain:cpu"]
+    assert again == ["ninw.transform.plain:cpu"] + ["ninw.epoch.cwt"] * 4
 
 
 def test_streamed_recording_spans_per_batch():
@@ -198,7 +203,11 @@ def test_each_dispatcher_opens_one_transform_span(auto):
     before = dict(kernels.launches)
     names = _names(_spans(lambda: getattr(tfused, auto)(
         x, torch.ones(3, 256))))
-    assert names == ["ninw.transform.plain:complex_signals"]
+    # The epoch reductions transform each of the 2 epochs in a span of
+    # its own, inside the transform span; the per-signal power has none.
+    epochs = 0 if auto == "power_auto" else 2
+    assert names == ["ninw.transform.plain:complex_signals"] + [
+        "ninw.epoch.cwt"] * epochs
     assert kernels.launches == before
 
 
