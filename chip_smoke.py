@@ -9,7 +9,8 @@ What it does, failing (non-zero exit, no result line) if any check fails:
 2. Builds the kernels (``csrc/fused_cwt.cu``, the forward,
    ``csrc/fused_cwt_bwd.cu``, the power backward, both also for complex
    banks, ``csrc/fused_ssq.cu``,
-   synchrosqueezing, and ``csrc/fused_pair.cu``, the cross-pair sums) for
+   synchrosqueezing, ``csrc/fused_pair.cu``, the cross-pair sums, and
+   ``csrc/fused_czt.cu``, the chirp-z epoch reductions) for
    sm_90a, one nvcc process a source, all started together, into one
    library, and prints each kernel's registers and spills (``ptxas -v``):
    every kernel runs on the register-resident FFT core of
@@ -18,11 +19,13 @@ What it does, failing (non-zero exit, no result line) if any check fails:
    (``fused_cwt_bwd_kernel<LOG2N, CX>``), the per-signal power
    (``fused_each_kernel<LOG2N>``), the noise gate's peaks
    (``fused_amax_kernel<LOG2N>``), synchrosqueezing
-   (``fused_ssq_kernel<LOG2N, LOG>``) and the cross-pair sums
-   (``fused_pair_kernel<EPI, LOG2N>``); none of them may spill at
-   N <= 8192, nor "power_each" and "amax" at N = 16384 (synchrosqueezing's
-   spill there is printed).  At every N the core's plan, exchange
-   indices and the backward's row groups as the library computes them
+   (``fused_ssq_kernel<LOG2N, LOG>``), the cross-pair sums
+   (``fused_pair_kernel<EPI, LOG2N>``) and the chirp-z reductions
+   (``fused_czt_kernel<EPI, LOG2M>``, M <= 4096); none of them may spill
+   at N <= 8192, nor "power_each", "amax" and the chirp-z reductions at
+   any size (synchrosqueezing's spill there is printed).  At every N the
+   core's plan, exchange indices and the backward's row groups as the
+   library computes them
    (``csrc/core_plan.cu``, ``ninw_fused_cwt_bwd_rows``) must equal the
    host's model that the CPU tests emulate (``kernels.core_plan``,
    ``core_r``, ``core_twiddles``, ``core_exchange_positions``,
@@ -703,6 +706,31 @@ module that knows the backend):
    wall time between barriers (its second call) beside the card's name
    and power limit.  A rank that fails or hangs fails the run.
 
+The epoch reductions at N not a power of two (``czt_phase``; the chirp-z
+kernel, ``csrc/fused_czt.cu``, and the benchmark cell
+``eeg64_mne_epochs.mne_2001``):
+
+64. Drives ``EpochsWavelet.power_all``, ``itc_all`` and ``power_itc_all``
+   at the cell's shape, 200 x 64 x 2001 samples (MNE's -0.5..1.5 s at
+   1 kHz, both ends kept; the headline data's first 2001 samples), 100
+   Morse rows, the default ``interpolate=False``; the counters are zeroed
+   just before and read just after: "power_czt", "itc_czt" and
+   "power_itc_czt" once each, no other kernel.  Holds the results against
+   the plain N-point route on the same tensors (``mean_power_from_bank``,
+   ``itc_from_bank``, ``power_itc_from_bank``) at the cell's limits: the
+   power within 1e-4 of each row's peak, the coherence within 0.006, NaN
+   masks equal.  Phase-locked 60 Hz epochs of 2001 samples peak at the
+   60 Hz row with ITC > 0.99 there.
+65. The wrapper ``kernels.fused_czt`` alone, its three epilogues, against
+   the same plain route at N = 421, 1000, 1001, 2000 and 2047 (M = 1024,
+   2048, 2048, 4096, 4096; bin N/2 of an even N read once), both
+   ``interpolate`` settings, E = 19, 3 channels x 13 rows, at the limits
+   of 64.
+66. Times each epilogue's ``*_auto`` (its rFFT included) and the plain
+   route at the cell's shape as 6 does, beside two bounds: two M-point
+   transforms a row (M = 4096), and the cell's N-point count; the
+   ``fused_czt[<epilogue>]`` records carry both.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -750,6 +778,14 @@ SIGN_ROUNDOFF, SIGN_CELLS = 1e-5, 1e-4
 TF32_GATE = 1e-6
 EVENT_N, EVENT_TMIN, EVENT_TMAX = 200, -0.5, 1.547   # 2048-sample windows
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 non-tensor, HBM3
+CZT_SOURCE = "ninwavelets_tpu_torch/csrc/fused_czt.cu"
+#: MNE's epoch length for -0.5..1.5 s at 1 kHz (both ends kept), the lengths
+#: the chirp-z sweep takes (M = 1024, 2048, 4096; even and odd N), and the
+#: limits of the benchmark cell eeg64_mne_epochs.mne_2001: the power within
+#: 1e-4 of each row's peak, the coherence within 0.006.
+N_MNE = 2001
+CZT_SWEEP = (421, 1000, 1001, 2000, 2047)
+CZT_P_TOL, CZT_ITC_TOL = 1e-4, 0.006
 #: The radix-2 kernels' times of the rows now on the register-resident core
 #: (PERF.md section 6, from this script's runs on an NVIDIA H100 80GB HBM3
 #: at 700 W: the real and K6 rows before slice 6, the cx rows in it; cx at
@@ -862,14 +898,15 @@ def print_ptxas(lib):
     (``fused_cwt_bwd_kernel<LOG2N,CX>``) and synchrosqueezing
     (``fused_ssq_kernel<LOG2N,LOG>``) at N <= 8192, "power_each" and
     "amax" (``fused_each_kernel<LOG2N>``, ``fused_amax_kernel<LOG2N>``) at
-    every N."""
+    every N, and the chirp-z reductions (``fused_czt_kernel<EPI,LOG2M>``)
+    at every M."""
     name, args, spilling = "?", [], []
     with open(lib[:-3] + ".log") as fh:
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
                 k = re.search(r"(fused_(?:cwt|cwt_bwd|each|amax|ssq|"
-                              r"pair)_kernel)I(.*?)EEv", m.group(1))
+                              r"pair|czt)_kernel)I(.*?)EEv", m.group(1))
                 args = (re.findall(r"L[ib](\d+)E", k.group(2) + "E")
                         if k else [])
                 name = (f"{k.group(1)}<" + ",".join(args) + ">" if k
@@ -888,7 +925,8 @@ def no_spill(name, args):
         return int(args[1]) <= 13
     if name.startswith(("fused_cwt_bwd_kernel<", "fused_ssq_kernel<")):
         return int(args[0]) <= 13
-    return name.startswith(("fused_each_kernel<", "fused_amax_kernel<"))
+    return name.startswith(("fused_each_kernel<", "fused_amax_kernel<",
+                             "fused_czt_kernel<"))
 
 
 def event_ms(fn):
@@ -1686,6 +1724,161 @@ def ssq_phase(data):
                 "library_ms": None}]
     for record in records:
         print_radix2_ms(record)
+    return records
+
+
+def row_err(name, got, ref, gate=CZT_P_TOL):
+    """max over rows of max|d| / max|ref| along the row, failing above
+    ``gate``, as the benchmark's comparison (``gpubench/compare.py``) reads
+    it: a row whose reference is all zero (its power below float32's
+    range) must be zero too; returns max|d|."""
+    import torch
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
+          f"{tuple(ref.shape)}")
+    check(bool(got.isfinite().all()), f"{name}: non-finite values")
+    d = (got.double() - ref.double()).abs().amax(-1)
+    peak = ref.double().abs().amax(-1)
+    rel = torch.where(peak > 0, d / peak.clamp_min(1e-300),
+                      torch.where(d > 0, math.inf, 0.0)).max().item()
+    d = d.max()
+    print(f"check {name}: max|d| {d.max().item()}, max over rows of max|d| "
+          f"/ the row's peak {rel} (gate {gate})")
+    check(rel <= gate, f"{name}: row err {rel} > {gate}")
+    return d.max().item()
+
+
+def abs_err(name, got, ref, gate=CZT_ITC_TOL):
+    """max|d| of a coherence plane, NaN masks equal, failing above
+    ``gate``."""
+    import torch
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
+          f"{tuple(ref.shape)}")
+    check(torch.equal(got.isnan(), ref.isnan()), f"{name}: NaN masks differ")
+    err = (got - ref).nan_to_num().abs().max().item()
+    print(f"check {name}: max|d| {err} (gate {gate})")
+    check(err <= gate, f"{name}: ITC err {err} > {gate}")
+    return err
+
+
+def czt_phase(data):
+    """The three epoch reductions at N not a power of two, on the chirp-z
+    kernel (steps 64-66): the main path at the benchmark cell's shape, the
+    kernel against the plain N-point route there and at one N per M, and
+    times; returns the three ``fused_czt`` kernel records."""
+    import torch
+    import ninwavelets_tpu_torch as nt
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt, fused
+
+    freqs = np.arange(1.0, F + 1.0)
+    czt_keys = tuple(f"{e}_czt" for e in kernels.CZT_EPILOGUES)
+    epochs = np.ascontiguousarray(data[..., :N_MNE])
+
+    # -- the main path: the cell's shape through the public entry points -----
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ew = nt.EpochsWavelet(nt.ArrayEpochs(epochs, SFREQ),
+                          nt.Morse(SFREQ, device="cuda"))   # interpolate=False
+    power = ew.power_all(freqs)
+    itc = ew.itc_all(freqs)
+    pi_power, pi_itc = ew.power_itc_all(freqs)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"chirp-z main path {time.perf_counter() - t0} s (E={E} C={C} "
+          f"N={N_MNE} F={F}, Morse interpolate=False: power_all, itc_all, "
+          f"power_itc_all; first calls included); launches {counts}")
+    for key in czt_keys:
+        check(counts[key] == 1, f"{key!r} launched {counts[key]} times on "
+              "the chirp-z main path, not once")
+    others = {k: v for k, v in counts.items() if k not in czt_keys and v}
+    check(not others, f"other kernels launched on the chirp-z main path: "
+          f"{others}")
+
+    # -- the kernel against the plain N-point route, same tensors -------------
+    x = ew._all_data()
+    bank = ew._bank_for(x, freqs)
+    ref_power = cwt.mean_power_from_bank(x, bank, False)
+    ref_itc = cwt.itc_from_bank(x, bank, False)
+    err = {"power": row_err(f"czt power_all N={N_MNE}", power, ref_power),
+           "itc": abs_err(f"czt itc_all N={N_MNE}", itc, ref_itc)}
+    one_power, one_itc = cwt.power_itc_from_bank(x, bank, False)
+    err["power_itc"] = max(
+        row_err(f"czt power_itc_all power N={N_MNE}", pi_power, one_power),
+        abs_err(f"czt power_itc_all itc N={N_MNE}", pi_itc, one_itc))
+    del power, itc, pi_power, pi_itc, ref_power, ref_itc, one_power, one_itc
+
+    # -- a known answer: phase-locked 60 Hz epochs ----------------------------
+    ew_tone = nt.EpochsWavelet(
+        nt.ArrayEpochs(tone_epochs(8, 2, N_MNE), SFREQ),
+        nt.Morse(SFREQ, device="cuda"))
+    p_tone, itc_tone = ew_tone.power_itc_all(freqs)
+    peak = int(p_tone.mean(-1).argmax(-1)[0]) + 1
+    itc60 = float(itc_tone[:, 59, N_MNE // 4:3 * N_MNE // 4].min())
+    print(f"check chirp-z 60 Hz tone N={N_MNE}: power peak at {peak} Hz, "
+          f"min ITC at 60 Hz {itc60}")
+    check(peak == 60, f"chirp-z 60 Hz tone peaks at {peak} Hz")
+    check(itc60 > 0.99, f"chirp-z 60 Hz tone ITC {itc60} <= 0.99")
+
+    # -- the wrapper alone at one N per M, both settings ----------------------
+    gen = np.random.default_rng(13)
+    for n in CZT_SWEEP:
+        for interp in (True, False):
+            xs = torch.from_numpy(gen.standard_normal(
+                (E_RAGGED, 3, n), dtype=np.float32)).cuda()
+            bs = morse_bank(freqs[:F_RAGGED], n, interp)
+            spec = torch.fft.rfft(xs).contiguous()
+            k_bins = n // 2 if interp else n
+            tag = (f"N={n} M={kernels.czt_size(n)} interpolate={interp} "
+                   f"({E_RAGGED}, 3) x {F_RAGGED}")
+            rp = cwt.mean_power_from_bank(xs, bs, interp)
+            ri = cwt.itc_from_bank(xs, bs, interp)
+            row_err(f"czt power {tag}",
+                    kernels.fused_czt("power", spec, bs, k_bins)[0], rp)
+            abs_err(f"czt itc {tag}",
+                    kernels.fused_czt("itc", spec, bs, k_bins)[0], ri)
+            gp, gi = kernels.fused_czt("power_itc", spec, bs, k_bins)
+            op, oi = cwt.power_itc_from_bank(xs, bs, interp)
+            row_err(f"czt power_itc power {tag}", gp, op)
+            abs_err(f"czt power_itc itc {tag}", gi, oi)
+
+    # -- times at the cell's shape --------------------------------------------
+    print(card_line())
+    x = x.clone()
+    pairs = {
+        "power": (lambda: fused.mean_power_auto(x, bank),
+                  lambda: cwt.mean_power_from_bank(x, bank, False)),
+        "itc": (lambda: fused.itc_auto(x, bank),
+                lambda: cwt.itc_from_bank(x, bank, False)),
+        "power_itc": (lambda: fused.power_itc_auto(x, bank),
+                      lambda: cwt.power_itc_from_bank(x, bank, False)),
+    }
+    m = kernels.czt_size(N_MNE)
+    rfft = E * C * fft_flops(N_MNE) / 2
+    records = []
+    for epilogue, (kern, plain) in pairs.items():
+        ms, plain_ms = median_ms(x, [kern, plain])
+        n_out = 2 if epilogue == "power_itc" else 1
+        nbytes = (4 * (E * C * N_MNE + F * N_MNE + n_out * C * F * N_MNE)
+                  + 8 * (N_MNE + m))
+        bound_ms, bound_by = bound(rfft + E * C * F * 2 * fft_flops(m),
+                                   nbytes)
+        bound_n, _ = bound(rfft + E * C * F * fft_flops(N_MNE), nbytes)
+        print(f"time {epilogue} chirp-z (E={E} C={C} N={N_MNE} M={m} F={F}, "
+              f"interpolate=False; the auto with its rFFT): kernel {ms} ms, "
+              f"plain torch.fft {plain_ms} ms; bound {bound_ms} ms "
+              f"({bound_by}; two M-point transforms a row), {bound_n} ms by "
+              f"the N-point count")
+        records.append({
+            "name": f"fused_czt[{epilogue}]", "route": "cuda",
+            "source": CZT_SOURCE, "replaces": None,
+            "launches": counts[f"{epilogue}_czt"],
+            "max_abs_err": err[epilogue], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_n_point": bound_n, "library_ms": None,
+            "interpolate": False, "n": N_MNE, "m": m})
+    del x, bank, pairs
+    torch.cuda.empty_cache()
     return records
 
 
@@ -7254,6 +7447,10 @@ def main() -> int:
 
     # -- slice 15: the multi-device layer ---------------------------------------
     multigpu_phase()
+    torch.cuda.empty_cache()
+
+    # -- the epoch reductions at N not a power of two ---------------------------
+    records += czt_phase(data)
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

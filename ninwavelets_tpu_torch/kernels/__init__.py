@@ -6,8 +6,10 @@ plain C interface, loaded with ``ctypes``: the fused forward (``fused_cwt.cu``:
 the epoch reductions, the per-signal power and the per-row peak "amax"), the
 fused power backward (``fused_cwt_bwd.cu``; both of these also take a
 complex bank, the forward for its three epoch reductions), the fused
-synchrosqueezing kernel (``fused_ssq.cu``) and the cross-pair epoch sums
-(``fused_pair.cu``: coherence, phase lag, unit cross-phase).
+synchrosqueezing kernel (``fused_ssq.cu``), the cross-pair epoch sums
+(``fused_pair.cu``: coherence, phase lag, unit cross-phase) and the three
+epoch reductions at N not a power of two (``fused_czt.cu``: a chirp-z over
+M-point transforms of the core, with the tables of ``czt_tables``).
 Nothing is compiled or loaded when this module is imported: the first launch
 builds the library (or ``build()`` does it up front), keyed by a hash of every
 source under ``csrc/``, the compiler flags and the ``nvcc`` version, and
@@ -18,8 +20,9 @@ Every kernel runs on the register-resident FFT core of
 ``csrc/fft_regs.cuh`` and takes its twiddle table, ``core_twiddles``: the
 epoch reductions ("power", "itc", "power_itc", real and complex bank), the
 per-signal power ("power_each"), the noise gate's peaks ("amax"), the
-backward (real and complex bank), the synchrosqueezing kernel and the
-cross-pair sums.  The core's plan, its twiddle table and where each
+backward (real and complex bank), the synchrosqueezing kernel, the
+cross-pair sums and the chirp-z reductions (at M = ``czt_size(N)``).  The
+core's plan, its twiddle table and where each
 thread's samples go are described here too
 (``core_plan``, ``core_twiddles``, ``core_exchange_positions``,
 ``core_output_map``, and the backward's row groups, ``bwd_rows``), so the
@@ -69,6 +72,11 @@ COMPLEX_EPILOGUES = ("power", "itc", "power_itc")
 #: core's plans, ``fft_regs::Plan``: at N = 16384 a block has 1024 threads
 #: and its exchange buffer 136 KB of shared memory).
 MIN_N, MAX_N = 256, 16384
+#: The chirp-z kernel's epilogues, and the largest transform it runs: it
+#: takes N not a power of two with MIN_N < N and 2N - 1 <= CZT_MAX_M, so
+#: M = ``czt_size(N)`` is 1024, 2048 or 4096.
+CZT_EPILOGUES = ("power", "itc", "power_itc")
+CZT_MAX_M = 4096
 
 #: Epilogues of the cross-pair kernel, by the code its C launcher takes, and
 #: the (C, F, N) planes each returns.
@@ -81,11 +89,13 @@ PAIR_PLANES = {"coherence": 4, "phaselag": 4, "plv": 2}
 #: kernel, one key per epilogue of the cross-pair kernel, and the
 #: complex-bank launches under their own keys ("power_cx", "itc_cx",
 #: "power_itc_cx", "power_bwd_cx"), so a run of a real-bank kernel is never
-#: read as a run of its complex-bank form.
+#: read as a run of its complex-bank form, and the chirp-z launches under
+#: theirs ("power_czt", "itc_czt", "power_itc_czt").
 launches = dict.fromkeys((*EPILOGUES, "power_each", "power_bwd", "ssq",
                           *PAIR_EPILOGUES,
                           *(f"{e}_cx" for e in COMPLEX_EPILOGUES),
-                          "power_bwd_cx"), 0)
+                          "power_bwd_cx",
+                          *(f"{e}_czt" for e in CZT_EPILOGUES)), 0)
 
 #: Set while ``utils.observability.debug_nans`` is on: the launchers then
 #: check their outputs for NaN (``_check_nans``).
@@ -188,6 +198,8 @@ SIGNATURES = {
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p]),
     "ninw_fused_pair": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                         + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    "ninw_fused_czt": ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     "ninw_core_plan": [ctypes.c_int, ctypes.c_void_p],
     "ninw_core_exchange": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p],
@@ -244,6 +256,35 @@ def core_twiddles(n: int) -> np.ndarray:
             parts.append(np.exp(2j * np.pi * r * k / (ns * p)).ravel())
         ns *= p
     return np.concatenate(parts).astype(np.complex64)
+
+
+def czt_size(n: int) -> int:
+    """M, the chirp-z kernel's transform length at signal length ``n``: the
+    least power of two >= 2n - 1.  Raises where the kernel does not take
+    ``n`` (a power of two, ``n <= MIN_N``, or M above ``CZT_MAX_M``)."""
+    m = 1 << (2 * n - 2).bit_length()
+    if n <= MIN_N or n & (n - 1) == 0 or m > CZT_MAX_M:
+        raise ValueError(f"N={n} is not a length the chirp-z kernel takes: "
+                         f"not a power of two, {MIN_N} < N, 2N - 1 <= "
+                         f"{CZT_MAX_M}")
+    return m
+
+
+def czt_tables(n: int) -> tuple:
+    """Bluestein's tables at signal length ``n``, complex128: the chirp
+    w[k] = exp(+i pi k^2 / n), k < n, its phase taken from k^2 mod 2n in
+    integers first; and H = F+(h) / M, the unnormalised inverse DFT of
+    h[m] = conj(w[|m|]) (|m| < n, wrapped mod M = ``czt_size(n)``) over M,
+    which is numpy's ``ifft``.  With a[k] = bank[k] spec[k] w[k] zero-padded
+    to M, F+( conj( F+(a) H ) ) is conj(conv), conv[n] = x[n] conj(w[n]),
+    x the unnormalised n-point inverse DFT of bank x spectrum."""
+    m = czt_size(n)
+    k = np.arange(n, dtype=np.int64)
+    w = np.exp(1j * np.pi * ((k * k) % (2 * n)) / n)
+    h = np.zeros(m, dtype=np.complex128)
+    h[:n] = w.conj()
+    h[m - n + 1:] = w[:0:-1].conj()
+    return w, np.fft.ifft(h)
 
 
 def core_exchange_positions(n: int, s: int) -> np.ndarray:
@@ -328,13 +369,24 @@ def _core_twiddles(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(core_twiddles(n)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _czt_tables(n: int, device: torch.device) -> tuple:
+    """``czt_tables(n)`` as the kernel reads them, complex64 on ``device``,
+    built once per (N, device)."""
+    return tuple(torch.from_numpy(t.astype(np.complex64)).to(device)
+                 for t in czt_tables(n))
+
+
 def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
-           g: torch.Tensor = None, complex_bank: bool = False):
+           g: torch.Tensor = None, complex_bank: bool = False,
+           czt: bool = False):
     """Validate what a kernel takes: dtypes, ranks, contiguity and shapes
     first, the device last.  Returns (E, C, L, F, N).  The bank is float32,
-    or complex64 where ``complex_bank``.  The kernels take the signal count
-    E*C as a C int and index every buffer with size_t, so E*C*F*N may pass
-    2^31."""
+    or complex64 where ``complex_bank``.  N is a power of two in [MIN_N,
+    MAX_N], or, for the chirp-z kernel (``czt``), a length ``czt_size``
+    takes, whose spectrum rows need only the N // 2 + 1 bins of an rFFT
+    row.  The kernels take the signal count E*C as a C int and index
+    every buffer with size_t, so E*C*F*N may pass 2^31."""
     named = [("spec", spec, torch.complex64, 3),
              ("bank", bank,
               torch.complex64 if complex_bank else torch.float32, 2)]
@@ -346,9 +398,12 @@ def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
                              f"tensor, got {tuple(t.shape)} {t.dtype}")
     e, c, row_len = spec.shape
     f, n = bank.shape
-    if n < MIN_N or n > MAX_N or n & (n - 1):
+    if czt:
+        czt_size(n)
+    elif n < MIN_N or n > MAX_N or n & (n - 1):
         raise ValueError(f"N={n} is not a power of two in [{MIN_N}, {MAX_N}]")
-    if k_bins not in (n // 2, n) or row_len < k_bins:
+    if k_bins not in (n // 2, n) or row_len < (n // 2 + 1 if czt
+                                                else k_bins):
         raise ValueError(f"k_bins={k_bins} needs N/2 or N bins of the "
                          f"spectrum rows (length {row_len}, N={n})")
     if e < 1 or c < 1 or c > 65535 or f < 1 or e * c >= 2 ** 31:
@@ -444,6 +499,48 @@ def fused_cwt_sums(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
     key = f"{epilogue}_cx" if cx else epilogue
     if err != 0:
         raise RuntimeError(f"fused_cwt_sums[{key}] launch failed: CUDA error "
+                           f"{err} (E={e}, C={c}, F={f}, N={n})")
+    launches[key] += 1
+    _check_nans(key, outs)
+    return outs
+
+
+def fused_czt(epilogue: str, spec: torch.Tensor, bank: torch.Tensor,
+              k_bins: int):
+    """Launch the chirp-z epoch reduction (``csrc/fused_czt.cu``) at N not
+    a power of two.
+
+    Args:
+      epilogue: "power" -> [mean power]; "itc" -> [itc]; "power_itc" ->
+        [mean power, itc], each (C, F, N) float32, as ``fused_cwt`` gives
+        them at a power of two.
+      spec: (E, C, L) complex64 CUDA tensor, contiguous, L >= N // 2 + 1:
+        the rFFT rows of real signals of N points.  Of the first ``k_bins``
+        bins, those above N / 2 are read as the conjugates of the bins
+        below (bin k is conj(spec[..., N - k])).
+      bank: (F, N) float32 CUDA tensor, contiguous, real; N not a power of
+        two, MIN_N < N, 2N - 1 <= CZT_MAX_M (``czt_size``).
+      k_bins: N // 2 on the analytic path, N otherwise.
+
+    Counted under "<epilogue>_czt"."""
+    if epilogue not in CZT_EPILOGUES:
+        raise ValueError(f"the chirp-z kernel takes {CZT_EPILOGUES}, not "
+                         f"{epilogue!r}")
+    e, c, row_len, f, n = _check(spec, bank, k_bins, czt=True)
+    lib = _load()
+    outs = [torch.empty((c, f, n), dtype=torch.float32, device=spec.device)
+            for _ in range(2 if epilogue == "power_itc" else 1)]
+    chirp, filt = _czt_tables(n, spec.device)
+    with torch.cuda.device(spec.device):
+        err = lib.ninw_fused_czt(
+            EPILOGUES[epilogue], spec.data_ptr(), bank.data_ptr(),
+            chirp.data_ptr(), filt.data_ptr(),
+            _core_twiddles(czt_size(n), spec.device).data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
+            e, c, f, n, k_bins, row_len, _stream(spec.device))
+    key = f"{epilogue}_czt"
+    if err != 0:
+        raise RuntimeError(f"fused_czt[{key}] launch failed: CUDA error "
                            f"{err} (E={e}, C={c}, F={f}, N={n})")
     launches[key] += 1
     _check_nans(key, outs)

@@ -66,17 +66,19 @@ def unit_phase(c: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return c / mag
 
 
-def _epoch_sum(signals, bank, interpolate, *per_epoch):
+def _epoch_sum(signals, bank, interpolate, *per_epoch,
+               transform=cwt_from_bank):
     """Sums of each ``per_epoch(cwt)`` over the leading (epoch) axis, one
     epoch at a time: one plane for each function given.  Each epoch's CWT
-    is computed once; each term is added into its total as soon as it
-    exists, and the coefficients are dropped before the next epoch's, so
-    the totals, one epoch's coefficients and one term's temporaries are
-    all that is held.  The first epoch's terms start the totals."""
+    (``transform``) is computed once; each term is added into its total as
+    soon as it exists, and the coefficients are dropped before the next
+    epoch's, so the totals, one epoch's coefficients and one term's
+    temporaries are all that is held.  The first epoch's terms start the
+    totals."""
     totals = None
     for sig in signals:
         with span("ninw.epoch.cwt"):
-            c = cwt_from_bank(sig, bank, interpolate)
+            c = transform(sig, bank, interpolate)
         if totals is None:
             totals = [f(c) for f in per_epoch]
         else:

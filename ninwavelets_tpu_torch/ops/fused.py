@@ -28,12 +28,22 @@ Dispatch, with no fallback that hides the device or the kernel:
   ``fused_power_itc_from_bank`` launch the complex-bank kernels for it.
   ``supports()`` itself rejects a complex bank, so every other dispatcher
   (``power_auto``, streaming, scattering, ``supports_ssq``, the pair
-  ``*_auto``) runs the plain path for it.
+  ``*_auto``) runs the plain path for it;
+* the same three reductions take a second kernel, the chirp-z one
+  (``csrc/fused_czt.cu``), for real CUDA signals and a real bank whose N
+  ``why_not()`` refuses only as "n_not_pow2" and ``supports_czt()`` takes
+  (256 < N <= 2048: M = 1024, 2048 or 4096 points), such as MNE's 2001.
+  It computes the same N-point transform as a Bluestein convolution over
+  M-point transforms of the core; ``czt_from_bank`` / ``czt_reduction``
+  are its plain version.  Its backward differentiates the plain route.
+  On the CPU, for a complex bank, and for other N, the routes are as
+  above.
 
 ``why_not()`` holds the rule once and says which part of it a workload
 fails; ``supports()`` is ``why_not() is None``.  Each of the four
 ``*_auto`` dispatchers opens one span around its transform
-(``transform_span``): ``ninw.transform.kernel:<launch key>``, or
+(``transform_span``): ``ninw.transform.kernel:<launch key>`` (the
+chirp-z route's keys are ``<epilogue>_czt``), or
 ``ninw.transform.plain:<reason>``, the reason ``why_not()``'s, or
 "complex_signals", or "cpu" where the fused wrapper runs its plain version.
 
@@ -150,6 +160,19 @@ def _route(signals: torch.Tensor, bank, epilogue: str):
     return takes, transform_span(epilogue, why)
 
 
+def supports_czt(signals_shape, bank) -> bool:
+    """True when the chirp-z kernel (``csrc/fused_czt.cu``) takes this
+    workload's shape: an (E, C, N) batch whose N is not a power of two,
+    MIN_N < N and 2N - 1 <= CZT_MAX_M (M = ``kernels.czt_size(N)`` is 1024,
+    2048 or 4096), and of which ``why_not()`` finds nothing else (1 <= C
+    <= 65535, a real floating (F, N) bank built for the same N).  The
+    length is looked at first, so ``why_not()`` runs only for such N."""
+    n = signals_shape[-1] if len(signals_shape) == 3 else 0
+    return (n & (n - 1) != 0 and kernels.MIN_N < n
+            and 2 * n - 1 <= kernels.CZT_MAX_M
+            and why_not(signals_shape, bank) == "n_not_pow2")
+
+
 def _reduction_route(signals: torch.Tensor, bank, epilogue: str):
     """``_route`` of the three epoch reductions: a complex bank is asked
     about by its real part (``_reduction_takes``) and launches the
@@ -157,6 +180,29 @@ def _reduction_route(signals: torch.Tensor, bank, epilogue: str):
     if bank is not None and bank.is_complex():
         return _route(signals, bank.real, epilogue + "_cx")
     return _route(signals, bank, epilogue)
+
+
+def _reduction_plan(signals: torch.Tensor, bank, epilogue: str):
+    """``(run, span name)`` of the ``*_auto`` of one epoch reduction:
+    ``run(signals, bank, interpolate, precision)`` gives what the auto
+    returns.  Real CUDA signals and bank that ``supports_czt()`` takes run
+    the chirp-z kernel under ``ninw.transform.kernel:<epilogue>_czt``;
+    every other workload the fused wrapper where ``_reduction_route``
+    takes it, the plain N-point route where not, under that route's
+    span."""
+    if (supports_czt(signals.shape, bank) and not signals.is_complex()
+            and signals.is_cuda and bank.is_cuda):
+        def czt(s, b, interpolate, precision):
+            return _FusedCzt.apply(epilogue, s, b, interpolate)
+        return czt, transform_span(epilogue + "_czt", None)
+    takes, name = _reduction_route(signals, bank, epilogue)
+    fused_fn, plain_fn = _reduction_fns(epilogue)
+    if takes:
+        return fused_fn, name
+
+    def plain(s, b, interpolate, precision):
+        return plain_fn(s, b, interpolate)
+    return plain, name
 
 
 def _check_precision(precision: str) -> None:
@@ -296,6 +342,20 @@ class _FusedMeanPower(torch.autograd.Function):
             None, None
 
 
+def _plain_grads(plain, signals, bank, need, grads):
+    """(d signals, d bank), each None where ``need`` does not ask for it:
+    the vector-Jacobian product of ``plain(signals, bank)`` with its
+    outputs' cotangents ``grads``, by autograd over a plain recomputation."""
+    inputs = [x.detach().requires_grad_(n) for x, n in
+              zip((signals, bank), need)]
+    wanted = [x for x, n in zip(inputs, need) if n]
+    if not wanted:
+        return None, None
+    with torch.enable_grad():
+        got = iter(torch.autograd.grad(plain(*inputs), wanted, grads))
+    return tuple(next(got) if n else None for n in need)
+
+
 class _FusedItc(torch.autograd.Function):
     """ITC whose backward differentiates the plain ``itc_from_bank`` (port
     of ``_fused_itc_vjp``): the forward is the kernel on the card, the plain
@@ -312,16 +372,90 @@ class _FusedItc(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         signals, bank = ctx.saved_tensors
-        need = ctx.needs_input_grad[:2]
-        inputs = [x.detach().requires_grad_(n) for x, n in
-                  zip((signals, bank), need)]
-        wanted = [x for x, n in zip(inputs, need) if n]
-        if not wanted:
-            return None, None, None, None
-        with torch.enable_grad():
-            grads = iter(torch.autograd.grad(
-                itc_from_bank(*inputs, ctx.interpolate), wanted, g))
-        return tuple(next(grads) if n else None for n in need) + (None, None)
+        return _plain_grads(
+            lambda s, b: itc_from_bank(s, b, ctx.interpolate), signals, bank,
+            ctx.needs_input_grad[:2], g) + (None, None)
+
+
+def _reduction_fns(epilogue: str):
+    """(fused wrapper, plain N-point route) of one epoch reduction, each
+    taking (signals, bank, interpolate[, precision]) and returning what
+    its ``*_auto`` returns; looked up by name at each call."""
+    return {"power": (fused_mean_power_from_bank, mean_power_from_bank),
+            "itc": (fused_itc_from_bank, itc_from_bank),
+            "power_itc": (fused_power_itc_from_bank,
+                          power_itc_from_bank)}[epilogue]
+
+
+class _FusedCzt(torch.autograd.Function):
+    """The chirp-z kernel's epoch reductions (real CUDA signals and bank
+    that ``supports_czt()`` takes): the rFFT rows, one launch (the kernel
+    reads the bins above N/2 as the conjugates of those below), giving one
+    plane or the (power, itc) pair, as the epilogue's ``*_auto`` does.  Its
+    backward differentiates the plain N-point route, as ``_FusedItc``'s
+    does."""
+
+    @staticmethod
+    def forward(ctx, epilogue, signals, bank, interpolate):
+        ctx.epilogue, ctx.interpolate = epilogue, interpolate
+        ctx.save_for_backward(signals, bank)
+        n = signals.shape[-1]
+        spec = torch.fft.rfft(signals.to(torch.float32)).contiguous()
+        outs = kernels.fused_czt(epilogue, spec, _kernel_bank(bank),
+                                 n // 2 if interpolate else n)
+        return tuple(outs) if len(outs) > 1 else outs[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        signals, bank = ctx.saved_tensors
+        return (None,) + _plain_grads(
+            lambda s, b: _reduction_fns(ctx.epilogue)[1](s, b,
+                                                          ctx.interpolate),
+            signals, bank, ctx.needs_input_grad[1:3], grads) + (None,)
+
+
+def czt_from_bank(signal: torch.Tensor, bank: torch.Tensor,
+                  interpolate: bool = False) -> torch.Tensor:
+    """The chirp-z kernel's coefficients in plain PyTorch (its plain
+    version; ``csrc/fused_czt.cu``): a real (..., N) signal x (F, N) bank
+    -> (..., F, N), N a length ``kernels.czt_size`` takes.  With a = bank x
+    spectrum x w on the first K bins (K = N // 2 on the analytic path,
+    else N; the spectrum is the rFFT, bins above N / 2 its mirrored
+    conjugates), zero-padded to M, and the tables of ``kernels.czt_tables``:
+    two unnormalised inverse DFTs of M points, the second of conj(F+(a) H),
+    the first N samples, over N.  That is ``cwt_from_bank``'s c[n] as
+    conj(c[n]) w[n], the output chirp left out: the same |c|, and the same
+    |sum_e c_e / |c_e||.  complex128 for float64 signals, else complex64."""
+    n = signal.shape[-1]
+    m = kernels.czt_size(n)
+    ctype = (torch.complex128 if signal.dtype == torch.float64
+             else torch.complex64)
+    w, filt = (torch.from_numpy(t).to(device=signal.device, dtype=ctype)
+               for t in kernels.czt_tables(n))
+    k_bins = n // 2 if interpolate else n
+    spec = torch.fft.rfft(signal)
+    if not interpolate:
+        spec = torch.cat([spec, spec[..., 1:(n + 1) // 2].flip(-1).conj()],
+                         -1)
+    a = torch.nn.functional.pad(
+        spec[..., None, :k_bins] * (bank[:, :k_bins] * w[:k_bins]),
+        (0, m - k_bins))
+    y = torch.fft.ifft(a, norm="forward") * filt
+    return torch.fft.ifft(y.conj(), norm="forward")[..., :n] / n
+
+
+def czt_reduction(epilogue: str, signals: torch.Tensor, bank: torch.Tensor,
+                  interpolate: bool = False) -> list:
+    """Plain version of ``kernels.fused_czt``: the epoch reductions of
+    ``czt_from_bank``'s coefficients, [mean power], [itc] or [mean power,
+    itc], each (C, F, N)."""
+    terms = {"power": (power_term,), "itc": (unit_phase,),
+             "power_itc": (power_term, unit_phase)}[epilogue]
+    sums = _epoch_sum(signals, bank, interpolate, *terms,
+                      transform=czt_from_bank)
+    e = signals.shape[0]
+    return [total / e if term is power_term else torch.abs(total) / e
+            for total, term in zip(sums, terms)]
 
 
 def _no_grad_on_card(name, instead, *tensors) -> None:
@@ -482,12 +616,9 @@ def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """Epoch-mean power with automatic kernel dispatch (see the module
     docstring; a complex bank takes the kernel too); the same result either
     way."""
-    takes, name = _reduction_route(signals, bank, "power")
+    run, name = _reduction_plan(signals, bank, "power")
     with span(name):
-        if takes:
-            return fused_mean_power_from_bank(signals, bank, interpolate,
-                                              precision)
-        return mean_power_from_bank(signals, bank, interpolate)
+        return run(signals, bank, interpolate, precision)
 
 
 def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -495,11 +626,9 @@ def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
              precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Inter-trial coherence with automatic kernel dispatch (a complex bank
     takes the kernel too)."""
-    takes, name = _reduction_route(signals, bank, "itc")
+    run, name = _reduction_plan(signals, bank, "itc")
     with span(name):
-        if takes:
-            return fused_itc_from_bank(signals, bank, interpolate, precision)
-        return itc_from_bank(signals, bank, interpolate)
+        return run(signals, bank, interpolate, precision)
 
 
 def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -508,12 +637,9 @@ def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """(power, itc) with automatic kernel dispatch: one fused pass where the
     kernel takes the workload (a complex bank included), one plain pass
     otherwise (each epoch's CWT once, feeding both sums)."""
-    takes, name = _reduction_route(signals, bank, "power_itc")
+    run, name = _reduction_plan(signals, bank, "power_itc")
     with span(name):
-        if takes:
-            return fused_power_itc_from_bank(signals, bank, interpolate,
-                                             precision)
-        return power_itc_from_bank(signals, bank, interpolate)
+        return run(signals, bank, interpolate, precision)
 
 
 # -- synchrosqueezing ---------------------------------------------------------

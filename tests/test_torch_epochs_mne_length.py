@@ -3,8 +3,10 @@ kept) on the port's plain epoch route, on the CPU at small sizes and,
 marked ``card``, on a CUDA card, where that test skips without one.
 
 N = 2001 is not a power of two, so ``why_not()`` gives ``n_not_pow2`` and
-``power_itc_auto`` runs the plain route: one pass over the epochs, each
-epoch's CWT computed once and feeding both the power and the phase sums.
+``power_itc_auto`` runs the plain route on the CPU (on the card the
+chirp-z kernel, ``tests/test_torch_czt.py``): one pass over the epochs,
+each epoch's CWT computed once and feeding both the power and the phase
+sums.
 
 Gates, each with its reason:
 
@@ -32,8 +34,8 @@ Gates, each with its reason:
   coefficients are summed in the same order;
 * one call transforms each epoch exactly once: E ``ninw.epoch.cwt`` spans,
   none holding the accumulation into the totals;
-* on the card, the same equality, and the one-pass peak allocation no
-  higher than the two reductions'.
+* on the card, the same equality for ``power_itc_from_bank``, and the
+  one-pass peak allocation no higher than the two reductions'.
 
 This file imports neither JAX nor the JAX package, so that the card test
 runs on a machine without it (``--noconftest``).
@@ -276,7 +278,9 @@ def card():
 def test_card_one_pass_equals_the_two_reductions_within_their_memory(card):
     """At the benchmark's 200 x 64 x 2001 x 100 rows: the one-pass route
     equals the two reductions bit for bit, and allocates at its peak no
-    more than they did."""
+    more than they did.  It is called directly: on the card
+    ``power_itc_auto`` takes the chirp-z kernel at this N
+    (``tests/test_torch_czt.py``)."""
     ew = nt.EpochsWavelet(nt.ArrayEpochs(_epochs((200, 64, N_MNE), 2),
                                          SFREQ),
                           nt.Morse(SFREQ, device=card))
@@ -285,13 +289,16 @@ def test_card_one_pass_equals_the_two_reductions_within_their_memory(card):
     torch.cuda.synchronize()
 
     def peak(fn):
+        # From an empty cache, so that blocks cached by earlier tests, whose
+        # sizes the allocator may hand out whole, do not count.
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         out = fn()
         torch.cuda.synchronize()
         return out, torch.cuda.max_memory_allocated() - base
 
-    (power, itc), one = peak(lambda: power_itc_auto(waves, bank))
+    (power, itc), one = peak(lambda: tcwt.power_itc_from_bank(waves, bank))
     (power2, itc2), two = peak(lambda: (
         tcwt.mean_power_from_bank(waves, bank),
         tcwt.itc_from_bank(waves, bank)))
