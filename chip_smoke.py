@@ -2382,7 +2382,6 @@ def complex_bank_elsewhere(data, bank):
     from ninwavelets_tpu_torch.ops import connectivity as conn
     from ninwavelets_tpu_torch.ops import extensions as ext
     from ninwavelets_tpu_torch.ops import fused
-    from ninwavelets_tpu_torch.ops.scattering import _fused_ok
     from ninwavelets_tpu_torch.parallel import StreamingCWT
 
     a = torch.from_numpy(data[:5, :8]).cuda()
@@ -2399,12 +2398,15 @@ def complex_bank_elsewhere(data, bank):
     torch.cuda.synchronize()
     counts = {k: v for k, v in kernels.launches.items() if v}
     takes_ssq = fused.supports_ssq(a.shape, bank, ("lin", 1.0, 1.0), True)
+    # What scattering's "auto" asks of each bank.
+    scat_fused = fused.route("power_each", (1, 1, N), bank,
+                             device=a.device).launch
     print(f"check complex bank elsewhere (power_auto, the five pair autos, "
           f"StreamingCWT): launches {counts}; streaming fused "
           f"{stream._fused}, supports_ssq {takes_ssq}, scattering fused "
-          f"{_fused_ok(N, bank)}")
+          f"{scat_fused}")
     check(not counts and not stream._fused and not takes_ssq
-          and not _fused_ok(N, bank), "a complex bank reached K4/K5/K6")
+          and not scat_fused, "a complex bank reached K4/K5/K6")
     try:
         fused.fused_power_from_bank(a, bank, False)
         check(False, "fused_power_from_bank took a complex bank")

@@ -8,7 +8,7 @@ cross-spectrum ``Wa conj(Wb)``; their plain sums run over chunks of
 epochs (``extensions.epoch_sums``), so memory stays bounded.  The
 ``*_auto`` entry points take the cross-pair kernel (``ops.fused``: "plv"
 at eps = 0, "phaselag" at any eps) for an (E, C, N) pair batch that
-``ops.fused.supports()`` takes, as the JAX package does on a TPU; the
+``ops.fused.route()`` takes, as the JAX package does on a TPU; the
 single-pair (E, N) shape runs the plain sums.
 
 The all-pairs matrices stream over the bank rows: one signal FFT up front,
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import as_float32
+from ..utils.observability import span
 from .bank import WaveletDef, WaveletMode, make_fft_bank
 from .cwt import analytic_spectrum, cwt_from_bank
 from .extensions import chunk_size, epoch_sums
@@ -76,14 +77,15 @@ def plv(sigs_a, sigs_b, bank, interpolate: bool = False, eps: float = 0.0):
 def plv_auto(sigs_a, sigs_b, bank, interpolate: bool = False,
              eps: float = 0.0, precision: str = "fast3"):
     """PLV with automatic kernel dispatch: the "plv" epilogue at eps = 0
-    (the kernel has no floor) for a workload ``ops.fused.supports()``
-    takes, the plain path otherwise."""
-    if eps == 0.0:
-        from .fused import fused_plv, _kernel_takes
-        if _kernel_takes(sigs_a, bank):
+    (the kernel has no floor) for a workload ``ops.fused.route()`` takes,
+    the plain path otherwise, inside the span it names."""
+    from .fused import fused_plv, route
+    r = route("plv", sigs_a, bank, eps=eps)
+    with span(r.span):
+        if r.takes:
             return fused_plv(sigs_a, sigs_b, bank, interpolate=interpolate,
                              precision=precision)
-    return plv(sigs_a, sigs_b, bank, interpolate, eps)
+        return plv(sigs_a, sigs_b, bank, interpolate, eps)
 
 
 # -- phase-lag family: PLI / wPLI / debiased wPLI^2, and PPC ------------------
@@ -160,13 +162,16 @@ def phase_lag_auto(sigs_a, sigs_b, bank, method: str = "wpli",
                    precision: str = "fast3"):
     """Phase-lag statistic with automatic kernel dispatch: the "phaselag"
     epilogue (at any eps: eps acts in the finisher) for a workload
-    ``ops.fused.supports()`` takes, the plain path otherwise."""
-    from .fused import fused_phase_lag, _kernel_takes
-    if _kernel_takes(sigs_a, bank):
-        return fused_phase_lag(sigs_a, sigs_b, bank, method=method,
-                               interpolate=interpolate, eps=eps,
-                               precision=precision)
-    return phase_lag(sigs_a, sigs_b, bank, method, interpolate, eps)
+    ``ops.fused.route()`` takes, the plain path otherwise, inside the span
+    it names."""
+    from .fused import fused_phase_lag, route
+    r = route("phaselag", sigs_a, bank)
+    with span(r.span):
+        if r.takes:
+            return fused_phase_lag(sigs_a, sigs_b, bank, method=method,
+                                   interpolate=interpolate, eps=eps,
+                                   precision=precision)
+        return phase_lag(sigs_a, sigs_b, bank, method, interpolate, eps)
 
 
 def ppc_from_bank(sigs_a: torch.Tensor, sigs_b: torch.Tensor,
@@ -191,12 +196,13 @@ def ppc_auto(sigs_a, sigs_b, bank, interpolate: bool = False,
              eps: float = 0.0, precision: str = "fast3"):
     """PPC with automatic kernel dispatch: the "plv" epilogue's sums under
     ``plv_auto``'s rule, the plain path otherwise."""
-    if eps == 0.0:
-        from .fused import fused_ppc, _kernel_takes
-        if _kernel_takes(sigs_a, bank):
+    from .fused import fused_ppc, route
+    r = route("plv", sigs_a, bank, eps=eps)
+    with span(r.span):
+        if r.takes:
             return fused_ppc(sigs_a, sigs_b, bank, interpolate=interpolate,
                              precision=precision)
-    return ppc(sigs_a, sigs_b, bank, interpolate, eps)
+        return ppc(sigs_a, sigs_b, bank, interpolate, eps)
 
 
 # -- all-pairs connectivity matrices ------------------------------------------

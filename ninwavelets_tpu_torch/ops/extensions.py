@@ -13,7 +13,7 @@ All three statistics come from the same four epoch sums
 memory stays bounded whatever the epoch count.  The
 ``*_auto`` entry points take the cross-pair kernel's "coherence" epilogue
 (``ops.fused``) for a real bank and an (E, C, N) pair batch that
-``ops.fused.supports()`` takes, as the JAX package does on a TPU; the
+``ops.fused.route()`` takes, as the JAX package does on a TPU; the
 single-pair (E, N) shape runs the plain sums.
 
 The rest of the module is plain torch: bicoherence, the single-trial
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import as_float32, resolve_device
+from ..utils.observability import span
 from .cwt import cwt_from_bank
 from .spectra import _like
 
@@ -175,13 +176,17 @@ def epoch_coherence(sigs_a, sigs_b, bank, interpolate: bool = False,
 def epoch_coherence_auto(sigs_a, sigs_b, bank, interpolate: bool = False,
                          eps: float = 1e-12, precision: str = "fast3"):
     """Epoch coherence with automatic kernel dispatch: the cross-pair
-    kernel's "coherence" epilogue for a real bank and a workload
-    ``ops.fused.supports()`` takes, the plain path otherwise."""
-    from .fused import fused_coherence, _kernel_takes
-    if not bank.is_complex() and _kernel_takes(sigs_a, bank):
-        return fused_coherence(sigs_a, sigs_b, bank, interpolate=interpolate,
-                               eps=eps, precision=precision)
-    return epoch_coherence(sigs_a, sigs_b, bank, interpolate, eps)
+    kernel's "coherence" epilogue for a workload ``ops.fused.route()``
+    takes (a real bank among it), the plain path otherwise, inside the span
+    it names."""
+    from .fused import fused_coherence, route
+    r = route("coherence", sigs_a, bank)
+    with span(r.span):
+        if r.takes:
+            return fused_coherence(sigs_a, sigs_b, bank,
+                                   interpolate=interpolate, eps=eps,
+                                   precision=precision)
+        return epoch_coherence(sigs_a, sigs_b, bank, interpolate, eps)
 
 
 # -- imaginary coherency ------------------------------------------------------
@@ -219,11 +224,13 @@ def imcoh_auto(sigs_a, sigs_b, bank, interpolate: bool = False,
     """Imaginary coherency with automatic kernel dispatch: the "coherence"
     epilogue's sums under ``epoch_coherence_auto``'s rule, the plain path
     otherwise."""
-    from .fused import fused_imcoh, _kernel_takes
-    if not bank.is_complex() and _kernel_takes(sigs_a, bank):
-        return fused_imcoh(sigs_a, sigs_b, bank, interpolate=interpolate,
-                           eps=eps, precision=precision)
-    return imcoh(sigs_a, sigs_b, bank, interpolate, eps)
+    from .fused import fused_imcoh, route
+    r = route("coherence", sigs_a, bank)
+    with span(r.span):
+        if r.takes:
+            return fused_imcoh(sigs_a, sigs_b, bank, interpolate=interpolate,
+                               eps=eps, precision=precision)
+        return imcoh(sigs_a, sigs_b, bank, interpolate, eps)
 
 
 # -- phase slope index --------------------------------------------------------

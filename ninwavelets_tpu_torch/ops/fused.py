@@ -14,38 +14,43 @@ Dispatch, with no fallback that hides the device or the kernel:
   a tensor on the CPU, and only then.  For a CUDA tensor they launch the
   kernel, or raise if the kernel does not take the workload or the build or
   launch fails;
-* the ``*_auto`` entry points take the fused wrapper when ``supports()``
-  accepts the workload and the signals are real, and the plain path
+* every kernel dispatcher of the port asks ``route()`` and nothing else:
+  the ``*_auto`` entry points here and in ``ops.connectivity`` and
+  ``ops.extensions``, ``ops.sst.ssq_power`` and ``ssq_mean_power``,
+  ``ops.scattering.scattering``, ``parallel.chunked_power_auto``, the
+  ``parallel.distributed_*`` reductions and ``StreamingCWT``.  A new kernel
+  route is added in ``route()`` and nowhere else;
+* the ``*_auto`` entry points take the fused wrapper where ``route()``
+  says the kernel takes the workload (real signals, and what ``supports()``
+  accepts), on whatever device the tensors are, and the plain path
   otherwise (complex signals, a signal length outside the kernel's range, a
-  bank built for another length), on whatever device the tensors are.
-  ``ops.sst.ssq_mean_power`` and ``ssq_power`` dispatch the same way on
-  ``supports_ssq()``, and only for CUDA tensors;
+  bank built for another length).  ``ops.sst.ssq_mean_power`` and
+  ``ssq_power`` take the synchrosqueezing kernels the same way, and only
+  for CUDA tensors;
 * a complex (Normal/Twice-mode: MexicanHat, Haar) bank reaches the kernels
   through the three epoch reductions only, as in the JAX package:
-  ``mean_power_auto``, ``itc_auto`` and ``power_itc_auto`` ask
-  ``supports()`` about its real part, and ``fused_mean_power_from_bank``
-  (its backward too), ``fused_itc_from_bank`` and
-  ``fused_power_itc_from_bank`` launch the complex-bank kernels for it.
+  ``route()`` asks ``why_not()`` about its real part for them, and
+  ``fused_mean_power_from_bank`` (its backward too), ``fused_itc_from_bank``
+  and ``fused_power_itc_from_bank`` launch the complex-bank kernels for it.
   ``supports()`` itself rejects a complex bank, so every other dispatcher
-  (``power_auto``, streaming, scattering, ``supports_ssq``, the pair
+  (``power_auto``, streaming, scattering, synchrosqueezing, the pair
   ``*_auto``) runs the plain path for it;
 * the same three reductions take a second kernel, the chirp-z one
-  (``csrc/fused_czt.cu``), for real CUDA signals and a real bank whose N
-  ``why_not()`` refuses only as "n_not_pow2" and ``supports_czt()`` takes
-  (256 < N <= 2048: M = 1024, 2048 or 4096 points), such as MNE's 2001.
-  It computes the same N-point transform as a Bluestein convolution over
-  M-point transforms of the core; ``czt_from_bank`` / ``czt_reduction``
-  are its plain version.  Its backward differentiates the plain route.
-  On the CPU, for a complex bank, and for other N, the routes are as
-  above.
+  (``csrc/fused_czt.cu``), for real CUDA signals and a real CUDA bank whose
+  N ``why_not()`` refuses only as "n_not_pow2", with 256 < N <= 2048 (M =
+  1024, 2048 or 4096 points), such as MNE's 2001.  It computes the same
+  N-point transform as a Bluestein convolution over M-point transforms of
+  the core; ``czt_from_bank`` / ``czt_reduction`` are its plain version.
+  Its backward differentiates the plain route.  On the CPU, for a complex
+  bank, and for other N, the routes are as above.
 
-``why_not()`` holds the rule once and says which part of it a workload
-fails; ``supports()`` is ``why_not() is None``.  Each of the four
-``*_auto`` dispatchers opens one span around its transform
-(``transform_span``): ``ninw.transform.kernel:<launch key>`` (the
-chirp-z route's keys are ``<epilogue>_czt``), or
-``ninw.transform.plain:<reason>``, the reason ``why_not()``'s, or
-"complex_signals", or "cpu" where the fused wrapper runs its plain version.
+``why_not()`` holds the shape rule once and says which part of it a
+workload fails; ``supports()`` is ``why_not() is None``.  ``route()`` adds
+the signals, the device and the family's own rules to it, and names the
+span each dispatcher opens around its transform (``transform_span``):
+``ninw.transform.kernel:<launch key>`` (the complex-bank keys are
+``<epilogue>_cx``, the chirp-z ones ``<epilogue>_czt``), or
+``ninw.transform.plain:<reason>``.
 
 The signal FFT runs outside the kernel, as ``torch.fft.rfft`` on the analytic
 path (``interpolate=True``) and ``torch.fft.fft`` otherwise.  Everything from
@@ -72,11 +77,13 @@ pairs, and run both spectra and one cross-pair launch for any E: the kernel
 loops over every epoch of both inside a block, so the JAX package's pair
 chunks (half its epoch cap, zero-padded or with a remainder call) have no
 counterpart here.  The pair dispatchers (``*_auto`` in ``ops.extensions``
-and ``ops.connectivity``) take them where ``_kernel_takes`` accepts the
+and ``ops.connectivity``) take them where ``route()`` accepts the
 channel-a batch: a single pair given as (E, N), as the adapter's pair
 methods give it, runs the plain sums, as in the JAX package.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -105,8 +112,8 @@ def why_not(signals_shape, bank):
     does: "shape" (not an (E, C, N) batch with E >= 1, or not an (F, N)
     bank built for the same N), "complex_bank" (a complex or integer bank),
     "channels" (C outside 1..65535), "n_not_pow2" (N not a power of two)
-    or "n_range" (N outside [256, 16384]), the first that applies.  The
-    ``*_auto`` dispatchers add "complex_signals" and "cpu" (``_route``)."""
+    or "n_range" (N outside [256, 16384]), the first that applies.
+    ``route()`` adds the reasons that are not the shape's."""
     if bank is None or len(signals_shape) != 3:
         return "shape"
     e, c, n = signals_shape
@@ -129,10 +136,10 @@ def supports(signals_shape, bank, epilogue: str = "power") -> bool:
     of two in [256, 16384], and a real floating (F, N) bank built for the
     same N.  Any epoch count works for every epilogue: the kernel loops over
     all epochs and never pads one in.  A CUDA workload this rejects runs the
-    plain torch path on the card through the ``*_auto`` entry points; the
-    three epoch reductions ask it about a complex bank's real part
-    (``_reduction_takes``), as the JAX package does, and so take the
-    complex-bank kernels."""
+    plain torch path on the card through the ``*_auto`` entry points; for
+    the three epoch reductions ``route()`` asks it about a complex bank's
+    real part, as the JAX package does, and so takes the complex-bank
+    kernels."""
     del epilogue
     return why_not(signals_shape, bank) is None
 
@@ -146,83 +153,93 @@ def transform_span(kernel: str, why) -> str:
     return "ninw.transform.plain:" + why
 
 
-def _route(signals: torch.Tensor, bank, epilogue: str):
-    """``(takes, span name)`` of the ``*_auto`` dispatchers: whether the
-    fused wrapper takes the workload (``why_not()`` and real signals), and
-    the transform's span, whose reason adds "complex_signals" and, where
-    the wrapper runs its plain version, "cpu"."""
-    why = why_not(signals.shape, bank)
-    if why is None and signals.is_complex():
+class Route(NamedTuple):
+    """``route()``'s answer.
+
+    ``takes``: the dispatcher calls the family's fused entry, which
+    launches the kernel on the card and runs its plain version on the CPU.
+    ``key``: where it takes, the key the kernel's launches count under in
+    ``kernels.launches``; None otherwise.  ``why``: None where the kernel
+    launches, else the reason the plain chain runs the transform."""
+    takes: bool
+    key: Optional[str]
+    why: Optional[str]
+
+    @property
+    def launch(self) -> bool:
+        """The kernel launches: it takes the workload, on a CUDA device."""
+        return self.why is None
+
+    @property
+    def span(self) -> str:
+        """The name of the span around the transform (``transform_span``)."""
+        return transform_span(self.key, self.why)
+
+
+def route(family: str, signals, bank, *, device=None, czt: bool = False,
+          grid=None, interpolate: bool = True, eps: float = 0.0,
+          use_fused: bool = True) -> Route:
+    """Whether the kernel of ``family`` takes this workload here, under
+    which launch key, and if not, why: the one rule every kernel
+    dispatcher of the port asks.
+
+    Args:
+      family: an epoch reduction ("power", "itc", "power_itc"), which also
+        takes a complex bank, asked about by its real part, under the key
+        "<family>_cx"; "power_each"; a cross-pair epilogue ("coherence",
+        "phaselag", "plv"), asked about the channel-a batch; or "ssq".
+      signals: the (E, C, N) tensor the kernel would be handed, or the
+        shape of real signals on ``device``.
+      bank: the (F, N) bank.
+      device: where the signals are, when ``signals`` is a shape.
+      czt: an epoch reduction's chirp-z route: real signals and a real bank
+        on the card whose N ``why_not()`` refuses only as "n_not_pow2",
+        with MIN_N < N and 2N - 1 <= CZT_MAX_M, launch it under
+        "<family>_czt".  It has no CPU branch.
+      grid, interpolate: the row map and path, for "ssq".
+      eps: the statistic's floor, for "plv": the kernel has none.
+      use_fused: False where the caller turned the kernels off.
+
+    The reasons, the first that applies: ``why_not()``'s ("shape",
+    "complex_bank", "channels", "n_not_pow2", "n_range"), or for "ssq"
+    ``why_not_ssq()``'s ("row_map", "interpolate", then ``why_not()``'s);
+    "complex_signals"; "eps" (a nonzero floor for "plv"); "cpu" (the kernel
+    would take the workload on a card; the fused entry takes it unless
+    ``use_fused`` is False); "off" (on a card, ``use_fused`` False)."""
+    if isinstance(signals, tuple):
+        shape, cx_signals = signals, False
+    else:
+        shape, cx_signals = signals.shape, signals.is_complex()
+        device = signals.device if device is None else device
+    on_card = torch.device(device).type == "cuda"
+    key = family
+    if family == "ssq":
+        why = why_not_ssq(shape, bank, grid, interpolate)
+    elif (family in kernels.COMPLEX_EPILOGUES and bank is not None
+          and bank.is_complex()):
+        why, key = why_not(shape, bank.real), family + "_cx"
+    else:
+        why = why_not(shape, bank)
+        if (czt and why == "n_not_pow2" and kernels.MIN_N < shape[-1]
+                and 2 * shape[-1] - 1 <= kernels.CZT_MAX_M
+                and not cx_signals and on_card
+                and bank.device.type == "cuda"):
+            return Route(True, family + "_czt", None)
+    if why is None and cx_signals:
         why = "complex_signals"
-    takes = why is None
-    if takes and signals.device.type != "cuda":
+    if why is None and family == "plv" and eps != 0.0:
+        why = "eps"
+    takes = why is None and use_fused
+    if why is None and not on_card:
         why = "cpu"
-    return takes, transform_span(epilogue, why)
-
-
-def supports_czt(signals_shape, bank) -> bool:
-    """True when the chirp-z kernel (``csrc/fused_czt.cu``) takes this
-    workload's shape: an (E, C, N) batch whose N is not a power of two,
-    MIN_N < N and 2N - 1 <= CZT_MAX_M (M = ``kernels.czt_size(N)`` is 1024,
-    2048 or 4096), and of which ``why_not()`` finds nothing else (1 <= C
-    <= 65535, a real floating (F, N) bank built for the same N).  The
-    length is looked at first, so ``why_not()`` runs only for such N."""
-    n = signals_shape[-1] if len(signals_shape) == 3 else 0
-    return (n & (n - 1) != 0 and kernels.MIN_N < n
-            and 2 * n - 1 <= kernels.CZT_MAX_M
-            and why_not(signals_shape, bank) == "n_not_pow2")
-
-
-def _reduction_route(signals: torch.Tensor, bank, epilogue: str):
-    """``_route`` of the three epoch reductions: a complex bank is asked
-    about by its real part (``_reduction_takes``) and launches the
-    ``<epilogue>_cx`` kernel."""
-    if bank is not None and bank.is_complex():
-        return _route(signals, bank.real, epilogue + "_cx")
-    return _route(signals, bank, epilogue)
-
-
-def _reduction_plan(signals: torch.Tensor, bank, epilogue: str):
-    """``(run, span name)`` of the ``*_auto`` of one epoch reduction:
-    ``run(signals, bank, interpolate, precision)`` gives what the auto
-    returns.  Real CUDA signals and bank that ``supports_czt()`` takes run
-    the chirp-z kernel under ``ninw.transform.kernel:<epilogue>_czt``;
-    every other workload the fused wrapper where ``_reduction_route``
-    takes it, the plain N-point route where not, under that route's
-    span."""
-    if (supports_czt(signals.shape, bank) and not signals.is_complex()
-            and signals.is_cuda and bank.is_cuda):
-        def czt(s, b, interpolate, precision):
-            return _FusedCzt.apply(epilogue, s, b, interpolate)
-        return czt, transform_span(epilogue + "_czt", None)
-    takes, name = _reduction_route(signals, bank, epilogue)
-    fused_fn, plain_fn = _reduction_fns(epilogue)
-    if takes:
-        return fused_fn, name
-
-    def plain(s, b, interpolate, precision):
-        return plain_fn(s, b, interpolate)
-    return plain, name
+    elif why is None and not use_fused:
+        why = "off"
+    return Route(takes, key if takes else None, why)
 
 
 def _check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}")
-
-
-def _kernel_takes(signals: torch.Tensor, bank) -> bool:
-    """``supports()`` plus real signals: the kernel's spectra are those of a
-    real signal (an rFFT on the analytic path)."""
-    return not signals.is_complex() and supports(signals.shape, bank)
-
-
-def _reduction_takes(signals: torch.Tensor, bank) -> bool:
-    """``_kernel_takes`` for the three epoch reductions, which also take a
-    complex bank: ``supports()`` is asked about its real part, as the JAX
-    package's autos pass only ``bank_r``."""
-    if bank is not None and bank.is_complex():
-        bank = bank.real
-    return _kernel_takes(signals, bank)
 
 
 def _kernel_bank(bank: torch.Tensor) -> torch.Tensor:
@@ -242,9 +259,7 @@ def _kernel_spectrum(epilogue, signals, bank, interpolate):
     """``_spectrum`` of (E, C, N) signals the ``epilogue`` kernel takes, or
     ValueError.  A complex bank is taken for the epilogues of
     ``kernels.COMPLEX_EPILOGUES``."""
-    takes = (_reduction_takes if epilogue in kernels.COMPLEX_EPILOGUES
-             else _kernel_takes)
-    if not takes(signals, bank):
+    if not route(epilogue, signals, bank).takes:
         raise ValueError(
             f"the fused kernel ({epilogue!r}) does not take {signals.dtype} "
             f"signals {tuple(signals.shape)} with bank {tuple(bank.shape)} "
@@ -377,27 +392,17 @@ class _FusedItc(torch.autograd.Function):
             ctx.needs_input_grad[:2], g) + (None, None)
 
 
-def _reduction_fns(epilogue: str):
-    """(fused wrapper, plain N-point route) of one epoch reduction, each
-    taking (signals, bank, interpolate[, precision]) and returning what
-    its ``*_auto`` returns; looked up by name at each call."""
-    return {"power": (fused_mean_power_from_bank, mean_power_from_bank),
-            "itc": (fused_itc_from_bank, itc_from_bank),
-            "power_itc": (fused_power_itc_from_bank,
-                          power_itc_from_bank)}[epilogue]
-
-
 class _FusedCzt(torch.autograd.Function):
     """The chirp-z kernel's epoch reductions (real CUDA signals and bank
-    that ``supports_czt()`` takes): the rFFT rows, one launch (the kernel
-    reads the bins above N/2 as the conjugates of those below), giving one
-    plane or the (power, itc) pair, as the epilogue's ``*_auto`` does.  Its
-    backward differentiates the plain N-point route, as ``_FusedItc``'s
-    does."""
+    that ``route()`` gives the "<epilogue>_czt" key): the rFFT rows, one
+    launch (the kernel reads the bins above N/2 as the conjugates of those
+    below), giving one plane or the (power, itc) pair, as the epilogue's
+    ``*_auto`` does.  Its backward differentiates ``plain``, the plain
+    N-point route, as ``_FusedItc``'s does."""
 
     @staticmethod
-    def forward(ctx, epilogue, signals, bank, interpolate):
-        ctx.epilogue, ctx.interpolate = epilogue, interpolate
+    def forward(ctx, epilogue, plain, signals, bank, interpolate):
+        ctx.plain, ctx.interpolate = plain, interpolate
         ctx.save_for_backward(signals, bank)
         n = signals.shape[-1]
         spec = torch.fft.rfft(signals.to(torch.float32)).contiguous()
@@ -408,10 +413,9 @@ class _FusedCzt(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         signals, bank = ctx.saved_tensors
-        return (None,) + _plain_grads(
-            lambda s, b: _reduction_fns(ctx.epilogue)[1](s, b,
-                                                          ctx.interpolate),
-            signals, bank, ctx.needs_input_grad[1:3], grads) + (None,)
+        return (None, None) + _plain_grads(
+            lambda s, b: ctx.plain(s, b, ctx.interpolate), signals, bank,
+            ctx.needs_input_grad[2:4], grads) + (None,)
 
 
 def czt_from_bank(signal: torch.Tensor, bank: torch.Tensor,
@@ -595,16 +599,31 @@ def _fused_power_each_into(signals, bank, interpolate, dst, keep) -> None:
     kernels.fused_power_each(spec, _kernel_bank(bank), k_bins, dst, keep)
 
 
+def _reduction_auto(epilogue, fused, plain, signals, bank, interpolate,
+                    precision):
+    """One epoch reduction's ``*_auto`` inside the span ``route()`` names:
+    the chirp-z kernel for its "<epilogue>_czt" key, the fused wrapper
+    ``fused`` where the N-point kernel takes the workload, the plain
+    N-point route ``plain`` otherwise."""
+    r = route(epilogue, signals, bank, czt=True)
+    with span(r.span):
+        if not r.takes:
+            return plain(signals, bank, interpolate)
+        if r.key.endswith("_czt"):
+            return _FusedCzt.apply(epilogue, plain, signals, bank,
+                                   interpolate)
+        return fused(signals, bank, interpolate, precision)
+
+
 def power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
                interpolate: bool = False,
                precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Per-signal power with automatic kernel dispatch: the kernel where
-    ``supports()`` accepts the flattened (B, 1, N) batch and the signals are
-    real, the plain ``power_from_bank`` otherwise."""
-    flat = signals.reshape(-1, 1, signals.shape[-1])
-    takes, name = _route(flat, bank, "power_each")
-    with span(name):
-        if takes:
+    ``route()`` takes the flattened (B, 1, N) batch, the plain
+    ``power_from_bank`` otherwise."""
+    r = route("power_each", signals.reshape(-1, 1, signals.shape[-1]), bank)
+    with span(r.span):
+        if r.takes:
             return fused_power_from_bank(signals, bank, interpolate,
                                          precision)
         return power_from_bank(signals, bank, interpolate)
@@ -616,9 +635,9 @@ def mean_power_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """Epoch-mean power with automatic kernel dispatch (see the module
     docstring; a complex bank takes the kernel too); the same result either
     way."""
-    run, name = _reduction_plan(signals, bank, "power")
-    with span(name):
-        return run(signals, bank, interpolate, precision)
+    return _reduction_auto("power", fused_mean_power_from_bank,
+                           mean_power_from_bank, signals, bank, interpolate,
+                           precision)
 
 
 def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -626,9 +645,8 @@ def itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
              precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Inter-trial coherence with automatic kernel dispatch (a complex bank
     takes the kernel too)."""
-    run, name = _reduction_plan(signals, bank, "itc")
-    with span(name):
-        return run(signals, bank, interpolate, precision)
+    return _reduction_auto("itc", fused_itc_from_bank, itc_from_bank,
+                           signals, bank, interpolate, precision)
 
 
 def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
@@ -637,9 +655,9 @@ def power_itc_auto(signals: torch.Tensor, bank: torch.Tensor, *,
     """(power, itc) with automatic kernel dispatch: one fused pass where the
     kernel takes the workload (a complex bank included), one plain pass
     otherwise (each epoch's CWT once, feeding both sums)."""
-    run, name = _reduction_plan(signals, bank, "power_itc")
-    with span(name):
-        return run(signals, bank, interpolate, precision)
+    return _reduction_auto("power_itc", fused_power_itc_from_bank,
+                           power_itc_from_bank, signals, bank, interpolate,
+                           precision)
 
 
 # -- synchrosqueezing ---------------------------------------------------------
@@ -662,14 +680,6 @@ def supports_ssq(signals_shape, bank, uniform_grid, interpolate: bool) -> bool:
     path (``interpolate=True``), and a single "lin" or "log" row map (a
     piecewise or irregular grid runs the plain path)."""
     return why_not_ssq(signals_shape, bank, uniform_grid, interpolate) is None
-
-
-def ssq_kernel_takes(signals: torch.Tensor, bank, uniform_grid,
-                     interpolate: bool) -> bool:
-    """``supports_ssq()`` for real signals on a CUDA device: the dispatchers'
-    test."""
-    return (signals.device.type == "cuda" and not signals.is_complex()
-            and supports_ssq(signals.shape, bank, uniform_grid, interpolate))
 
 
 def signal_batch(signals: torch.Tensor) -> torch.Tensor:
@@ -715,8 +725,8 @@ def _fused_ssq_sum(signals: torch.Tensor, bank: torch.Tensor, uniform_grid,
 
 def _check_ssq(signals: torch.Tensor, bank: torch.Tensor, uniform_grid,
                interpolate: bool) -> None:
-    if signals.is_complex() or not supports_ssq(signals.shape, bank,
-                                                uniform_grid, interpolate):
+    if not route("ssq", signals, bank, grid=uniform_grid,
+                 interpolate=interpolate).takes:
         raise ValueError(
             f"the synchrosqueezing kernels do not take {signals.dtype} "
             f"signals {tuple(signals.shape)} with bank {tuple(bank.shape)} "
@@ -789,7 +799,7 @@ def _pair_launch(epilogue: str, sigs_a: torch.Tensor, sigs_b: torch.Tensor,
     """Both channels' spectra outside the kernel, then one cross-pair
     launch: the epilogue's (C, F, N) epoch-sum planes."""
     if (sigs_b.shape != sigs_a.shape or sigs_b.is_complex()
-            or not _kernel_takes(sigs_a, bank)):
+            or not route(epilogue, sigs_a, bank).takes):
         raise ValueError(
             f"the cross-pair kernel does not take {sigs_a.dtype} / "
             f"{sigs_b.dtype} pairs {tuple(sigs_a.shape)} / "

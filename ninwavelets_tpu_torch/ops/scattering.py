@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .cwt import abs_from_bank
-from .fused import fused_power_from_bank, supports
+from .fused import fused_power_from_bank, route
 
 __all__ = ["scattering", "scattering_from_banks", "lowpass_spectrum"]
 
@@ -149,21 +149,19 @@ def scattering_from_banks(signal: torch.Tensor, bank1: torch.Tensor,
     return s1, s2
 
 
-def _fused_ok(n: int, *banks) -> bool:
-    return all(supports((1, 1, n), b) for b in banks)
-
-
 def scattering(signal: torch.Tensor, bank1: torch.Tensor,
                bank2: torch.Tensor, sfreq: float, stride: int = 32,
                interpolate: bool = True, use_fused="auto",
                precision: str = "fast3", lowpass: str = "auto"):
     """``scattering_from_banks`` on real banks; ``use_fused="auto"`` takes
-    the kernel for both modulus layers when the signal is on CUDA and
-    ``supports()`` takes N and both banks."""
+    the kernel for both modulus layers where ``ops.fused.route()`` launches
+    it at N for both banks (the signal on CUDA, real banks)."""
     signal = signal.to(torch.float32)
     if use_fused == "auto":
-        use_fused = (signal.device.type == "cuda"
-                     and _fused_ok(signal.shape[-1], bank1, bank2))
+        shape = (1, 1, signal.shape[-1])
+        use_fused = all(route("power_each", shape, b,
+                              device=signal.device).launch
+                        for b in (bank1, bank2))
     return scattering_from_banks(signal, bank1, bank2, float(sfreq),
                                  int(stride), interpolate, bool(use_fused),
                                  str(precision), str(lowpass))

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.observability import span
 from .cwt import analytic_spectrum
 
 __all__ = ["ssq_power_from_bank", "ssq_power", "ssq_mean_power_from_bank",
@@ -254,34 +255,41 @@ def ssq_power(signal: torch.Tensor, bank: torch.Tensor, freqs, sfreq: float,
               interpolate: bool = True,
               rel_threshold: float = 1e-6) -> torch.Tensor:
     """Per-signal synchrosqueezed power (..., N) -> (..., F, N), the row map
-    detected on the host frequencies.  A real CUDA workload the kernel takes
-    (``ops.fused.supports_ssq`` on one signal, a single "lin" / "log" map)
-    runs ``fused_ssq_power_from_bank``; everything else the plain path."""
-    from .fused import (fused_ssq_power_from_bank, signal_batch,
-                        ssq_kernel_takes)
+    detected on the host frequencies.  A workload on which the kernels
+    launch (``ops.fused.route("ssq")`` on the signals as one launch's
+    batch: real, on the card, a single "lin" / "log" map) runs
+    ``fused_ssq_power_from_bank``; everything else the plain path, inside
+    the span it names."""
+    from .fused import fused_ssq_power_from_bank, route, signal_batch
     freqs = np.asarray(freqs, np.float32)
     hint = uniform_grid_hint(freqs)
-    if ssq_kernel_takes(signal_batch(signal), bank, hint, interpolate):
-        return fused_ssq_power_from_bank(
-            signal, bank, uniform_grid=hint, sfreq=sfreq,
-            rel_threshold=rel_threshold, interpolate=interpolate)
-    return ssq_power_from_bank(signal, bank, freqs, sfreq, interpolate,
-                               rel_threshold, hint)
+    r = route("ssq", signal_batch(signal), bank, grid=hint,
+              interpolate=interpolate)
+    with span(r.span):
+        if r.launch:
+            return fused_ssq_power_from_bank(
+                signal, bank, uniform_grid=hint, sfreq=sfreq,
+                rel_threshold=rel_threshold, interpolate=interpolate)
+        return ssq_power_from_bank(signal, bank, freqs, sfreq, interpolate,
+                                   rel_threshold, hint)
 
 
 def ssq_mean_power(signals: torch.Tensor, bank: torch.Tensor, freqs,
                    sfreq: float, interpolate: bool = True,
                    rel_threshold: float = 1e-6) -> torch.Tensor:
     """Epoch-mean synchrosqueezed power (E, C, N) -> (C, F, N), the row map
-    detected on the host frequencies.  A real CUDA workload that
-    ``ops.fused.supports_ssq`` accepts runs the two kernels
-    (``fused_ssq_mean_power``); everything else the plain path."""
-    from .fused import fused_ssq_mean_power, ssq_kernel_takes
+    detected on the host frequencies.  A workload on which
+    ``ops.fused.route("ssq")`` launches the kernels runs both
+    (``fused_ssq_mean_power``); everything else the plain path, inside the
+    span it names."""
+    from .fused import fused_ssq_mean_power, route
     freqs = np.asarray(freqs, np.float32)
     hint = uniform_grid_hint(freqs)
-    if ssq_kernel_takes(signals, bank, hint, interpolate):
-        return fused_ssq_mean_power(
-            signals, bank, uniform_grid=hint, sfreq=sfreq,
-            rel_threshold=rel_threshold, interpolate=interpolate)
-    return ssq_mean_power_from_bank(signals, bank, freqs, sfreq, interpolate,
-                                    rel_threshold, hint)
+    r = route("ssq", signals, bank, grid=hint, interpolate=interpolate)
+    with span(r.span):
+        if r.launch:
+            return fused_ssq_mean_power(
+                signals, bank, uniform_grid=hint, sfreq=sfreq,
+                rel_threshold=rel_threshold, interpolate=interpolate)
+        return ssq_mean_power_from_bank(signals, bank, freqs, sfreq,
+                                        interpolate, rel_threshold, hint)

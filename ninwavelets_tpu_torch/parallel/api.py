@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..device import as_float32
 from ..ops.bank import WaveletDef, make_fft_bank
+from ..ops.fused import route
 from .mesh import DATA_AXIS, auto_mesh, axis_size
 from .sharded import (_out, full_tensor, sharded_fused_itc,
                       sharded_fused_mean_power, sharded_itc,
@@ -37,14 +38,6 @@ def _build(wavelet, freqs, n, sfreq, interpolate, device) -> torch.Tensor:
     rwl = float(getattr(wavelet, "real_wave_length", 1.0))
     return make_fft_bank(wdef, np.asarray(freqs, np.float32), n,
                          float(sfreq), interpolate, rwl, device=device)
-
-
-def _use_fused(signals: torch.Tensor, bank: torch.Tensor) -> bool:
-    """The fused kernels on the card, where ``ops.fused.supports`` takes the
-    workload (a complex bank asked about its real part); the plain path
-    otherwise, as in the JAX package."""
-    from ..ops.fused import _reduction_takes
-    return signals.device.type == "cuda" and _reduction_takes(signals, bank)
 
 
 def _default_mesh(signals, mesh):
@@ -82,7 +75,7 @@ def distributed_mean_power(signals, wavelet, freqs, sfreq: float, mesh=None,
     if pad_e:
         signals = F.pad(signals, (0, 0, 0, 0, 0, pad_e))
     bank = _build(wavelet, freqs, n, sfreq, interpolate, signals.device)
-    fn = (sharded_fused_mean_power if _use_fused(signals, bank)
+    fn = (sharded_fused_mean_power if route("power", signals, bank).launch
           else sharded_mean_power)
     out = fn(signals, bank, mesh=mesh, interpolate=interpolate)
     if pad_e:
@@ -106,5 +99,6 @@ def distributed_itc(signals, wavelet, freqs, sfreq: float, mesh=None,
         raise ValueError(f"epochs ({e}) must divide the data axis ({d}) "
                          "for itc: zero-padding would inject NaN phases")
     bank = _build(wavelet, freqs, n, sfreq, interpolate, signals.device)
-    fn = sharded_fused_itc if _use_fused(signals, bank) else sharded_itc
+    fn = (sharded_fused_itc if route("itc", signals, bank).launch
+          else sharded_itc)
     return fn(signals, bank, mesh=mesh, interpolate=interpolate)

@@ -160,16 +160,18 @@ def chunked_fused_power(signal_r, bank_r, *, mesh, halo: int,
 
 def chunked_power_auto(signal_r, bank_r, bank_i=None, *, mesh, halo: int,
                        interpolate: bool = False, precision: str = "fast3"):
-    """``chunked_power`` with kernel dispatch: ``chunked_fused_power`` on the
-    card where the kernel takes the extended chunk (a real bank, a
-    supported length), ``chunked_power`` otherwise; the same result either
-    way."""
-    from ..ops.fused import supports
+    """``chunked_power`` with kernel dispatch: ``chunked_fused_power`` where
+    ``ops.fused.route()`` launches the kernel on the extended chunk (on the
+    card, a real bank, a supported length), ``chunked_power`` otherwise;
+    the same result either way."""
+    from ..ops.fused import route
     ext_len = signal_r.shape[-1] // axis_size(mesh, TIME_AXIS) + 2 * halo
     bank = bank_r if isinstance(bank_r, torch.Tensor) else \
         torch.as_tensor(np.asarray(bank_r))
-    if (bank_i is None and mesh.device_type == "cuda"
-            and supports((1, 1, ext_len), bank)):
+    if bank_i is not None:            # a complex bank as a float pair
+        bank = bank.to(torch.complex64)
+    if route("power_each", (1, 1, ext_len), bank,
+             device=mesh.device_type).launch:
         return chunked_fused_power(signal_r, bank_r, mesh=mesh, halo=halo,
                                    interpolate=interpolate,
                                    precision=precision)

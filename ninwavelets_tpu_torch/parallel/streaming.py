@@ -34,8 +34,7 @@ from ..io.stream import ArraySource, iter_ext_batches
 from ..ops.bank import WaveletDef, make_fft_bank
 from ..ops.cwt import power_from_bank
 from ..ops.fused import (_power_each_into, fused_power_from_bank,
-                         fused_ssq_power_from_bank, transform_span, why_not,
-                         why_not_ssq)
+                         fused_ssq_power_from_bank, route)
 from ..ops.sst import ssq_power_from_bank, uniform_grid_hint
 from ..utils.observability import span
 from .chunked import halo_samples, pow2_halo
@@ -72,10 +71,11 @@ class StreamingCWT:
         Either way it is then rounded UP so that the extended window
         ``window + 2*halo`` is a power of two (``pow2_halo``).
     interpolate: the reference's analytic / Nyquist-alias trick.
-    use_fused: "auto" (the kernel when the device is CUDA, the bank is
-        real and ``supports()`` takes the extended window), True (the
-        fused wrapper; raises on a geometry or bank the kernel rejects, and
-        runs its plain version on the CPU), or False (the plain path).
+    use_fused: "auto" (the kernel where ``ops.fused.route()`` launches it
+        on the extended window: the device is CUDA, the bank is real and
+        the length one the kernel takes), True (the fused wrapper; raises
+        on a geometry or bank the kernel rejects, and runs its plain
+        version on the CPU), or False (the plain path).
     batch: windows per device call, as the caller gives it.
     device: where the bank and the planes live (the card by default).
     """
@@ -105,24 +105,26 @@ class StreamingCWT:
             ext = self.window + 2 * self.halo
             self._bank = make_fft_bank(wdef, self.freqs, ext, self.sfreq,
                                        interpolate, device=self.device)
-        why = why_not((1, 1, ext), self._bank)
-        if use_fused == "auto":
-            self._fused = why is None and self.device.type == "cuda"
-        elif use_fused:
-            if why is not None:
-                raise ValueError(
-                    f"fused streaming needs a real bank and an extended "
-                    f"window (window + 2*halo = {ext}) that is a power of "
-                    f"two in [256, 16384]")
-            self._fused = True
-        else:
-            self._fused = False
-        if why is None and self.device.type != "cuda":
-            why = "cpu"
-        elif why is None and not self._fused:
-            why = "off"
+        self._fused_mode = use_fused
+        self._fused, r = self._route("power_each")
+        if use_fused != "auto" and use_fused and not r.takes:
+            raise ValueError(
+                f"fused streaming needs a real bank and an extended "
+                f"window (window + 2*halo = {ext}) that is a power of "
+                f"two in [256, 16384]")
         #: Why a window batch runs the plain chain, or None: the kernel.
-        self._why = why
+        self._why = r.why
+        self._span = r.span
+
+    def _route(self, family: str, **kw):
+        """``(fused, ops.fused.route())`` for this stream's extended
+        windows: a window batch calls the fused entry where the kernel
+        launches under "auto", where it takes the workload (its plain
+        version on the CPU) under True."""
+        r = route(family, (1, 1, self.window + 2 * self.halo), self._bank,
+                  device=self.device, use_fused=bool(self._fused_mode),
+                  interpolate=self.interpolate, **kw)
+        return (r.launch if self._fused_mode == "auto" else r.takes), r
 
     def _window_batch(self, ext: torch.Tensor) -> torch.Tensor:
         """(W, ..., ext) on the device -> (W, ..., F, window), fused or
@@ -136,7 +138,7 @@ class StreamingCWT:
         """(W, ..., ext) host batch -> (W, ..., F, window) host power."""
         with span("ninw.h2d"):
             ext = torch.from_numpy(ext_batch).to(self.device)
-        with span(transform_span("power_each", self._why)):
+        with span(self._span):
             block = self._window_batch(ext)
         return block.cpu().numpy()
 
@@ -190,15 +192,14 @@ class StreamingCWT:
         e.g. ``io.EDFSource(path)`` streams a recording straight off the
         file mmap, window batch by window batch; the gather of batch ``i+1``
         runs on a worker thread while the device computes batch ``i``."""
-        name = transform_span("power_each", self._why)
         if not self._fused:
-            return self._assemble(source, self._window_batch, name)
+            return self._assemble(source, self._window_batch, self._span)
         keep = (self.halo, self.halo + self.window)
 
         def write(ext, dst):
             _power_each_into(ext, self._bank, self.interpolate, dst, keep)
 
-        return self._fill(source, write, name)
+        return self._fill(source, write, self._span)
 
     def ssq_power_device(self, signal: np.ndarray,
                          rel_threshold: float = 1e-6) -> torch.Tensor:
@@ -216,8 +217,7 @@ class StreamingCWT:
                 "synchrosqueezing needs an analytic (real-bank) family")
         hint = uniform_grid_hint(self.freqs)
         ext = self.window + 2 * self.halo
-        why = why_not_ssq((1, 1, ext), self._bank, hint, self.interpolate)
-        fused = self._fused and why is None
+        fused, r = self._route("ssq", grid=hint)
 
         def window_fn(x):
             if fused:
@@ -231,8 +231,7 @@ class StreamingCWT:
                                         rel_threshold, hint)
             return p[..., self.halo:ext - self.halo]
 
-        return self._assemble(ArraySource(signal), window_fn,
-                              transform_span("ssq", why or self._why))
+        return self._assemble(ArraySource(signal), window_fn, r.span)
 
     def _assemble(self, source, window_fn, name: str) -> torch.Tensor:
         """The (..., F, N) plane of ``window_fn`` over the window batches of
@@ -248,7 +247,7 @@ class StreamingCWT:
         ``write(ext, dst)`` puts the batch's (W, ..., ext) windows'
         interiors into ``dst``, the (W, S, F, window) view of their place
         in the plane (S the lead dims flattened), inside the span ``name``
-        (``ops.fused.transform_span``); the batch's copy to the device is
+        (``ops.fused.route()``'s); the batch's copy to the device is
         the span ``ninw.h2d``.
 
         The plane is preallocated as (..., F, n_batches * batch * window)

@@ -20,6 +20,8 @@ from ninwavelets_tpu_torch.ops import grids as tgrids
 from ninwavelets_tpu_torch.ops import signal_utils as tsig
 from ninwavelets_tpu_torch.ops import spectra as tspec
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-5
 FAMILIES = {

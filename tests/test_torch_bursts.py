@@ -29,6 +29,8 @@ import ninwavelets_tpu_torch as nt
 from ninwavelets_tpu.ops import bursts as jb
 from ninwavelets_tpu_torch.ops import bursts as tb
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 250.0
 MEAN_RTOL = 1e-6
 

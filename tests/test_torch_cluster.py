@@ -53,6 +53,7 @@ from ninwavelets_tpu_torch.ops import bootstrap as tbs
 from ninwavelets_tpu_torch.ops import cluster as tc
 
 from test_cluster import _numpy_max_mass, _numpy_tfce, _union_find_labels
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_GATE = 1e-5
 RTOL = 1e-5

@@ -31,10 +31,10 @@ from ninwavelets_tpu_torch.ops import connectivity as tconn
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import extensions as text
 from ninwavelets_tpu_torch.ops import fused as tfused
-from ninwavelets_tpu_torch.ops import scattering as tscat
 from ninwavelets_tpu_torch.parallel import StreamingCWT
 from test_torch_cwt import assert_itc_close
 from test_torch_fit import emulated_fused_cwt_bwd
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 1000.0
 N = 1024
@@ -277,12 +277,14 @@ def test_supports_rejects_complex_banks_the_reductions_ask_the_real_part():
     bank = torch.from_numpy(_bank("MexicanHat"))
     sig = torch.from_numpy(_signals(3))
     assert not tfused.supports(sig.shape, bank)
-    assert not tfused._kernel_takes(sig, bank)
-    assert tfused._reduction_takes(sig, bank)
-    assert not tfused._reduction_takes(sig.to(torch.complex64), bank)
-    assert not tfused._reduction_takes(sig[..., :1000], bank[:, :1000])
+    assert not tfused.route("power_each", sig, bank).takes
+    assert tfused.route("power", sig, bank).key == "power_cx"
+    assert not tfused.route("power", sig.to(torch.complex64), bank).takes
+    assert not tfused.route("power", sig[..., :1000], bank[:, :1000]).takes
     assert not tfused.supports_ssq(sig.shape, bank, ("lin", 1.0, 1.0), True)
-    assert not tscat._fused_ok(N, bank)
+    # What scattering's "auto" asks of each bank.
+    assert not tfused.route("power_each", (1, 1, N), bank,
+                            device=sig.device).takes
 
 
 @pytest.mark.parametrize("auto,wrapper", [

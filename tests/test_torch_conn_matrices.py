@@ -44,6 +44,8 @@ from ninwavelets_tpu_torch.ops import multitaper as tmt
 from ninwavelets_tpu_torch.ops.connectivity import _pair_sums
 from ninwavelets_tpu_torch.ops.cwt import analytic_spectrum
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-4
 PCOH_FREQS = np.arange(16.0, 64.0, 6.0)          # F = 8

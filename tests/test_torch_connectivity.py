@@ -41,6 +41,8 @@ from ninwavelets_tpu_torch.ops import connectivity as tconn
 from ninwavelets_tpu_torch.ops import extensions as text
 from ninwavelets_tpu_torch.ops import fused as tfused
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-4
 UNIT_SOUND, UNIT_ELSE = 1e-5, 2e-3
@@ -489,11 +491,11 @@ def test_auto_dispatch_follows_the_jax_rules(fused_calls):
     a, b = _t(*_pairs("pairs", 4, n=512, seed=9))
     bank = torch.from_numpy(_bank(FREQS, 512).astype(np.float32))
     cbank = bank.to(torch.complex64)
-    assert tfused._kernel_takes(a, bank)
-    assert not tfused._kernel_takes(a[:, 0], bank)
-    assert not tfused._kernel_takes(a.to(torch.complex64), bank)
-    assert not tfused._kernel_takes(a, cbank)
-    assert not tfused._kernel_takes(a[..., :500], bank)
+    assert tfused.route("coherence", a, bank).takes
+    assert not tfused.route("coherence", a[:, 0], bank).takes
+    assert not tfused.route("coherence", a.to(torch.complex64), bank).takes
+    assert not tfused.route("coherence", a, cbank).takes
+    assert not tfused.route("coherence", a[..., :500], bank).takes
     cases = [
         (lambda: text.epoch_coherence_auto(a, b, bank, True),
          "fused_coherence", text.epoch_coherence(a, b, bank, True)),

@@ -55,6 +55,8 @@ from ninwavelets_tpu_torch.ops import connectivity as tconn
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import extensions as text
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-4
 TIE, TIE_CELLS = 1e-5, 1e-2

@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 jc = importlib.import_module("ninwavelets_tpu.ops.cpd")
 tc = importlib.import_module("ninwavelets_tpu_torch.ops.cpd")
 

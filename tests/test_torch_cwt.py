@@ -10,6 +10,8 @@ from ninwavelets_tpu.ops import cwt as jcwt
 from ninwavelets_tpu.ops.bank import make_fft_bank as jbank
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-5
 

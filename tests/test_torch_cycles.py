@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 jcy = importlib.import_module("ninwavelets_tpu.ops.cycles")
 tcy = importlib.import_module("ninwavelets_tpu_torch.ops.cycles")
 

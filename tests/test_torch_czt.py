@@ -26,8 +26,8 @@ Gates, each with its reason:
   (``analytic_spectrum``), so the two agree to float32 round-off: 1e-5 of
   the peak power and 1e-4 on the coherence (readings 4e-7 and 4e-6); the
   same call is held against the float64 N-point CWT at the float64 gates;
-* the route: ``supports_czt()`` on shapes, and ``_reduction_plan`` on
-  stand-ins for CUDA tensors (the CPU has none): N = 2001, 421, 257, 2047
+* the route: ``route()`` on shapes, and on stand-ins for CUDA tensors
+  (the CPU has none): N = 2001, 421, 257, 2047
   take the chirp-z kernel, 2048 stays on the power-of-two kernel, 4097, 200
   and 32768 stay plain, as do complex signals and a complex bank; on the
   CPU the three ``*_auto`` keep ``ninw.transform.plain:n_not_pow2``;
@@ -58,19 +58,11 @@ from ninwavelets_tpu_torch import kernels
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import fused
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 LENGTHS = [257, 421, 1000, 2001, 2047]
 P_TOL = 1e-4
 ITC_TOL = 0.006
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The CPU transforms here are a few thousand points: on one thread
-    they take milliseconds, on torch's pool up to a hundred times more."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cwt64(signal, bank, interpolate):
@@ -212,11 +204,13 @@ ROUTES = [
 def test_the_route_on_a_card(n, complex_, takes, name, epilogue):
     signals = _OnCard((3, 2, n), complex_.get("signals", False))
     bank = _OnCard((5, n), complex_.get("bank", False))
-    run, got = fused._reduction_plan(signals, bank, epilogue)
-    assert got == "ninw.transform." + name.format(epilogue)
+    r = fused.route(epilogue, signals, bank, czt=True)
+    assert r.span == "ninw.transform." + name.format(epilogue)
     # The span names the route; the fused wrapper runs on "kernel:<epilogue>"
-    # alone, the chirp-z kernel or the plain route otherwise.
-    assert (run is fused._reduction_fns(epilogue)[0]) == (takes is True)
+    # alone, the chirp-z kernel on "<epilogue>_czt", the plain route
+    # otherwise.
+    assert r.key == {True: epilogue, "czt": epilogue + "_czt",
+                     False: None}[takes]
 
 
 @pytest.mark.parametrize("shape,bank,takes", [
@@ -235,8 +229,10 @@ def test_the_route_on_a_card(n, complex_, takes, name, epilogue):
     ((3, 65536, 2001), torch.ones(5, 2001), False),        # channels
     ((3, 2001), torch.ones(5, 2001), False),               # no channel axis
 ])
-def test_supports_czt_on_shapes(shape, bank, takes):
-    assert fused.supports_czt(shape, bank) == takes
+def test_czt_route_on_shapes(shape, bank, takes):
+    r = fused.route("power", shape, _OnCard(bank.shape, bank.is_complex()),
+                    device="cuda", czt=True)
+    assert (r.key == "power_czt") == takes
 
 
 def _span_names(fn):

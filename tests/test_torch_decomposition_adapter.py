@@ -43,6 +43,7 @@ from ninwavelets_tpu_torch.utils import mne_adapter as tad
 
 from test_torch_cpd import _jax_factors
 from test_torch_hmm import _jax_perms
+from torch_threads import one_torch_thread  # noqa: F401
 
 tc = importlib.import_module("ninwavelets_tpu_torch.ops.cpd")
 th = importlib.import_module("ninwavelets_tpu_torch.ops.hmm")

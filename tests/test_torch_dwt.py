@@ -27,6 +27,7 @@ from ninwavelets_tpu.ops import dwt as jd
 from ninwavelets_tpu_torch.ops import dwt as td
 
 from test_dwt import _pyramid_modwt
+from torch_threads import one_torch_thread  # noqa: F401
 
 GATE = 1e-5
 CPU = "cpu"

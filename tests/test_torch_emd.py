@@ -36,6 +36,8 @@ import torch
 from jax import lax
 from scipy.interpolate import Akima1DInterpolator, CubicSpline
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 je = importlib.import_module("ninwavelets_tpu.ops.emd")
 te = importlib.import_module("ninwavelets_tpu_torch.ops.emd")
 

@@ -40,6 +40,7 @@ from ninwavelets_tpu.ops import grids as jgrids
 from ninwavelets_tpu.ops import signal_utils as jsu
 
 from test_torch_cwt import assert_itc_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 250.0
 RTOL = 1e-4

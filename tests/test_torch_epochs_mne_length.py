@@ -48,6 +48,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)

@@ -27,6 +27,8 @@ from ninwavelets_tpu_torch.ops import complexity as tc
 from ninwavelets_tpu_torch.ops import erp as te
 from ninwavelets_tpu_torch.ops.signal_utils import row_cumsum
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 GATE = 1e-5
 

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 jw = importlib.import_module("ninwavelets_tpu.ops.ewt")
 jv = importlib.import_module("ninwavelets_tpu.ops.vmd")
 tw = importlib.import_module("ninwavelets_tpu_torch.ops.ewt")

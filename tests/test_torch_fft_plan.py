@@ -19,6 +19,8 @@ from ninwavelets_tpu_torch.ops import fused as tfused
 from ninwavelets_tpu_torch.parallel import StreamingCWT
 from ninwavelets_tpu_torch.parallel import streaming as tstreaming
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SIZES = [1 << k for k in range(8, 15)]       # 256 ... 16384
 
 

@@ -23,6 +23,7 @@ from ninwavelets_tpu.ops import filtering as jf
 from ninwavelets_tpu_torch.ops import filtering as tf
 
 from test_torch_dwt import _close
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 500.0
 N = 4096

@@ -28,6 +28,8 @@ from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import fit as tfit
 from ninwavelets_tpu_torch.ops import fused as tfused
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 
 

@@ -22,6 +22,8 @@ from ninwavelets_tpu_torch import kernels
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import fused as tfused
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -105,8 +107,8 @@ def test_complex_signals_take_the_plain_path():
     sig, bank = _workload(f=4)
     z = torch.from_numpy(sig + 1j * sig[:, ::-1].copy()).to(torch.complex64)
     tb = torch.from_numpy(bank)
-    assert not tfused._kernel_takes(z, tb)
-    assert tfused._kernel_takes(torch.from_numpy(sig), tb)
+    assert not tfused.route("power_each", z, tb).takes
+    assert tfused.route("power_each", torch.from_numpy(sig), tb).takes
     torch.testing.assert_close(tfused.itc_auto(z, tb, interpolate=True),
                                tcwt.itc_from_bank(z, tb, True))
     with pytest.raises(ValueError, match="complex64 signals"):

@@ -47,6 +47,7 @@ from ninwavelets_tpu_torch.ops import granger as tgr
 
 from test_granger import (FS, _simulate, _simulate3, _true_spectrum,
                           _var_system)
+from torch_threads import one_torch_thread  # noqa: F401
 
 WILSON = 1e-4
 GC_ATOL = 5e-4

@@ -43,6 +43,7 @@ from ninwavelets_tpu.ops import graph as jg
 from ninwavelets_tpu_torch.ops import graph as tg
 
 from test_graph import _floyd
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 Q_RTOL, Q_ATOL = 1e-4, 1e-6

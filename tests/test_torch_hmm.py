@@ -27,6 +27,8 @@ import torch
 
 from ninwavelets_tpu_torch import convert
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 jh = importlib.import_module("ninwavelets_tpu.ops.hmm")
 th = importlib.import_module("ninwavelets_tpu_torch.ops.hmm")
 

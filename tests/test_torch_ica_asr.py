@@ -41,6 +41,7 @@ from ninwavelets_tpu_torch.ops import ica as tica
 
 from test_asr import SFREQ, _recording
 from test_ica import _match_corr, _mix, _sources
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 GATE = 1e-5

@@ -12,6 +12,8 @@ from ninwavelets_tpu_torch.io import (ArraySource, EDFReader, EDFSource,
                                       edf, iter_ext_batches, native,
                                       native_available, write_edf)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 250.0
 
 

@@ -41,6 +41,7 @@ from ninwavelets_tpu_torch.io import brainvision as tbv
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 
 from test_torch_cwt import assert_itc_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 500.0
 RTOL = 1e-5

@@ -25,6 +25,8 @@ import pytest
 import torch
 from scipy import signal as ss
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ji = importlib.import_module("ninwavelets_tpu.ops.irasa")
 ti = importlib.import_module("ninwavelets_tpu_torch.ops.irasa")
 

@@ -37,6 +37,7 @@ from ninwavelets_tpu_torch.ops import beamformer as tb
 from ninwavelets_tpu_torch.ops import leadfield as tl
 
 from test_beamformer import _leadfield, _simulate
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 GATE = 1e-5

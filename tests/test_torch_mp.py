@@ -25,6 +25,8 @@ import torch
 
 from ninwavelets_tpu_torch import convert
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 jm = importlib.import_module("ninwavelets_tpu.ops.mp")
 tm = importlib.import_module("ninwavelets_tpu_torch.ops.mp")
 

@@ -21,6 +21,8 @@ from ninwavelets_tpu_torch.ops import reassign as treassign
 from ninwavelets_tpu_torch.ops import sst as tsst
 from ninwavelets_tpu_torch.ops.bank import make_fft_bank
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SF = 1000.0
 FREQS = np.arange(10.0, 90.0, 5.0, dtype=np.float32)     # 16 rows
 

@@ -26,6 +26,7 @@ from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import fused as tfused
 
 import torch_parallel_cases as cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-6          # the JAX package's sharded reductions
 FUSED_POWER = dict(rtol=1e-4, atol=1e-5)   # its fused sharded kernels,

@@ -28,6 +28,7 @@ from ninwavelets_tpu_torch.ops import extensions as text
 import torch_parallel_cases as cases
 from test_torch_connectivity import (_coeffs64, assert_rel,
                                      assert_unit_close)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SF = 1000.0
 N = 256

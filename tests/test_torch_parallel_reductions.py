@@ -30,6 +30,7 @@ from ninwavelets_tpu_torch.ops import sst as tsst
 
 import torch_parallel_cases as cases
 from test_torch_sst import _ambiguous, _ssq_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 RED = dict(rtol=2e-5, atol=1e-6)           # the JAX sharded reductions
 FUSED_POWER = dict(rtol=1e-4, atol=1e-5)   # its fused sharded kernels,

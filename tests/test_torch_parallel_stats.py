@@ -25,6 +25,7 @@ from ninwavelets_tpu_torch.ops import dwt as tdwt
 from ninwavelets_tpu_torch.ops import ica as tica
 
 import torch_parallel_cases as cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 SF = 1000.0
 N_PERM, CHUNK = 40, 16         # 3 chunks, padded to 4 over the data axis

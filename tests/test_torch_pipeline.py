@@ -67,6 +67,7 @@ from ninwavelets_tpu_torch.ops.baseline import baseline_tf
 from ninwavelets_tpu_torch.ops.fused import power_auto
 
 from conftest import make_example
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-4
 

@@ -26,6 +26,8 @@ from ninwavelets_tpu_torch.ops import denoise as tdenoise
 from ninwavelets_tpu_torch.ops import icwt as ticwt
 from ninwavelets_tpu_torch.ops import reassign as treassign
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 
 

@@ -40,6 +40,7 @@ from ninwavelets_tpu_torch.ops import reject as trej
 
 import test_reject
 from test_reject import _epochs
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 GATE = 1e-5

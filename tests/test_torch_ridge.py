@@ -24,6 +24,8 @@ from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import ridge as tridge
 from ninwavelets_tpu_torch.ops import tc_stats as ttc
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 N = 1024
 FREQS = np.arange(10.0, 130.0, 4.0)

@@ -38,6 +38,7 @@ from test_riemann import _spd
 from test_riemann import _two_class as _cov_classes
 from test_spatial import TestSSVEP as _Ssvep
 from test_spatial import _two_class as _csp_classes
+from torch_threads import one_torch_thread  # noqa: F401
 
 GATE = 1e-5
 MARGIN = 1e-5

@@ -16,6 +16,8 @@ import ninwavelets_tpu as nw
 from ninwavelets_tpu_torch.convert import wavelet_from_jax
 from ninwavelets_tpu_torch.ops import scattering as tscat
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 # ``ninwavelets_tpu.ops`` exports the function under the module's name.
 jscat = importlib.import_module("ninwavelets_tpu.ops.scattering")
 

@@ -50,6 +50,7 @@ from test_torch_riemann_decoding import _auc_close, _lda_slack, _near_ties
 from test_spatial import _two_class as _csp_classes
 from test_torch_spatial import _cols_close
 from test_trf import _planted
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SF = 128.0

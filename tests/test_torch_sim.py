@@ -24,6 +24,8 @@ import torch
 from ninwavelets_tpu.ops import sim as js
 from ninwavelets_tpu_torch.ops import sim as ts
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 GATE = 1e-5
 KEY = jax.random.PRNGKey(7)

@@ -34,6 +34,7 @@ from ninwavelets_tpu_torch.ops.denoise import _median
 
 from test_microstates import _match, _planted
 from test_sleep import SFREQ, _so_signal, _spindle_signal
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 GATE = 1e-5

@@ -19,6 +19,8 @@ from ninwavelets_tpu.ops import baseline as jbl
 from ninwavelets_tpu_torch import convert
 from ninwavelets_tpu_torch.ops import baseline as tbl
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-4

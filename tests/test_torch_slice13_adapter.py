@@ -40,6 +40,7 @@ from test_microstates import _planted
 from test_sleep import SFREQ as SLEEP_SF, _so_signal, _spindle_signal
 from test_torch_leadfield_beamformer import _same_fit
 from test_torch_sleep_microstates import _jax_idx, _same_table
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SF = 1000.0

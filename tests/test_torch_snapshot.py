@@ -28,6 +28,8 @@ from ninwavelets_tpu_torch.ops.fused import power_itc_auto
 from ninwavelets_tpu_torch.ops.signal_utils import pad_to
 from ninwavelets_tpu_torch.utils import mne_adapter
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 256.0
 FREQS = np.array([5.0, 10.0, 15.0])
 KINDS = ["f64_c", "f64_f", "f64_neg_stride", "f32", "i16"]

@@ -28,6 +28,7 @@ from ninwavelets_tpu_torch.ops import spatial as tsp
 
 from test_spatial import TestXdawn as _Xd
 from test_spatial import _planted, _spd, _two_class
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 GATE = 1e-5

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 js = importlib.import_module("ninwavelets_tpu.ops.specparam")
 ts = importlib.import_module("ninwavelets_tpu_torch.ops.specparam")
 

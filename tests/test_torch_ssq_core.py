@@ -26,6 +26,7 @@ from ninwavelets_tpu_torch.ops import fused as tfused
 from ninwavelets_tpu_torch.ops import sst as tsst
 from test_torch_fft_plan import emulate
 from test_torch_sst import GRIDS, REL, SFREQ, _bank, _signals
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLSUM_RTOL, SNR_DB = 1e-5, 40.0
 

@@ -38,6 +38,8 @@ from ninwavelets_tpu_torch.ops import fused as tfused
 from ninwavelets_tpu_torch.ops import sst as tsst
 from ninwavelets_tpu_torch.parallel import StreamingCWT
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 REL = 1e-6
 GRIDS = {
@@ -266,7 +268,8 @@ def test_cpu_dispatch_is_the_plain_path_and_launches_nothing():
     bank = torch.from_numpy(_bank(freqs, 512))
     hint = tsst.uniform_grid_hint(freqs)
     before = dict(kernels.launches)
-    assert not tfused.ssq_kernel_takes(sig, bank, hint, True)
+    assert not tfused.route("ssq", sig, bank, grid=hint,
+                            interpolate=True).launch
     torch.testing.assert_close(
         tsst.ssq_mean_power(sig, bank, freqs, SFREQ),
         tsst.ssq_mean_power_from_bank(sig, bank, freqs, SFREQ, True, REL,

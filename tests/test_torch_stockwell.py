@@ -26,6 +26,7 @@ from ninwavelets_tpu_torch.ops import istockwell, stockwell
 
 from test_stockwell import N, SFREQ, _numpy_st
 from test_torch_dwt import _close
+from torch_threads import one_torch_thread  # noqa: F401
 
 js = importlib.import_module("ninwavelets_tpu.ops.stockwell")
 CPU = "cpu"

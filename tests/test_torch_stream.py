@@ -30,6 +30,8 @@ from ninwavelets_tpu_torch.parallel import (OnlineCWT, StreamingCWT,
                                             chunk_bank, halo_samples,
                                             pow2_halo)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-5
 FREQS = np.arange(25.0, 80.0, 5.0, dtype=np.float32)
@@ -106,7 +108,8 @@ def test_power_auto_sends_complex_banks_to_the_plain_path():
     sig = torch.from_numpy(_recording((3, 1024)))
     bank = nt.MexicanHat(SFREQ, device="cpu").make_fft_wavelets(FREQS, 1.024)
     assert bank.is_complex()
-    assert not tfused._kernel_takes(sig.reshape(-1, 1, 1024), bank)
+    assert not tfused.route("power_each", sig.reshape(-1, 1, 1024),
+                            bank).takes
     torch.testing.assert_close(tfused.power_auto(sig, bank),
                                tcwt.power_from_bank(sig, bank))
 

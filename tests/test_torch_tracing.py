@@ -15,7 +15,12 @@ Gates, each with its reason:
 * ``why_not`` names each reject branch, and ``supports()`` is
   ``why_not() is None`` on every case;
 * the transform span's reason: "cpu" where the kernel would take the
-  workload on a card, "complex_signals", and a stream's own reasons.
+  workload on a card, "complex_signals", and a stream's own reasons;
+  ``route()``'s reasons and keys for each family, "eps" and "off" among
+  them;
+* every dispatcher that asks ``route()`` opens one transform span: the
+  per-signal power, the three epoch reductions, the five pair ``*_auto``
+  and the two synchrosqueezing dispatchers.
 """
 import numpy as np
 import pytest
@@ -24,9 +29,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 import ninwavelets_tpu_torch as nt
 from ninwavelets_tpu_torch import kernels
+from ninwavelets_tpu_torch.ops import connectivity as tconn
+from ninwavelets_tpu_torch.ops import extensions as text
 from ninwavelets_tpu_torch.ops import fused as tfused
+from ninwavelets_tpu_torch.ops import sst as tsst
 from ninwavelets_tpu_torch.parallel.streaming import StreamingCWT
 from ninwavelets_tpu_torch.utils import observability as tobs
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 256.0
 FREQS = np.array([5.0, 10.0, 15.0])
@@ -183,30 +193,80 @@ def test_why_not_ssq(grid, interpolate, why):
 def test_dispatcher_reasons():
     bank = torch.ones(3, 256)
     real = torch.ones(2, 1, 256)
-    assert tfused._route(real, bank, "power") == (
-        True, "ninw.transform.plain:cpu")
-    assert tfused._route(real.to(torch.complex64), bank, "power") == (
+    def asked(family, signals, bank):
+        r = tfused.route(family, signals, bank)
+        return r.takes, r.span
+
+    assert asked("power", real, bank) == (True, "ninw.transform.plain:cpu")
+    assert asked("power", real.to(torch.complex64), bank) == (
         False, "ninw.transform.plain:complex_signals")
-    assert tfused._route(torch.ones(2, 1, 200), torch.ones(3, 200),
-                         "power") == (False, "ninw.transform.plain:n_not_pow2")
+    assert asked("power", torch.ones(2, 1, 200), torch.ones(3, 200)) == (
+        False, "ninw.transform.plain:n_not_pow2")
     cx = torch.ones(3, 256, dtype=torch.complex64)
-    assert tfused._reduction_route(real, cx, "itc") == (
-        True, "ninw.transform.plain:cpu")
+    assert asked("itc", real, cx) == (True, "ninw.transform.plain:cpu")
     assert tfused.transform_span("power_itc", None) == (
         "ninw.transform.kernel:power_itc")
 
 
-@pytest.mark.parametrize("auto", ["power_auto", "mean_power_auto",
-                                  "itc_auto", "power_itc_auto"])
-def test_each_dispatcher_opens_one_transform_span(auto):
+@pytest.mark.parametrize("family,signals,kw,want", [
+    ("power_each", (1, 1, 256), {}, (True, "power_each", None)),
+    ("power_each", (1, 1, 256), {"use_fused": False}, (False, None, "off")),
+    ("power_each", (1, 1, 200), {}, (False, None, "n_not_pow2")),
+    ("plv", (2, 1, 256), {}, (True, "plv", None)),
+    ("plv", (2, 1, 256), {"eps": 1e-3}, (False, None, "eps")),
+    ("phaselag", (2, 1, 256), {"eps": 1e-3}, (True, "phaselag", None)),
+    ("coherence", (2, 256), {}, (False, None, "shape")),
+    ("ssq", (2, 1, 256), {"grid": ("lin", 5.0, 5.0)}, (True, "ssq", None)),
+    ("ssq", (2, 1, 256), {"grid": None}, (False, None, "row_map")),
+    ("ssq", (2, 1, 256), {"grid": ("lin", 5.0, 5.0), "interpolate": False},
+     (False, None, "interpolate")),
+    ("power", (2, 1, 2001), {}, (False, None, "n_not_pow2")),
+])
+def test_route_reasons_on_a_card(family, signals, kw, want):
+    """``route()`` on real signals given by shape on a card: the key where
+    the kernel launches, else the reason (a real CPU bank: the shape rule
+    reads no device, and the chirp-z route, asked for nowhere here, is the
+    only one that needs the bank on the card)."""
+    r = tfused.route(family, signals, torch.ones(3, signals[-1]),
+                     device="cuda", **kw)
+    assert (r.takes, r.key, r.why) == want
+    assert r.launch == (want[2] is None)
+    assert r.span == tfused.transform_span(want[1], want[2])
+    on_cpu = tfused.route(family, signals, torch.ones(3, signals[-1]),
+                          device="cpu", **kw)
+    assert on_cpu.takes == r.takes
+    assert on_cpu.why == (r.why if r.why not in (None, "off") else "cpu")
+
+
+def _dispatch(auto, bank):
+    """``(call, reason)``: the dispatcher ``auto`` on (2, 1, 256) complex
+    signals, which no kernel takes, and the reason its span gives; the
+    synchrosqueezing dispatchers on real ones, which the kernels would
+    take on a card."""
     x = torch.randn(2, 1, 256, dtype=torch.complex64)
+    if auto.startswith("ssq_"):
+        real = x.real.contiguous()
+        return lambda: getattr(tsst, auto)(real, bank, FREQS, SFREQ), "cpu"
+    if hasattr(tfused, auto):
+        return lambda: getattr(tfused, auto)(x, bank), "complex_signals"
+    pairs = tconn if hasattr(tconn, auto) else text
+    return lambda: getattr(pairs, auto)(x, x, bank), "complex_signals"
+
+
+@pytest.mark.parametrize("auto", ["power_auto", "mean_power_auto",
+                                  "itc_auto", "power_itc_auto", "plv_auto",
+                                  "ppc_auto", "phase_lag_auto",
+                                  "epoch_coherence_auto", "imcoh_auto",
+                                  "ssq_power", "ssq_mean_power"])
+def test_each_dispatcher_opens_one_transform_span(auto):
+    call, reason = _dispatch(auto, torch.ones(3, 256))
     before = dict(kernels.launches)
-    names = _names(_spans(lambda: getattr(tfused, auto)(
-        x, torch.ones(3, 256))))
+    names = _names(_spans(call))
     # The epoch reductions transform each of the 2 epochs in a span of
-    # its own, inside the transform span; the per-signal power has none.
-    epochs = 0 if auto == "power_auto" else 2
-    assert names == ["ninw.transform.plain:complex_signals"] + [
+    # its own, inside the transform span; the other dispatchers have none.
+    epochs = 2 if auto in ("mean_power_auto", "itc_auto",
+                           "power_itc_auto") else 0
+    assert names == ["ninw.transform.plain:" + reason] + [
         "ninw.epoch.cwt"] * epochs
     assert kernels.launches == before
 

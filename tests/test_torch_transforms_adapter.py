@@ -31,6 +31,7 @@ from ninwavelets_tpu.utils.mne_adapter import ArrayEpochs as JArrayEpochs
 
 from test_torch_cwt import assert_itc_close
 from test_torch_dwt import _close
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 250.0
 CPU = "cpu"

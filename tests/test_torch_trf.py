@@ -21,6 +21,7 @@ from ninwavelets_tpu_torch import convert
 from ninwavelets_tpu_torch.ops import trf as ttrf
 
 from test_trf import _planted
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 GATE = 1e-5

@@ -46,6 +46,8 @@ from ninwavelets_tpu_torch.utils import plotting as tplot
 from ninwavelets_tpu_torch.utils import report as treport
 from ninwavelets_tpu_torch.utils import tooltip
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -28,6 +28,7 @@ from ninwavelets_tpu_torch.ops import dwt2d as td
 
 from test_torch_dwt import _close
 from test_wavelet2d import _oracle_cwt2
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 FREQS = (0.03, 0.06, 0.12, 0.24)

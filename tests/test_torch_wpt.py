@@ -32,6 +32,7 @@ from ninwavelets_tpu_torch.ops import dwt as td
 from ninwavelets_tpu_torch.ops import wpt as tw
 
 from test_torch_dwt import _close
+from torch_threads import one_torch_thread  # noqa: F401
 
 SFREQ = 1000.0
 CPU = "cpu"

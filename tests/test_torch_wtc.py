@@ -42,6 +42,8 @@ import ninwavelets_tpu_torch as nt
 from ninwavelets_tpu_torch.convert import wavelet_from_jax
 from ninwavelets_tpu_torch.ops import extensions as text
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 RTOL = 1e-4
 FREQS = np.arange(10.0, 40.0, 5.0)             # F = 6

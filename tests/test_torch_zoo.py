@@ -32,6 +32,8 @@ from ninwavelets_tpu_torch.ops import grids as tgrids
 from ninwavelets_tpu_torch.ops import multitaper as tmt
 from ninwavelets_tpu_torch.ops import superlets as tsl
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SFREQ = 1000.0
 N = 1024
 FREQS = np.arange(8.0, 72.0, 8.0)                        # F = 8
