@@ -22,8 +22,8 @@ What it does, failing (non-zero exit, no result line) if any check fails:
    (``fused_ssq_kernel<LOG2N, LOG>``), the cross-pair sums
    (``fused_pair_kernel<EPI, LOG2N>``) and the chirp-z reductions
    (``fused_czt_kernel<EPI, LOG2M>``, M <= 4096); none of them may spill
-   at N <= 8192, nor "power_each", "amax" and the chirp-z reductions at
-   any size (synchrosqueezing's spill there is printed).  At every N the
+   at N <= 8192, nor "power_each" (its split at 32768 too), "amax" and
+   the chirp-z reductions at any size (synchrosqueezing's spill there is printed).  At every N the
    core's plan, exchange indices and the backward's row groups as the
    library computes them
    (``csrc/core_plan.cu``, ``ninw_fused_cwt_bwd_rows``) must equal the
@@ -731,6 +731,23 @@ kernel, ``csrc/fused_czt.cu``, and the benchmark cell
    transforms a row (M = 4096), and the cell's N-point count; the
    ``fused_czt[<epilogue>]`` records carry both.
 
+"power_each" at N = 32768 (``each_split_phase``; the split kernel,
+``fused_each_split_kernel`` in ``csrc/fused_cwt.cu``, and the benchmark
+cell ``eeg64_recording.default_window``):
+
+67. One window batch of the recording cell, 8 windows x 64 channels of
+   32768 samples against 100 Morse rows (1-100 Hz, ``interpolate=False``),
+   written through ``ops.fused._power_each_into`` into a NaN-filled
+   (64, 100, 8 x 16384) plane at the kept columns [8192, 24576): one
+   "power_each_split" launch and no other, every cell written, within
+   1e-5 of the plain route's peak; then whole windows of (3, 2) x 13 rows
+   at both ``interpolate`` settings, and the kept range moved one column
+   down (an odd first column: the columns stored one by one), at that
+   gate.
+68. Times that batch into the plane (its FFT included) against the plain
+   route (crop + paste) as 15 does, and the kernel alone by CUDA events,
+   beside the bound: the ``fused_cwt[power_each_split]`` record.
+
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its compulsory bytes over 3.35 TB/s and its FFT flops
 (5 N log2 N per complex FFT, half that per real one) over 67 TFLOP/s, the
@@ -762,6 +779,9 @@ E_GRAD, E_SMALL, F_RAGGED, STEPS = 64, 8, 13, 3
 GRAD_RTOL = 1e-4
 REC_C, REC_N, REC_F = 64, 600_000, 100     # 64 channels x 10 min at 1 kHz
 REC_WINDOW, REC_BATCH, REC_HALO, REC_EXT = 11524, 8, 2430, 16384
+#: The recording cell's extended window (RawWavelet's default 16384 and its
+#: halos of 8192) and the columns it keeps: "power_each_split".
+SPLIT_N, SPLIT_KEEP = 32768, (8192, 24576)
 EACH_REPLACES = "ninwavelets_tpu/ops/fused.py:299"
 AMAX_REPLACES = "ninwavelets_tpu/ops/fused.py:358"
 SSQ_SOURCE = "ninwavelets_tpu_torch/csrc/fused_ssq.cu"
@@ -898,19 +918,20 @@ def print_ptxas(lib):
     (``fused_cwt_bwd_kernel<LOG2N,CX>``) and synchrosqueezing
     (``fused_ssq_kernel<LOG2N,LOG>``) at N <= 8192, "power_each" and
     "amax" (``fused_each_kernel<LOG2N>``, ``fused_amax_kernel<LOG2N>``) at
-    every N, and the chirp-z reductions (``fused_czt_kernel<EPI,LOG2M>``)
-    at every M."""
+    every N, "power_each" at 32768 (``fused_each_split_kernel``), and the
+    chirp-z reductions (``fused_czt_kernel<EPI,LOG2M>``) at every M."""
     name, args, spilling = "?", [], []
     with open(lib[:-3] + ".log") as fh:
         for line in fh:
             m = re.search(r"entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(fused_(?:cwt|cwt_bwd|each|amax|ssq|"
-                              r"pair|czt)_kernel)I(.*?)EEv", m.group(1))
+                k = re.search(r"(fused_(?:cwt|cwt_bwd|each|each_split|amax|"
+                              r"ssq|pair|czt)_kernel)(?:I(.*?)EEv)?",
+                              m.group(1))
                 args = (re.findall(r"L[ib](\d+)E", k.group(2) + "E")
-                        if k else [])
-                name = (f"{k.group(1)}<" + ",".join(args) + ">" if k
-                        else m.group(1))
+                        if k and k.group(2) else [])
+                name = (m.group(1) if not k else k.group(1) if not args
+                        else f"{k.group(1)}<" + ",".join(args) + ">")
             elif "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
                 stores = re.search(r"(\d+) bytes spill stores", line)
@@ -925,8 +946,9 @@ def no_spill(name, args):
         return int(args[1]) <= 13
     if name.startswith(("fused_cwt_bwd_kernel<", "fused_ssq_kernel<")):
         return int(args[0]) <= 13
-    return name.startswith(("fused_each_kernel<", "fused_amax_kernel<",
-                             "fused_czt_kernel<"))
+    return (name == "fused_each_split_kernel"
+            or name.startswith(("fused_each_kernel<", "fused_amax_kernel<",
+                                "fused_czt_kernel<")))
 
 
 def event_ms(fn):
@@ -1478,6 +1500,90 @@ def long_recording_phase():
     return {"name": "fused_cwt[power_each]", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": EACH_REPLACES,
             "launches": counts["power_each"], "max_abs_err": err_each,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def each_split_phase():
+    """"power_each" at N = 32768 on the split kernel (steps 67-68): one
+    window batch of the recording cell against the plain route, small
+    batches at both ``interpolate`` settings and a kept range that starts
+    at an odd column, then times; returns the ``fused_cwt[power_each_split]``
+    kernel record."""
+    import torch
+    from ninwavelets_tpu_torch import kernels
+    from ninwavelets_tpu_torch.ops import cwt, fused
+
+    n, (lo, hi) = SPLIT_N, SPLIT_KEEP
+    width = hi - lo
+    freqs = np.linspace(1.0, 100.0, REC_F)
+    gen = np.random.default_rng(67)
+    x = torch.from_numpy(gen.standard_normal((REC_BATCH, REC_C, n),
+                                             dtype=np.float32)).cuda()
+    bank = morse_bank(freqs, n, False)
+    plane = torch.full((REC_C, REC_F, REC_BATCH * width), math.nan,
+                       device="cuda")
+    dst = plane.unflatten(-1, (REC_BATCH, width)).permute(2, 0, 1, 3)
+
+    # -- one window batch of the recording cell into a NaN-filled plane ------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    fused._power_each_into(x, bank, False, dst, SPLIT_KEEP)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    print(f"split main path: one ({REC_BATCH}, {REC_C}, {n}) window batch x "
+          f"{REC_F} rows, keep {SPLIT_KEEP}; launches {counts}")
+    check(counts["power_each_split"] == 1 and sum(counts.values()) == 1,
+          f"the split batch launched {counts}, not one 'power_each_split'")
+    err = rel_err("K4 split window batch, interiors written into a (C, F, "
+                  "batch x window) plane", dst, cwt.power_from_bank(
+                      x, bank, False)[..., lo:hi])
+    torch.cuda.empty_cache()
+    for interp in (False, True):
+        xs = torch.from_numpy(gen.standard_normal(
+            (3, 2, n), dtype=np.float32)).cuda()
+        bs = morse_bank(freqs[:F_RAGGED], n, interp)
+        ref = cwt.power_from_bank(xs, bs, interp)
+        err = max(err, rel_err(
+            f"K4 split N={n} interpolate={interp} (3, 2) x {F_RAGGED}, "
+            "whole windows", fused.fused_power_from_bank(xs, bs, interp),
+            ref))
+        odd = torch.full((3, 2, F_RAGGED, width), math.nan, device="cuda")
+        fused._power_each_into(xs, bs, interp, odd, (lo - 1, hi - 1))
+        err = max(err, rel_err(
+            f"K4 split N={n} interpolate={interp}, keep ({lo - 1}, "
+            f"{hi - 1}) (columns stored one by one)", odd,
+            ref[..., lo - 1:hi - 1]))
+    del ref, odd, xs
+    torch.cuda.empty_cache()
+
+    # -- times ----------------------------------------------------------------
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+
+    def plain_into():
+        dst.copy_(cwt.power_from_bank(x, bank, False)[..., lo:hi])
+
+    ms, plain_ms = median_ms(x, [
+        lambda: fused._power_each_into(x, bank, False, dst, SPLIT_KEEP),
+        plain_into])
+    spec = torch.fft.fft(x.reshape(-1, 1, n)).contiguous()
+    kernel_ms = event_ms(lambda: kernels.fused_power_each(
+        spec, bank, n, dst, SPLIT_KEEP))
+    print(f"time one window batch {tuple(x.shape)} x {REC_F} rows into the "
+          f"plane, keep {SPLIT_KEEP}: split path (FFT + kernel) {ms} ms, "
+          f"plain (torch.fft, crop + paste) {plain_ms} ms; the kernel alone "
+          f"{kernel_ms} ms (CUDA events, mean of {REPS})")
+    del spec, plane, dst, x
+    torch.cuda.empty_cache()
+    b = REC_BATCH * REC_C
+    bound_ms, bound_by = bound(
+        b * (fft_flops(n) / 2 + REC_F * fft_flops(n)),
+        4 * (b * n + REC_F * n + b * REC_F * width))
+    return {"name": "fused_cwt[power_each_split]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": EACH_REPLACES,
+            "launches": counts["power_each_split"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -6240,7 +6346,7 @@ def slice13_phase(data):
     ext = stream.window + 2 * stream.halo
     n_batches = -(-n_rec // (stream.window * stream.batch))
     print(f"RawWavelet.dfa stream: window {stream.window}, halo "
-          f"{stream.halo}, extended {ext} (K4 takes <= 16384), "
+          f"{stream.halo}, extended {ext} ('power_each' to 16384), "
           f"{n_batches} window batches")
     check(ext <= 16384, "RawWavelet.dfa's windows cannot reach K4")
     alpha, _ = call("RawWavelet.dfa at 10 Hz", lambda:
@@ -7453,6 +7559,10 @@ def main() -> int:
 
     # -- the epoch reductions at N not a power of two ---------------------------
     records += czt_phase(data)
+    torch.cuda.empty_cache()
+
+    # -- "power_each" at N = 32768, the split kernel -----------------------------
+    records.append(each_split_phase())
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} checks failed: "
                            + "; ".join(FAILURES))

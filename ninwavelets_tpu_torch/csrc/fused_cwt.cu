@@ -98,6 +98,37 @@
 //    stride_group = F N, stride_row = N, [0, N); the long-recording path
 //    writes each window's interior straight into its place in the
 //    (channels, F, span) plane, with no crop-and-paste pass after it.
+//
+// "power_each" at N = 32768 (fused_each_split_kernel: the long recording
+// at RawWavelet's default window of 16384, extended by its halos to
+// 32768).  A 32768-point complex row is 256 KB, the whole register file
+// of an SM, and the 16384-point plan already runs 1024 threads of 64
+// registers, so no block holds the row.  One exact radix-2 decimation in
+// frequency on the output index splits it instead.  With H = N / 2,
+// Z[k] = bank[f, k] spec[b, k] and w = exp(+2 pi i / N):
+//     x[2m]     = sum_{k < H} (Z[k] + Z[k + H]) exp(+2 pi i k m / H)
+//     x[2m + 1] = sum_{k < H} (Z[k] - Z[k + H]) w^k exp(+2 pi i k m / H)
+// Each output parity is one 16384-point inverse DFT of the core
+// (Plan<14>), whose stage 0 is the product, the butterfly and, for the
+// odd parity, w^k from a float32 table built on the host in float64
+// (kernels/__init__.py: split_twiddles), read after the core's table.
+// What bounds it is the transform: 102,400 of 16384 points a batch of 512
+// windows x channels and 100 rows, 117 GFLOP, about 1.8 ms of fp32
+// arithmetic at the card's peak, against 3.4 GB of kept output written
+// once (1.0 ms).  The design is fused_each_kernel's, with these
+// differences:
+//  * One block per (bank row f, slice of signals), blockIdx.x walking f,
+//    so the blocks in flight share a signal's spectrum in L2.  A block
+//    runs the even parity, keeps |x[2m]|^2 / N^2 in shared memory (H
+//    floats beside the 136 KB exchange buffer, each thread at its own m:
+//    no barrier), then runs the odd parity: the core leaves x[2m + 1] in
+//    the slot where the thread kept x[2m], so each thread writes its
+//    (x[2m], x[2m + 1]) pairs as one float2, coalesced, into the columns
+//    it keeps.
+//  * The 128 KB bank row does not fit beside them: both parities read the
+//    bins k and k + H of the bank, the spectrum and the odd parity's w^k
+//    through the read-only path; the 13 MB bank and the spectra of the
+//    signals in flight stay in the 50 MB L2.
 // Offsets into the spectra and the output are size_t / long long: E*C*F*N
 // passes 2^31 at large batches.
 
@@ -111,7 +142,7 @@ namespace {
 enum Epilogue { kPower = 0, kItc = 1, kPowerItc = 2, kAmax = 3 };
 
 constexpr int kMinLog2N = 8;    // N = 256
-constexpr int kMaxLog2N = 14;   // N = 16384
+constexpr int kMaxLog2N = 14;   // N = 16384; "power_each" also 2N
 
 // The epoch reductions on the register-resident core.  EPI is one of
 // kPower, kItc, kPowerItc.
@@ -389,6 +420,104 @@ fused_each_kernel(const float2* __restrict__ spec,     // (E*C, L), L >= K
   }
 }
 
+// "power_each" at N = 2 H = 32768 on the 16384-point core (see the
+// header): shared memory holds the exchange buffer, then the even
+// parity's powers.
+struct SplitPlan {
+  using PL = fft_regs::Plan<kMaxLog2N>;
+  static constexpr int kH = PL::kN;
+  static constexpr int kEvenOffset = fft_regs::SmemLayout<kMaxLog2N, 0>::kSumsOffset;
+  static constexpr size_t kBytes = sizeof(float2) * kEvenOffset + sizeof(float) * kH;
+  static_assert(!PL::kTwSmem && !PL::kPingPong, "one buffer, the table read");
+  static_assert(kBytes <= 232448, "shared memory per block");
+};
+
+// Stage 0 of output parity `odd` of one signal: thread slot i holds bin
+// k = tid + T i of Z[k] + Z[k + H] (even) or of (Z[k] - Z[k + H]) w^k
+// (odd), Z = bank x spectrum on the k < k_bins bins.
+__device__ __forceinline__ void split_stage0(
+    float2 (&x)[SplitPlan::PL::kR], const float2* __restrict__ row,
+    const float* __restrict__ bank_row, const float2* __restrict__ wk,
+    int k_bins, bool odd, int tid) {
+  constexpr int T = SplitPlan::PL::kThreads, H = SplitPlan::kH;
+  const bool upper = k_bins > H;   // K = N: the bins k + H are read too
+#pragma unroll
+  for (int i = 0; i < SplitPlan::PL::kR; ++i) {
+    const int k = tid + i * T;
+    const float2 lo = fft_regs::bank_times_rn(__ldg(row + k), __ldg(bank_row + k));
+    const float2 hi = upper ? fft_regs::bank_times_rn(__ldg(row + k + H),
+                                                      __ldg(bank_row + k + H))
+                            : make_float2(0.f, 0.f);
+    x[i] = odd ? fft_regs::cmul_rn(fft_regs::csub(lo, hi), __ldg(wk + k))
+               : fft_regs::cadd(lo, hi);
+  }
+}
+
+// |x|^2 / N^2 of every (signal, bank row) pair at N = 32768, columns
+// [keep_lo, keep_hi), written as fused_each_kernel writes them.  `twiddle`
+// is the core's table at H, then w^k for k < H.  The two parities run
+// through one copy of the core (a loop, not unrolled): with two inlined
+// copies ptxas spilled 1400 bytes a thread at the 64 registers of 1024
+// threads, and a 512 x 32768 x 100 batch took 54.1 ms against 10.2 ms
+// (NVIDIA H100 80GB HBM3, 700 W).
+__global__ void __launch_bounds__(SplitPlan::PL::kThreads)
+fused_each_split_kernel(const float2* __restrict__ spec,     // (E*C, L), L >= K
+                        const float* __restrict__ bank,      // (F, N)
+                        const float2* __restrict__ twiddle,
+                        float* __restrict__ out,
+                        int n_signals, int k_bins, int row_len, int group,
+                        long long stride_group, long long stride_signal,
+                        long long stride_row, int keep_lo, int keep_hi,
+                        float power_scale) {
+  using PL = SplitPlan::PL;
+  constexpr int kR = PL::kR;
+  constexpr int T = PL::kThreads;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;   // the exchange buffer
+  float* even = reinterpret_cast<float*>(smem + SplitPlan::kEvenOffset);
+
+  const int f = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float2* wk = twiddle + PL::kTwiddles;
+  const float* bank_row = bank + static_cast<size_t>(f) * (2 * SplitPlan::kH);
+
+  for (int b = blockIdx.y; b < n_signals; b += gridDim.y) {
+    const float2* row = spec + static_cast<size_t>(b) * row_len;
+#pragma unroll 1
+    for (int odd = 0; odd < 2; ++odd) {
+      float2 x[kR];
+      split_stage0(x, row, bank_row, wk, k_bins, odd, tid);
+      fft_regs::inverse_fft<kMaxLog2N>(x, buf, twiddle, tid);
+      if (!odd) {
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          even[tid + i * T] = (x[i].x * x[i].x + x[i].y * x[i].y) * power_scale;
+        }
+        continue;
+      }
+      // Column n of this (signal, row) lands at o[n - keep_lo]; a pair
+      // (2m, 2m + 1) goes out as one float2 where that address is
+      // 8-aligned.
+      float* o = out + ((b / group) * stride_group +
+                        (b % group) * stride_signal + f * stride_row);
+      const bool pairs =
+          (((reinterpret_cast<unsigned long long>(o) >> 2) ^ keep_lo) & 1) == 0;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int m = tid + i * T, n = 2 * m;
+        const float pe = even[m];
+        const float po = (x[i].x * x[i].x + x[i].y * x[i].y) * power_scale;
+        if (pairs && n >= keep_lo && n + 1 < keep_hi) {
+          *reinterpret_cast<float2*>(o + (n - keep_lo)) = make_float2(pe, po);
+        } else {
+          if (n >= keep_lo && n < keep_hi) o[n - keep_lo] = pe;
+          if (n + 1 >= keep_lo && n + 1 < keep_hi) o[n + 1 - keep_lo] = po;
+        }
+      }
+    }
+  }
+}
+
 struct Args {
   const float2* spec;
   const float* bank;
@@ -456,9 +585,25 @@ cudaError_t launch_each(const Args& a, int n_signals, const EachLayout& o,
   return cudaGetLastError();
 }
 
+// "power_each" at N = 32768: the split on the 16384-point core.
+cudaError_t launch_each_split(const Args& a, int n_signals, const EachLayout& o,
+                              cudaStream_t stream) {
+  constexpr size_t smem = SplitPlan::kBytes;
+  const cudaError_t err = allow_smem(fused_each_split_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int want = (n_signals + kEachSignals - 1) / kEachSignals;
+  const dim3 grid(a.n_freqs, want < kMaxSlices ? want : kMaxSlices);
+  fused_each_split_kernel<<<grid, SplitPlan::PL::kThreads, smem, stream>>>(
+      a.spec, a.bank, a.twiddle, a.out0, n_signals, a.k_bins, a.row_len,
+      o.group, o.stride_group, o.stride_signal, o.stride_row, o.keep_lo,
+      o.keep_hi, a.power_scale);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_each_n(const Args& a, int n_signals, const EachLayout& o,
                           cudaStream_t s) {
   switch (a.log2n) {
+    case kMaxLog2N + 1: return launch_each_split(a, n_signals, o, s);
     case 8: return launch_each<8>(a, n_signals, o, s);
     case 9: return launch_each<9>(a, n_signals, o, s);
     case 10: return launch_each<10>(a, n_signals, o, s);
@@ -519,7 +664,9 @@ cudaError_t launch_reduce_epi(int epilogue, const Args& a, cudaStream_t s) {
 // rows of the contiguous (n_signals, row_len) spectra against each bank
 // row, columns [keep_lo, keep_hi) of signal b and row f written at
 // out + (b / group) stride_group + (b % group) stride_signal + f stride_row
-// + (n - keep_lo) (strides in floats).  `twiddle` is the core's table.
+// + (n - keep_lo) (strides in floats).  N is a power of two in 256 ...
+// 32768; `twiddle` is the core's table at N, and at N = 32768 the core's
+// table at 16384 followed by w^k = exp(+2 pi i k / N), k < N / 2.
 // Returns the cudaError_t of the launch (0 on success); arguments the
 // kernel does not take return cudaErrorInvalidValue without launching.
 extern "C" int ninw_fused_power_each(const void* spec, const void* bank,
@@ -530,7 +677,7 @@ extern "C" int ninw_fused_power_each(const void* spec, const void* bank,
                                      long long stride_signal,
                                      long long stride_row, int keep_lo,
                                      int keep_hi, void* stream) {
-  const int log2n = log2_of(n);
+  const int log2n = n == 2 << kMaxLog2N ? kMaxLog2N + 1 : log2_of(n);
   if (log2n < 0 || k_bins < 1 || k_bins > n || row_len < k_bins ||
       n_signals < 1 || n_freqs < 1 || group < 1 || keep_lo < 0 ||
       keep_hi > n || keep_lo >= keep_hi) {

@@ -19,7 +19,8 @@ build raises; there is no fallback.
 Every kernel runs on the register-resident FFT core of
 ``csrc/fft_regs.cuh`` and takes its twiddle table, ``core_twiddles``: the
 epoch reductions ("power", "itc", "power_itc", real and complex bank), the
-per-signal power ("power_each"), the noise gate's peaks ("amax"), the
+per-signal power ("power_each", at N = 32768 as two 16384-point
+transforms, with ``split_twiddles``), the noise gate's peaks ("amax"), the
 backward (real and complex bank), the synchrosqueezing kernel, the
 cross-pair sums and the chirp-z reductions (at M = ``czt_size(N)``).  The
 core's plan, its twiddle table and where each
@@ -70,8 +71,12 @@ EPILOGUES = {"power": 0, "itc": 1, "power_itc": 2, "amax": 3}
 COMPLEX_EPILOGUES = ("power", "itc", "power_itc")
 #: Signal lengths the fused kernels take: powers of two in this range (the
 #: core's plans, ``fft_regs::Plan``: at N = 16384 a block has 1024 threads
-#: and its exchange buffer 136 KB of shared memory).
+#: and its exchange buffer 136 KB of shared memory).  "power_each" also
+#: takes EACH_MAX_N = 2 MAX_N: each output parity of the 32768-point
+#: inverse DFT is one 16384-point transform of the core
+#: (``fused_each_split_kernel``), counted under "power_each_split".
 MIN_N, MAX_N = 256, 16384
+EACH_MAX_N = 2 * MAX_N
 #: The chirp-z kernel's epilogues, and the largest transform it runs: it
 #: takes N not a power of two with MIN_N < N and 2N - 1 <= CZT_MAX_M, so
 #: M = ``czt_size(N)`` is 1024, 2048 or 4096.
@@ -84,14 +89,16 @@ PAIR_EPILOGUES = {"coherence": 0, "phaselag": 1, "plv": 2}
 PAIR_PLANES = {"coherence": 4, "phaselag": 4, "plv": 2}
 
 #: Kernel launches since the last ``reset_launches()``: one key per epilogue
-#: of the forward kernel, "power_each" for the per-signal power,
+#: of the forward kernel, "power_each" for the per-signal power
+#: ("power_each_split" at N = 32768),
 #: "power_bwd" for the power backward, "ssq" for the synchrosqueezing
 #: kernel, one key per epilogue of the cross-pair kernel, and the
 #: complex-bank launches under their own keys ("power_cx", "itc_cx",
 #: "power_itc_cx", "power_bwd_cx"), so a run of a real-bank kernel is never
 #: read as a run of its complex-bank form, and the chirp-z launches under
 #: theirs ("power_czt", "itc_czt", "power_itc_czt").
-launches = dict.fromkeys((*EPILOGUES, "power_each", "power_bwd", "ssq",
+launches = dict.fromkeys((*EPILOGUES, "power_each", "power_each_split",
+                          "power_bwd", "ssq",
                           *PAIR_EPILOGUES,
                           *(f"{e}_cx" for e in COMPLEX_EPILOGUES),
                           "power_bwd_cx",
@@ -258,6 +265,15 @@ def core_twiddles(n: int) -> np.ndarray:
     return np.concatenate(parts).astype(np.complex64)
 
 
+def split_twiddles(n: int) -> np.ndarray:
+    """w^k = exp(+2 pi i k / n) for k < n / 2, complex64, computed in
+    float64: the odd output parity's stage-0 twiddles of "power_each" at
+    n = EACH_MAX_N, where x[2m + 1] is the n/2-point inverse DFT of
+    (Z[k] - Z[k + n/2]) w^k and x[2m] that of Z[k] + Z[k + n/2]."""
+    k = np.arange(n // 2, dtype=np.float64)
+    return np.exp(2j * np.pi * k / n).astype(np.complex64)
+
+
 def czt_size(n: int) -> int:
     """M, the chirp-z kernel's transform length at signal length ``n``: the
     least power of two >= 2n - 1.  Raises where the kernel does not take
@@ -370,6 +386,16 @@ def _core_twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _each_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """The table "power_each" reads at ``n``: the core's, and above MAX_N
+    the core's at n / 2 followed by ``split_twiddles(n)``."""
+    if n <= MAX_N:
+        return _core_twiddles(n, device)
+    return torch.from_numpy(np.concatenate(
+        [core_twiddles(n // 2), split_twiddles(n)])).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def _czt_tables(n: int, device: torch.device) -> tuple:
     """``czt_tables(n)`` as the kernel reads them, complex64 on ``device``,
     built once per (N, device)."""
@@ -379,11 +405,11 @@ def _czt_tables(n: int, device: torch.device) -> tuple:
 
 def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
            g: torch.Tensor = None, complex_bank: bool = False,
-           czt: bool = False):
+           czt: bool = False, max_n: int = MAX_N):
     """Validate what a kernel takes: dtypes, ranks, contiguity and shapes
     first, the device last.  Returns (E, C, L, F, N).  The bank is float32,
     or complex64 where ``complex_bank``.  N is a power of two in [MIN_N,
-    MAX_N], or, for the chirp-z kernel (``czt``), a length ``czt_size``
+    ``max_n``], or, for the chirp-z kernel (``czt``), a length ``czt_size``
     takes, whose spectrum rows need only the N // 2 + 1 bins of an rFFT
     row.  The kernels take the signal count E*C as a C int and index
     every buffer with size_t, so E*C*F*N may pass 2^31."""
@@ -400,8 +426,8 @@ def _check(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
     f, n = bank.shape
     if czt:
         czt_size(n)
-    elif n < MIN_N or n > MAX_N or n & (n - 1):
-        raise ValueError(f"N={n} is not a power of two in [{MIN_N}, {MAX_N}]")
+    elif n < MIN_N or n > max_n or n & (n - 1):
+        raise ValueError(f"N={n} is not a power of two in [{MIN_N}, {max_n}]")
     if k_bins not in (n // 2, n) or row_len < (n // 2 + 1 if czt
                                                 else k_bins):
         raise ValueError(f"k_bins={k_bins} needs N/2 or N bins of the "
@@ -582,7 +608,8 @@ def fused_power_each(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
     Args:
       spec: (E, C, L) complex64 CUDA tensor, contiguous, as for
         ``fused_cwt``: B = E C signals.
-      bank: (F, N) float32 CUDA tensor, contiguous, real.
+      bank: (F, N) float32 CUDA tensor, contiguous, real; N a power of two
+        in [MIN_N, EACH_MAX_N].
       k_bins: N/2 on the analytic path, N otherwise.
       dst: a float32 CUDA view (B / group, group, F, hi - lo), last stride
         1 (``each_layout``): element [b // group, b % group, f, n - lo]
@@ -590,11 +617,13 @@ def fused_power_each(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
         lo <= n < hi.  Other elements of its storage are left as they are.
       keep: (lo, hi), 0 <= lo < hi <= N.
 
-    Returns ``dst``.  Counted under "power_each"."""
+    Returns ``dst``.  Counted under "power_each", at N above MAX_N (the
+    two-parity split, ``fused_each_split_kernel``) under
+    "power_each_split"."""
     if bank.is_complex():
         raise ValueError(f"a complex bank takes only the {COMPLEX_EPILOGUES} "
                          f"epilogues, not 'power_each'")
-    e, c, row_len, f, n = _check(spec, bank, k_bins)
+    e, c, row_len, f, n = _check(spec, bank, k_bins, max_n=EACH_MAX_N)
     layout = each_layout(dst, e * c, f, keep)
     if layout[-1] > n:
         raise ValueError(f"keep {tuple(keep)} passes N={n}")
@@ -604,13 +633,15 @@ def fused_power_each(spec: torch.Tensor, bank: torch.Tensor, k_bins: int,
     with torch.cuda.device(spec.device):
         err = lib.ninw_fused_power_each(
             spec.data_ptr(), bank.data_ptr(),
-            _core_twiddles(n, spec.device).data_ptr(), dst.data_ptr(),
+            _each_twiddles(n, spec.device).data_ptr(), dst.data_ptr(),
             e * c, f, n, k_bins, row_len, *layout, _stream(spec.device))
+    key = "power_each_split" if n > MAX_N else "power_each"
     if err != 0:
-        raise RuntimeError(f"fused_power_each launch failed: CUDA error "
-                           f"{err} (B={e * c}, F={f}, N={n}, keep={keep})")
-    launches["power_each"] += 1
-    _check_nans("power_each", [dst])
+        raise RuntimeError(f"fused_power_each[{key}] launch failed: CUDA "
+                           f"error {err} (B={e * c}, F={f}, N={n}, "
+                           f"keep={keep})")
+    launches[key] += 1
+    _check_nans(key, [dst])
     return dst
 
 

@@ -49,8 +49,9 @@ workload fails; ``supports()`` is ``why_not() is None``.  ``route()`` adds
 the signals, the device and the family's own rules to it, and names the
 span each dispatcher opens around its transform (``transform_span``):
 ``ninw.transform.kernel:<launch key>`` (the complex-bank keys are
-``<epilogue>_cx``, the chirp-z ones ``<epilogue>_czt``), or
-``ninw.transform.plain:<reason>``.
+``<epilogue>_cx``, the chirp-z ones ``<epilogue>_czt``, and "power_each"
+at N = 32768, two 16384-point transforms of the core, is
+``power_each_split``), or ``ninw.transform.plain:<reason>``.
 
 The signal FFT runs outside the kernel, as ``torch.fft.rfft`` on the analytic
 path (``interpolate=True``) and ``torch.fft.fft`` otherwise.  Everything from
@@ -107,13 +108,14 @@ DEFAULT_PRECISION = "fast3"
 MAX_SSQ_SIGNALS = 65535
 
 
-def why_not(signals_shape, bank):
-    """Why the fused kernel does not take this workload, or None when it
-    does: "shape" (not an (E, C, N) batch with E >= 1, or not an (F, N)
-    bank built for the same N), "complex_bank" (a complex or integer bank),
-    "channels" (C outside 1..65535), "n_not_pow2" (N not a power of two)
-    or "n_range" (N outside [256, 16384]), the first that applies.
-    ``route()`` adds the reasons that are not the shape's."""
+def why_not(signals_shape, bank, family: str = "power"):
+    """Why the fused kernel of ``family`` does not take this workload, or
+    None when it does: "shape" (not an (E, C, N) batch with E >= 1, or not
+    an (F, N) bank built for the same N), "complex_bank" (a complex or
+    integer bank), "channels" (C outside 1..65535), "n_not_pow2" (N not a
+    power of two) or "n_range" (N outside [256, 16384]; [256, 32768] for
+    "power_each"), the first that applies.  ``route()`` adds the reasons
+    that are not the shape's."""
     if bank is None or len(signals_shape) != 3:
         return "shape"
     e, c, n = signals_shape
@@ -125,23 +127,24 @@ def why_not(signals_shape, bank):
         return "channels"
     if n & (n - 1) != 0:
         return "n_not_pow2"
-    if not kernels.MIN_N <= n <= kernels.MAX_N:
+    top = kernels.EACH_MAX_N if family == "power_each" else kernels.MAX_N
+    if not kernels.MIN_N <= n <= top:
         return "n_range"
     return None
 
 
 def supports(signals_shape, bank, epilogue: str = "power") -> bool:
-    """True when the fused kernel takes this workload (``why_not()`` finds
-    nothing): an (E, C, N) batch with E >= 1 and 1 <= C <= 65535, N a power
-    of two in [256, 16384], and a real floating (F, N) bank built for the
-    same N.  Any epoch count works for every epilogue: the kernel loops over
+    """True when the fused kernel of ``epilogue`` takes this workload
+    (``why_not()`` finds nothing): an (E, C, N) batch with E >= 1 and
+    1 <= C <= 65535, N a power of two in [256, 16384] ([256, 32768] for
+    "power_each"), and a real floating (F, N) bank built for the same N.
+    Any epoch count works for every epilogue: the kernel loops over
     all epochs and never pads one in.  A CUDA workload this rejects runs the
     plain torch path on the card through the ``*_auto`` entry points; for
     the three epoch reductions ``route()`` asks it about a complex bank's
     real part, as the JAX package does, and so takes the complex-bank
     kernels."""
-    del epilogue
-    return why_not(signals_shape, bank) is None
+    return why_not(signals_shape, bank, epilogue) is None
 
 
 def transform_span(kernel: str, why) -> str:
@@ -186,7 +189,8 @@ def route(family: str, signals, bank, *, device=None, czt: bool = False,
     Args:
       family: an epoch reduction ("power", "itc", "power_itc"), which also
         takes a complex bank, asked about by its real part, under the key
-        "<family>_cx"; "power_each"; a cross-pair epilogue ("coherence",
+        "<family>_cx"; "power_each", under the key "power_each_split" at
+        N above ``kernels.MAX_N``; a cross-pair epilogue ("coherence",
         "phaselag", "plv"), asked about the channel-a batch; or "ssq".
       signals: the (E, C, N) tensor the kernel would be handed, or the
         shape of real signals on ``device``.
@@ -219,7 +223,9 @@ def route(family: str, signals, bank, *, device=None, czt: bool = False,
           and bank.is_complex()):
         why, key = why_not(shape, bank.real), family + "_cx"
     else:
-        why = why_not(shape, bank)
+        why = why_not(shape, bank, family)
+        if family == "power_each" and shape[-1] > kernels.MAX_N:
+            key = "power_each_split"
         if (czt and why == "n_not_pow2" and kernels.MIN_N < shape[-1]
                 and 2 * shape[-1] - 1 <= kernels.CZT_MAX_M
                 and not cx_signals and on_card

@@ -150,7 +150,7 @@ def chunked_fused_power(signal_r, bank_r, *, mesh, halo: int,
     """``chunked_power`` with the fused per-signal kernel (K4,
     ``ops.fused.fused_power_from_bank``) on each extended chunk: a real
     bank, and an extended length the kernel takes (a power of two in [256,
-    16384]: ``pow2_halo`` sizes it so).  On the CPU the kernel's plain
+    32768]: ``pow2_halo`` sizes it so).  On the CPU the kernel's plain
     version."""
     from ..ops.fused import fused_power_from_bank
     return _chunk_call(mesh, signal_r, bank_r, None, halo,

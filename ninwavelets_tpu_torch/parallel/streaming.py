@@ -111,7 +111,7 @@ class StreamingCWT:
             raise ValueError(
                 f"fused streaming needs a real bank and an extended "
                 f"window (window + 2*halo = {ext}) that is a power of "
-                f"two in [256, 16384]")
+                f"two in [256, 32768]")
         #: Why a window batch runs the plain chain, or None: the kernel.
         self._why = r.why
         self._span = r.span

@@ -40,7 +40,7 @@ on top of the planes: ``EpochsWavelet.specparam`` (the time mean of
 ``power``, K1 on the card), ``cp_power`` (``power_all`` for "cfn", K1;
 ``single_trial_power(_all)`` for "efn" / "ecfn", K4), ``cycles``,
 ``matching_pursuit`` and ``psd``; ``RawWavelet.states`` and ``specparam``
-(``power``, K4 where the extended window is at most 16384), ``irasa`` and
+(``power``, K4 where the extended window is at most 32768), ``irasa`` and
 ``psd``.  ``psd``, ``_welch_of`` and the ``SpectralFit`` of ``specparam``
 are host numpy, as in the JAX package.  Sensor-space preprocessing and
 decoding is plain torch on the wavelet's device: ``EpochsWavelet.decode``
@@ -1468,8 +1468,10 @@ class RawWavelet:
     window / halo / batch: see ``StreamingCWT`` (the halo defaults from the
         wavelet's envelope decay at the lowest analysis frequency; the
         extended window is rounded up to a power of two).  The fused kernel
-        takes extended windows up to 16384 samples: the default window of
-        16384 extends past that and runs the plain path on the card.
+        takes extended windows up to 32768 samples: the default window of
+        16384 extends to 32768, which it runs as two 16384-point
+        transforms an output parity ("power_each_split"); a window whose
+        extension passes 32768 runs the plain path on the card.
     """
 
     def __init__(self, raw, wavelet: WaveletBase, window: int = 16384,

@@ -18,6 +18,7 @@ import torch
 import ninwavelets_tpu as nw
 from ninwavelets_tpu.ops import fused as jfused
 from ninwavelets_tpu.ops.bank import make_fft_bank as jbank
+import ninwavelets_tpu_torch as nt
 from ninwavelets_tpu_torch import kernels
 from ninwavelets_tpu_torch.ops import cwt as tcwt
 from ninwavelets_tpu_torch.ops import fused as tfused
@@ -195,3 +196,101 @@ def test_import_attempts_no_build():
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# -- "power_each" at N = 32768: two 16384-point transforms ------------------
+
+SPLIT_N = 2 * kernels.MAX_N
+
+
+def _split_power(sig, bank, interpolate, keep):
+    """The split "power_each" kernel (``fused_each_split_kernel``) in torch:
+    Z = bank x spectrum on the kernel's K bins, the radix-2 butterfly on
+    the output index, w^k from ``kernels.split_twiddles``, one unnormalised
+    16384-point inverse DFT for each output parity, the parities
+    interleaved, |x|^2 / N^2, the columns ``keep``."""
+    n = sig.shape[-1]
+    h = n // 2
+    k_bins = h if interpolate else n
+    spec = (torch.fft.rfft(sig) if interpolate else torch.fft.fft(sig))
+    z = torch.nn.functional.pad(spec[..., None, :k_bins] * bank[:, :k_bins],
+                                (0, n - k_bins))
+    lo, hi = z[..., :h], z[..., h:]
+    w = torch.from_numpy(kernels.split_twiddles(n))
+    even = torch.fft.ifft(lo + hi, norm="forward")
+    odd = torch.fft.ifft((lo - hi) * w, norm="forward")
+    y = torch.stack([even, odd], -1).flatten(-2)
+    return ((y.real ** 2 + y.imag ** 2) / float(n) ** 2)[..., keep[0]:keep[1]]
+
+
+@pytest.mark.parametrize("interpolate", [False, True])
+@pytest.mark.parametrize("keep", [(0, SPLIT_N), (8192, 24576)])
+def test_split_power_each_matches_the_plain_power(interpolate, keep):
+    """The even and odd output parities of the 32768-point inverse DFT as
+    two 16384-point transforms give ``power_from_bank``'s plane, to float32
+    rounding, on the whole window and on the recording's kept interior."""
+    sig = torch.from_numpy(np.random.default_rng(27).standard_normal(
+        (3, SPLIT_N), dtype=np.float32))
+    bank = nt.Morse(SFREQ, interpolate=interpolate,
+                    device="cpu").make_fft_wavelets(
+                        np.array([1.0, 10.0, 40.0, 100.0]), SPLIT_N / SFREQ)
+    want = tcwt.power_from_bank(sig, bank, interpolate)[..., keep[0]:keep[1]]
+    got = _split_power(sig, bank, interpolate, keep)
+    assert got.shape == want.shape == (3, 4, keep[1] - keep[0])
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_split_twiddles_are_the_odd_parity_rotation():
+    w = kernels.split_twiddles(SPLIT_N)
+    assert w.dtype == np.complex64 and w.shape == (SPLIT_N // 2,)
+    k = np.arange(SPLIT_N // 2)
+    np.testing.assert_array_equal(
+        w, np.exp(2j * np.pi * k / SPLIT_N).astype(np.complex64))
+    assert w[0] == 1 and abs(w[SPLIT_N // 4] - 1j) < 1e-7
+
+
+@pytest.mark.parametrize("family,n,key,why", [
+    ("power_each", SPLIT_N, "power_each_split", None),
+    ("power_each", kernels.MAX_N, "power_each", None),
+    ("power_each", 2 * SPLIT_N, None, "n_range"),
+    ("power", SPLIT_N, None, "n_range"),
+    ("itc", SPLIT_N, None, "n_range"),
+    ("power_itc", SPLIT_N, None, "n_range"),
+    ("coherence", SPLIT_N, None, "n_range"),
+    ("phaselag", SPLIT_N, None, "n_range"),
+    ("plv", SPLIT_N, None, "n_range"),
+])
+def test_only_power_each_takes_32768(family, n, key, why):
+    """``route()`` on a card: "power_each" launches at N = 32768 under
+    "power_each_split"; every other family keeps [256, 16384], and
+    "power_each" stops at 32768."""
+    r = tfused.route(family, (1, 1, n), torch.ones(3, n), device="cuda")
+    assert (r.key, r.why, r.launch) == (key, why, why is None)
+    assert r.span == tfused.transform_span(key, why)
+    assert tfused.supports((1, 1, n), torch.ones(3, n), family) == (
+        why is None)
+
+
+def test_ssq_and_complex_banks_stay_plain_at_32768():
+    bank = torch.ones(3, SPLIT_N)
+    assert tfused.route("ssq", (1, 1, SPLIT_N), bank, device="cuda",
+                        grid=("lin", 5.0, 5.0)).why == "n_range"
+    cx = bank.to(torch.complex64)
+    assert tfused.route("power_each", (1, 1, SPLIT_N), cx,
+                        device="cuda").why == "complex_bank"
+
+
+def test_split_launcher_checks_before_the_device():
+    """The launcher takes N = 32768 for "power_each" (it reaches the CUDA
+    check) and refuses 65536 by its shape rule."""
+    spec = torch.zeros((2, 1, SPLIT_N // 2 + 1), dtype=torch.complex64)
+    dst = torch.zeros((2, 1, 3, SPLIT_N))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fused_power_each(spec, torch.zeros(3, SPLIT_N),
+                                 SPLIT_N // 2, dst, (0, SPLIT_N))
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.fused_power_each(
+            torch.zeros((2, 1, SPLIT_N + 1), dtype=torch.complex64),
+            torch.zeros(3, 2 * SPLIT_N), SPLIT_N,
+            torch.zeros((2, 1, 3, 2 * SPLIT_N)), (0, 2 * SPLIT_N))
+    assert "power_each_split" in kernels.launches

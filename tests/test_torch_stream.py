@@ -186,6 +186,43 @@ def test_bench_geometry():
     assert not s._fused                   # "auto" on the CPU: plain path
 
 
+def test_default_window_geometry_takes_the_split_kernel():
+    """``RawWavelet``'s default window, 16384 at 1 kHz with 1-100 Hz Morse
+    rows, extends to 32768: on a card the stream launches "power_each"
+    under "power_each_split" (two 16384-point transforms a row), where it
+    ran the plain chain before; on the CPU "auto" keeps the plain path."""
+    _, tw = _pair("Morse")
+    s = StreamingCWT(tw._wdef(), np.linspace(1, 100, 100), SFREQ,
+                     window=16384, device="cpu")
+    ext = s.window + 2 * s.halo
+    assert (s.halo, ext) == (8192, 32768)
+    r = tfused.route("power_each", (1, 1, ext), s._bank, device="cuda")
+    assert (r.key, r.why, r.span) == (
+        "power_each_split", None,
+        "ninw.transform.kernel:power_each_split")
+    assert s._why == "cpu" and not s._fused
+
+
+@pytest.mark.parametrize("interpolate", [False, True])
+def test_streaming_at_32768_forced_fused_is_the_plain_path_on_cpu(
+        interpolate):
+    """``use_fused=True`` at an extended window of 32768 is accepted now
+    (the split kernel on a card) and runs its plain version on the CPU:
+    the same plane as ``use_fused=False``, bit for bit."""
+    _, tw = _pair("Morse", interpolate=interpolate)
+    kw = dict(window=16384, halo=300, interpolate=interpolate, batch=2,
+              device="cpu")
+    fused = StreamingCWT(tw._wdef(), [40.0], SFREQ, use_fused=True, **kw)
+    plain = StreamingCWT(tw._wdef(), [40.0], SFREQ, use_fused=False, **kw)
+    assert fused.window + 2 * fused.halo == 32768 and fused._fused
+    sig = _recording((40000,), seed=27)
+    before = dict(kernels.launches)
+    got = fused.power_device(sig)
+    assert got.shape == (1, 40000)
+    torch.testing.assert_close(got, plain.power_device(sig), rtol=0, atol=0)
+    assert kernels.launches == before
+
+
 def test_chunk_bank_matches_jax():
     jw, tw = _pair("Morse", interpolate=True)
     got = chunk_bank(tw._wdef(), FREQS, 1024, 512, SFREQ, True,
@@ -259,8 +296,8 @@ def test_streaming_interior_matches_whole_signal():
 def test_streaming_force_fused_raises_on_bad_geometry():
     _, tw = _pair("Morse")
     with pytest.raises(ValueError, match="power of two"):
-        StreamingCWT(tw._wdef(), [40.0], SFREQ, window=16384, halo=300,
-                     use_fused=True, device="cpu")   # ext 32768 > 16384
+        StreamingCWT(tw._wdef(), [40.0], SFREQ, window=32768, halo=300,
+                     use_fused=True, device="cpu")   # ext 65536 > 32768
     mh = nt.MexicanHat(SFREQ, device="cpu")
     with pytest.raises(ValueError, match="real bank"):
         StreamingCWT(mh._wdef(), [40.0], SFREQ, window=1024, halo=512,

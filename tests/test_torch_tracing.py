@@ -273,9 +273,11 @@ def test_each_dispatcher_opens_one_transform_span(auto):
 
 def test_stream_reasons():
     wdef = nt.Morse(SFREQ, device="cpu")._wdef()
-    long = StreamingCWT(wdef, FREQS, SFREQ, window=16384, halo=200,
+    long = StreamingCWT(wdef, FREQS, SFREQ, window=32768, halo=200,
                         device="cpu")
     assert long._why == "n_range" and not long._fused
+    assert StreamingCWT(wdef, FREQS, SFREQ, window=16384, halo=200,
+                        device="cpu")._why == "cpu"
     assert StreamingCWT(wdef, FREQS, SFREQ, window=512, halo=200,
                         device="cpu")._why == "cpu"
     assert StreamingCWT(wdef, FREQS, SFREQ, window=512, halo=200,
